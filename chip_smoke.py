@@ -9,12 +9,26 @@ fatal on failure:
 
 1. device: the card's name, count and power limit; float32 matmuls in full
    float32 (TF32 off);
-2. build: every CUDA kernel of the serving path from ``cu2rec_torch/csrc``
-   with nvcc, and its ``-Xptxas -v`` report;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it (and the edge shapes), with its
-   time, the plain version's, the library call's and the bound;
-4. serve: the ``serve`` CLI over stdio at ML-20M scale (138,000 users,
+2. build: every CUDA kernel of the port from ``cu2rec_torch/csrc``, one
+   nvcc each, all started together, and each one's ``-Xptxas -v`` report;
+3. kernels: K1 (the ridge solve) against its plain PyTorch version at the
+   serving path's shapes and the edge shapes, with its time, the plain
+   version's, the library call's and the bound;
+4. training kernels: K0a (the SGD step) for first_wins, twin (mirror and
+   lean) and frozen items, three steps each at a small shape and at the
+   headline shape (138,000 users, 27,000 items, F=100, 20,000,000 ratings
+   built in memory from ``--seed``), the changed rows exactly and the
+   tables within 1e-5 of the plain version; K0b (the eval sums) over the
+   20,000,000 ratings within 1e-6; K2 and K3 (the gather probes' kernels)
+   exactly equal to ``table[idx]``; each timed with CUDA events beside its
+   bound, the step loop also under ``torch.profiler``;
+5. the entry points, each with the launch counts set to 0 before it and
+   read after it: ``mf`` trains a planted rank-20 model at the headline
+   widths (1,000,000 train and 100,000 test ratings as CSVs, 300
+   iterations) and its test RMSE must fall below the global mean's;
+   ``predict`` folds in one user of 20 ratings, explicitly (K0a) and
+   ``--implicit`` (K1); the two gather probes run (K2, K3);
+6. serve: the ``serve`` CLI over stdio at ML-20M scale (138,000 users,
    27,000 items, F=100, 1,000,000 train ratings; random tables from
    ``--seed``): one recommend of 512 known users, 256 explicit fold-ins,
    256 implicit fold-ins and a stats request, each checked (k items, rated
@@ -31,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -50,7 +65,19 @@ RTOL, ATOL = 1e-3, 1e-4
 SHAPES = [(7, 9), (1000, 51), (256, 100), (64, 101), (33, 301), (8, 400)]
 MAIN_SHAPE = (256, 100)          # the implicit fold-in batch at F=100
 U, I, F = 138_000, 27_000, 100   # bench.py's ML-20M-scale headline model
-N_RATINGS = 1_000_000
+N_RATINGS = 1_000_000            # the serve phase's train ratings
+N_HEADLINE = 20_000_000          # bench.py's rating count: K0a and K0b
+# The training phase's planted model and its CSVs (read with numpy's
+# genfromtxt, which is why they hold 1.1 M of the 20 M ratings).
+RANK, TRAIN_RATINGS, TEST_RATINGS = 20, 1_000_000, 100_000
+TRAIN_ITERATIONS = 300
+# K0a's cases: (collision, lean item-major layout, train items).
+STEP_CASES = (("first_wins", False, True), ("twin", False, True),
+              ("twin", True, True), ("first_wins", False, False))
+# K0a may contract float32 multiply-adds into FMAs (its plain version does
+# not): a step's tables agree within a few float32 roundings.  K0b and its
+# plain version both sum in float64.
+STEP_ATOL, EVAL_RTOL = 1e-5, 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -100,9 +127,12 @@ def phase_build():
 # -- phase 3: kernels --------------------------------------------------------
 
 def _tpu_kernel_site(rel: str, needle: str) -> str:
-    """``<package>/<rel>:<line>`` of the TPU kernel this port replaces,
-    found in the checkout (the TPU package is read, never imported)."""
+    """``<dir>/<rel>:<line>`` of the TPU code a kernel of the port replaces
+    (or takes its semantics from), found in the checkout outside the port's
+    own package (the TPU package is read, never imported)."""
     for path in sorted(HERE.glob(f"*/{rel}")):
+        if path.relative_to(HERE).parts[0] == "cu2rec_torch":
+            continue
         for n, line in enumerate(path.read_text().splitlines(), 1):
             if line.startswith(needle):
                 return f"{path.relative_to(HERE)}:{n}"
@@ -118,23 +148,8 @@ def _spd(torch, B, N, seed, dev):
     return (torch.from_numpy(G).to(dev), torch.from_numpy(rhs).to(dev))
 
 
-def _time_ms(torch, fn, inputs, reps: int, warm: int = 2) -> float:
-    """Mean ms per call with CUDA events, cycling through ``inputs`` (sets
-    whose total exceeds the 50 MB L2, so each call reads from HBM)."""
-    for r in range(warm):
-        fn(*inputs[r % len(inputs)])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for r in range(reps):
-        fn(*inputs[r % len(inputs)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_kernels(torch, dev):
+    from cu2rec_torch.experiments.common import time_ms
     from cu2rec_torch.ops import cuda_linalg as cl
 
     for B, N in SHAPES:
@@ -165,9 +180,9 @@ def phase_kernels(torch, dev):
 
     lib_err = float((library(*sets[0]) - got).abs().max())
     require(lib_err < 1e-3, f"library solve disagrees: {lib_err}")
-    ms = _time_ms(torch, cl.ridge_solve_batched_cuda, sets, reps=60)
-    plain_ms = _time_ms(torch, cl.ridge_solve_reference, sets, reps=5)
-    library_ms = _time_ms(torch, library, sets, reps=30)
+    ms = time_ms(cl.ridge_solve_batched_cuda, sets, reps=60)
+    plain_ms = time_ms(cl.ridge_solve_reference, sets, reps=5)
+    library_ms = time_ms(library, sets, reps=30)
     # A Cholesky solve of a symmetric G needs only its lower triangle.
     n_bytes = 4 * (B * N * (N + 1) // 2 + 2 * B * N)
     n_ops = B * (N ** 3 / 3 + 2 * N ** 2)
@@ -193,7 +208,480 @@ def phase_kernels(torch, dev):
     return [entry]
 
 
-# -- phase 4: serve ----------------------------------------------------------
+# -- phase 4: the training path's kernels (K0a, K0b) and the probes' (K2, K3)
+
+def _hp():
+    """The step's hyperparameters in the kernel checks and timings."""
+    from cu2rec_torch.ops.sgd import Hyper
+
+    return Hyper(0.05, 0.02, 0.02, 0.02, 0.02)
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the float32 peak."""
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_F32_FLOP_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
+def _entry(name, site, err, ms, plain_ms, n_bytes, n_ops, library_ms,
+           shape, semantics=None):
+    """One kernel's record of the ``{"kernels": [...]}`` line.  A kernel
+    with no TPU kernel behind it has ``replaces`` null and names the TPU
+    code whose semantics it takes in ``semantics``."""
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    e = {"name": name, "route": "cuda",
+         "source": f"cu2rec_torch/csrc/{name}.cu",
+         "replaces": None if semantics else site, "launches": None,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": library_ms, "shape": shape}
+    if semantics:
+        e["semantics"] = f"{site} {semantics}"
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"[kernel] {name} {shape}: {ms:.4f} ms kernel, {plain_ms:.3f} ms "
+        f"plain, library {lib}, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} MFLOP), max_abs_err "
+        f"{err:.3e}")
+    return e
+
+
+def _packed_tables(torch, n_users, n_items, n_factors, seed, dev):
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops.packed import pack
+
+    rng = np.random.default_rng(seed)
+    return pack(model_from_numpy({
+        "p": rng.normal(0, 0.1, (n_users, n_factors)),
+        "q": rng.normal(0, 0.1, (n_items, n_factors)),
+        "user_bias": rng.normal(0, 0.1, n_users),
+        "item_bias": rng.normal(0, 0.1, n_items),
+        "global_bias": [3.5]}, dev))
+
+
+def _headline_csr(seed: int):
+    """bench.py's headline ratings shape, 20,000,000 ratings over U users
+    and I items, built in memory from the seed (no CSV)."""
+    from cu2rec_torch.data.csr import CSRRatings
+
+    rng = np.random.default_rng(seed)
+    counts = np.bincount(rng.integers(0, U, N_HEADLINE), minlength=U)
+    indptr = np.zeros(U + 1, np.int32)
+    np.cumsum(counts, out=indptr[1:])
+    return CSRRatings(
+        indptr=indptr,
+        indices=rng.integers(0, I, N_HEADLINE, dtype=np.int32),
+        data=(rng.integers(1, 11, N_HEADLINE) / 2.0).astype(np.float32),
+        n_users=U, n_items=I)
+
+
+def _small_csr(seed: int):
+    """3,000 users x 800 items, 30,000 ratings; users 0-9 and items 0-4
+    have none (their rows must come out of a step unchanged)."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+
+    rng = np.random.default_rng(seed)
+    n = 30_000
+    return csr_from_arrays(rng.integers(10, 3000, n), rng.integers(5, 800, n),
+                           (rng.integers(1, 11, n) / 2.0).astype(np.float32),
+                           3000, 800)
+
+
+def _step_bytes(csr, n_factors, collision, lean, train_items):
+    """Bytes one step must move: each table read and written once, the
+    user indptr, and one sampled (item, rating) per user with ratings;
+    under twin, the item indptr and one sampled (user, rating) per item
+    with ratings (through the permutation when lean).  The election buffer
+    is scratch, not input or output."""
+    from cu2rec_torch.ops.packed import packed_width
+
+    W = packed_width(n_factors)
+    u_has = int(np.count_nonzero(np.diff(csr.indptr)))
+    n = 2 * csr.n_users * W * 4 + 4 * (csr.n_users + 1) + 8 * u_has
+    if train_items:
+        n += 2 * csr.n_items * W * 4
+    if train_items and collision == "twin":
+        i_has = int(np.count_nonzero(np.bincount(csr.indices,
+                                                 minlength=csr.n_items)))
+        n += 4 * (csr.n_items + 1) + (12 if lean else 8) * i_has
+    return n
+
+
+def _check_steps(torch, csr, n_factors, seed, dev, label):
+    """Three steps of each case, kernel against plain version from the same
+    tables: the same rows change and the tables agree within STEP_ATOL.
+    Returns the largest absolute difference."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.packed import packed_step, packed_step_reference
+    from cu2rec_torch.ops.sgd import prng_key
+
+    worst = 0.0
+    for collision, lean, train_items in STEP_CASES:
+        dr = to_device(csr, dev, item_major=collision == "twin", lean=lean)
+        pm = _packed_tables(torch, csr.n_users, csr.n_items, n_factors,
+                            seed, dev)
+        for it in range(3):
+            kw = dict(train_items=train_items, collision=collision)
+            got = packed_step(pm, dr, _hp(), prng_key(seed), it, **kw)
+            want = packed_step_reference(pm, dr, _hp(), prng_key(seed), it,
+                                         **kw)
+            torch.cuda.synchronize()
+            for side in ("T_u", "T_i"):
+                g, w, p = (getattr(x, side) for x in (got, want, pm))
+                require(torch.equal((g != p).any(1), (w != p).any(1)),
+                        f"sgd_step {label} {collision} lean={lean} step "
+                        f"{it}: the changed rows of {side} differ")
+                err = float((g - w).abs().max())
+                worst = max(worst, err)
+                require(err <= STEP_ATOL,
+                        f"sgd_step {label} {collision} lean={lean} step "
+                        f"{it}: {side} differs by {err}")
+            pm = got
+        log(f"[kernel] sgd_step {label} {collision} lean={lean} "
+            f"train_items={train_items}: 3 steps, the same rows changed, "
+            f"max_abs_err so far {worst:.3e}")
+        del dr
+    return worst
+
+
+def _time_steps(torch, pm, dr, collision, n_steps: int = 50):
+    """(device ms per step with CUDA events, host ms per step) over a run
+    of ``packed_run_steps``, after a warm-up run."""
+    from cu2rec_torch.ops.packed import packed_run_steps
+    from cu2rec_torch.ops.sgd import prng_key
+
+    packed_run_steps(pm, dr, _hp(), prng_key(1), 0, 3, True, collision)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    packed_run_steps(pm, dr, _hp(), prng_key(1), 3, n_steps, True, collision)
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / n_steps
+    return start.elapsed_time(end) / n_steps, host
+
+
+def _profile_steps(torch, pm, dr, collision, n_steps: int = 20):
+    """The step loop under torch.profiler: (device busy ms per step, host
+    ms per step, top kernels)."""
+    from torch.profiler import ProfilerActivity
+
+    from cu2rec_torch.ops.packed import packed_run_steps
+    from cu2rec_torch.ops.sgd import prng_key
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        packed_run_steps(pm, dr, _hp(), prng_key(2), 0, n_steps, True,
+                         collision)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    busy_s, top = _device_breakdown(torch, prof)
+    return busy_s * 1e3 / n_steps, host_s * 1e3 / n_steps, top
+
+
+def phase_train_kernels(torch, dev, seed: int):
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.ops import cuda_gather, cuda_loss
+    from cu2rec_torch.ops.loss import packed_error_sums_reference
+    from cu2rec_torch.ops.packed import packed_step_reference
+    from cu2rec_torch.ops.sgd import prng_key
+
+    entries = []
+    # K0a: the SGD step, at a small shape and at the headline shape.
+    err = _check_steps(torch, _small_csr(seed), 16, seed, dev, "small F=16")
+    t0 = time.perf_counter()
+    csr = _headline_csr(seed)
+    log(f"[kernel] headline ratings: {U} users x {I} items, "
+        f"{csr.nnz} ratings ({time.perf_counter() - t0:.1f} s)")
+    err = max(err, _check_steps(torch, csr, F, seed, dev, f"headline F={F}"))
+    pm = _packed_tables(torch, U, I, F, seed, dev)
+    times = {}
+    # The profiler's first session pays for its own start: run one short
+    # session before the two that are read.
+    _profile_steps(torch, pm, to_device(csr, dev), "first_wins", n_steps=2)
+    for collision in ("first_wins", "twin"):
+        dr = to_device(csr, dev, item_major=collision == "twin")
+        ms, host_ms = _time_steps(torch, pm, dr, collision)
+        busy_ms, prof_host_ms, top = _profile_steps(torch, pm, dr,
+                                                    collision)
+        plain_ms = time_ms(lambda: packed_step_reference(
+            pm, dr, _hp(), prng_key(1), 7, collision=collision), [()],
+            reps=3)
+        times[collision] = (ms, plain_ms, _step_bytes(csr, F, collision,
+                                                      False, True))
+        log(f"[steps] {collision} at U={U} I={I} F={F}: {ms:.4f} ms a step "
+            f"(CUDA events over 50 steps), {U / ms * 1e3:.4g} user "
+            f"updates/s; host clock {host_ms:.4f} ms a step; under the "
+            f"profiler {busy_ms:.4f} ms of kernel time a step, "
+            f"{busy_ms / ms:.1%} of the event time a step, in "
+            f"{prof_host_ms:.4f} ms of host time a step; top: "
+            + "; ".join(f"{k[:50]} {t:.3f} ms x{n}" for k, t, n in top[:3]))
+        del dr
+    ms, plain_ms, n_bytes = times["first_wins"]
+    n_ops = 5 * 128 * (U + I)
+    entry = _entry("sgd_step", _tpu_kernel_site("ops/packed.py",
+                                                "def packed_step("),
+                   err, ms, plain_ms, n_bytes, n_ops, None,
+                   {"U": U, "I": I, "F": F, "W": 128, "nnz": N_HEADLINE,
+                    "collision": "first_wins"}, semantics="packed_step")
+    entry["twin_ms"], entry["twin_plain_ms"] = times["twin"][:2]
+    entry["twin_bound_ms"] = _bound(times["twin"][2], n_ops)[0]
+    entries.append(entry)
+
+    # K0b: the eval sums over all 20,000,000 ratings.
+    dr = to_device(csr, dev)
+    args = (pm.T_u, pm.T_i, 3.5, dr.row_ids, dr.indices, dr.data, F)
+    got = cuda_loss.packed_error_sums_cuda(*args)
+    again = cuda_loss.packed_error_sums_cuda(*args)
+    want = packed_error_sums_reference(pm.T_u, pm.T_i, pm.global_bias,
+                                       *args[3:])
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "eval_error is not deterministic")
+    rel = float(((got - want).abs() / want.abs()).max())
+    require(rel <= EVAL_RTOL, f"eval_error differs from its plain version "
+            f"by {rel:.3e} (relative)")
+    log(f"[kernel] eval_error at {N_HEADLINE} ratings: sums {got.tolist()}, "
+        f"relative difference from the plain version {rel:.3e}")
+    ms = time_ms(cuda_loss.packed_error_sums_cuda, [args], reps=20)
+    plain_ms = time_ms(packed_error_sums_reference,
+                        [(pm.T_u, pm.T_i, pm.global_bias) + args[3:]],
+                        reps=3)
+    n_bytes = 12 * N_HEADLINE + 4 * (F + 1) * (U + I) + 16
+    entries.append(_entry(
+        "eval_error", _tpu_kernel_site("ops/loss.py",
+                                       "def _eval_packed_jit"),
+        float((got - want).abs().max()), ms, plain_ms, n_bytes,
+        (2 * (F + 1) + 4) * N_HEADLINE, None,
+        {"U": U, "I": I, "F": F, "W": 128, "nnz": N_HEADLINE},
+        semantics="_eval_packed_jit"))
+    del dr, csr
+
+    # K2 and K3 at the probes' shapes, exact against table[idx].
+    # K2 reads each gathered row and writes it; K3 reads the table once
+    # and writes each gathered row.
+    gen = torch.Generator().manual_seed(seed)
+    for name, fn, plain, rows, draws, site, n_bytes in (
+            ("row_gather", cuda_gather.row_gather,
+             cuda_gather.row_gather_reference, 131_072, 131_072,
+             ("gather_roofline.py", "def _pallas_row_gather"),
+             4 * 131_072 + 2 * 131_072 * 128 * 4),
+            ("smem_gather", cuda_gather.smem_gather,
+             cuda_gather.smem_gather_reference, 448, 1 << 20,
+             ("vmem_gather_probe.py", "def vmem_gather"),
+             4 * (1 << 20) + (1 << 20) * 128 * 4 + 448 * 128 * 4)):
+        table = torch.randn((rows, 128), generator=gen).to(dev)
+        sets = [(table, torch.randint(0, rows, (draws,), generator=gen)
+                 .to(dev, torch.int32)) for _ in range(4)]
+        for t, idx in sets:
+            require(torch.equal(fn(t, idx), t[idx.long()]),
+                    f"{name} differs from table[idx]")
+        ms = time_ms(fn, sets, reps=40)
+        plain_ms = time_ms(plain, sets, reps=40)
+        library_ms = time_ms(lambda t, i: torch.index_select(t, 0, i),
+                             sets, reps=40)
+        entries.append(_entry(name, _tpu_kernel_site(*site), 0.0, ms,
+                              plain_ms, n_bytes, 0, library_ms,
+                              {"I": rows, "W": 128, "M": draws}))
+        del table, sets
+    torch.cuda.empty_cache()
+    return entries
+
+
+# -- phase 5: train, predict and probe through the entry points -------------
+
+def _planted(seed: int, workdir: Path):
+    """Train and test CSVs of a planted model at the headline widths: rank-20
+    factors plus user and item biases plus noise.  Returns the paths and
+    the test RMSE of the global-mean predictor."""
+    rng = np.random.default_rng(seed + 3)
+    P = rng.normal(0, 0.3, (U, RANK))
+    Q = rng.normal(0, 0.3, (I, RANK))
+    bu, bi = rng.normal(0, 0.3, U), rng.normal(0, 0.3, I)
+    n = TRAIN_RATINGS + TEST_RATINGS
+    users = np.concatenate([np.arange(U), rng.integers(0, U, n - U)])
+    rng.shuffle(users)
+    items = rng.integers(0, I, n)
+    r = (3.5 + bu[users] + bi[items] + rng.normal(0, 0.3, n)
+         + np.einsum("nk,nk->n", P[users], Q[items]))
+    paths = []
+    for name, sl in (("train", slice(0, TRAIN_RATINGS)),
+                     ("test", slice(TRAIN_RATINGS, n))):
+        order = np.argsort(users[sl], kind="stable")
+        path = workdir / f"{name}.csv"
+        with open(path, "w") as f:
+            f.write("userId,itemId,rating\n")
+            np.savetxt(f, np.column_stack([users[sl][order] + 1,
+                                           items[sl][order] + 1,
+                                           r[sl][order]]),
+                       fmt=["%d", "%d", "%.4f"], delimiter=",")
+        paths.append(str(path))
+    mu = float(np.mean(np.round(r[:TRAIN_RATINGS], 4)))
+    mean_rmse = float(np.sqrt(np.mean((np.round(r[TRAIN_RATINGS:], 4)
+                                       - mu) ** 2)))
+    return paths, mean_rmse
+
+
+def _capture(main, args):
+    """Run a CLI's ``main`` with its standard output captured."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    require(rc == 0, f"{main.__module__} exited with {rc}")
+    return buf.getvalue()
+
+
+METRIC_LINE = re.compile(
+    r"^(TRAIN|TEST): Iteration (\d+) [GC]PU MAE: (\d+\.\d+) RMSE: "
+    r"(\d+\.\d+)$")
+
+
+def phase_train(torch, seed: int, workdir: Path, card: str,
+                device: str = "cuda"):
+    from cu2rec_torch.cli import mf
+    from cu2rec_torch.ops import cuda_loss, cuda_sgd
+
+    t0 = time.perf_counter()
+    (train, test), mean_rmse = _planted(seed, workdir)
+    log(f"[train] planted data: {U} users x {I} items, rank {RANK}, "
+        f"{TRAIN_RATINGS} train and {TEST_RATINGS} test ratings "
+        f"({time.perf_counter() - t0:.1f} s); global-mean test RMSE "
+        f"{mean_rmse:.6f}")
+    cfg = workdir / "train.cfg"
+    # cur total F lr seed P_reg Q_reg ub_reg ib_reg n_threads check_error
+    # patience lr_decay
+    cfg.write_text(f"0 {TRAIN_ITERATIONS} {F} 0.05 {seed} 0.02 0.02 0.02 "
+                   f"0.02 32 100 2 0.2\n")
+    out = workdir / "out"
+    jsonl = workdir / "metrics.jsonl"
+    cuda_sgd.LAUNCHES = cuda_loss.LAUNCHES = 0
+    t0, t_start = time.perf_counter(), time.time()
+    text = _capture(mf.main, ["-c", str(cfg), train, test, "--outdir",
+                              str(out), "--checkpoint",
+                              str(workdir / "model.npz"), "--jsonl",
+                              str(jsonl), "--device", device])
+    wall, t_end = time.perf_counter() - t0, time.time()
+    launches = {"sgd_step": cuda_sgd.LAUNCHES,
+                "eval_error": cuda_loss.LAUNCHES}
+    for line in text.splitlines():
+        log(f"[train] {line}")
+    metrics = [METRIC_LINE.match(ln) for ln in text.splitlines()
+               if ln.startswith(("TRAIN:", "TEST:"))]
+    require(metrics and all(metrics), "a TRAIN/TEST line does not parse")
+    test_rmse = [(int(m[2]), float(m[4])) for m in metrics
+                 if m[1] == "TEST"]
+    require([it for it, _ in test_rmse] == [1, 100, 200, 300],
+            f"eval points {test_rmse}")
+    final, first = test_rmse[-1][1], test_rmse[0][1]
+    require(final < first and final < mean_rmse,
+            f"test RMSE {final} is not below iteration 1's {first} and the "
+            f"global mean's {mean_rmse}")
+    base = f"train_f{F}_"
+    for comp in ("p", "q", "user_bias", "item_bias", "global_bias"):
+        require((out / f"{base}{comp}.csv").exists(), f"{comp} CSV missing")
+    require(device == "cpu" or (launches["sgd_step"] > 0
+                                and launches["eval_error"] > 0),
+            f"the training run did not launch both kernels: {launches}")
+    recs = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    rates = [(r["iteration"], r["updates_per_s"]) for r in recs
+             if r["event"] == "eval"]
+    # The metric records' host timestamps split the run: set-up (CSV read,
+    # upload, warm-up) up to the first eval, the training loop up to the
+    # time record, then the CSV and checkpoint export.
+    t_eval1 = next(r["ts"] for r in recs if r["event"] == "eval")
+    t_loop = next(r["ts"] for r in recs if r["event"] == "time")
+    log(f"[train] mf on {card}: {wall:.1f} s wall: set-up and first eval "
+        f"{t_eval1 - t_start:.2f} s, iterations 2-{TRAIN_ITERATIONS} with "
+        f"their evals {t_loop - t_eval1:.3f} s, export "
+        f"{t_end - t_loop:.2f} s; test RMSE {first:.6f} at iteration 1 -> "
+        f"{final:.6f} at {TRAIN_ITERATIONS} (global mean {mean_rmse:.6f}); "
+        f"launches {launches}; user updates/s per segment (host clock, the "
+        f"segment's train eval included): {rates}")
+    return launches, out
+
+
+def _predictions(text: str):
+    lines = text.splitlines()
+    k = lines.index("Predictions: ")
+    scores = np.array([float(x) for x in
+                       lines[k + 1].strip("[], ").split(",")])
+    ranks = [(int(ln.split("Item:")[1].split()[0]),
+              float(ln.split("rating:")[1])) for ln in lines
+             if ln.startswith("Rank:")]
+    return scores, ranks
+
+
+def phase_predict(seed: int, workdir: Path, out: Path, card: str,
+                  device: str = "cuda"):
+    from cu2rec_torch.cli import predict
+    from cu2rec_torch.ops import cuda_linalg, cuda_sgd
+
+    rng = np.random.default_rng(seed + 4)
+    rated = rng.choice(I, 20, replace=False)
+    user = workdir / "user.csv"
+    user.write_text("userId,itemId,rating\n" + "".join(
+        f"1,{i + 1},{r}\n" for i, r in
+        zip(sorted(rated), rng.integers(1, 11, 20) / 2.0)))
+    args = ["-c", str(workdir / "train.cfg"),
+            "-i", str(out / f"train_f{F}_item_bias.csv"),
+            "-g", str(out / f"train_f{F}_global_bias.csv"),
+            "-q", str(out / f"train_f{F}_q.csv"), str(user),
+            "--device", device]
+    launches = {}
+    for mode, extra, counter in (
+            ("explicit", [], cuda_sgd),
+            ("implicit", ["--implicit", "--alpha", "40", "--reg", "0.1"],
+             cuda_linalg)):
+        counter.LAUNCHES = 0
+        t0 = time.perf_counter()
+        text = _capture(predict.main, args + extra)
+        wall = time.perf_counter() - t0
+        launches[mode] = counter.LAUNCHES
+        scores, ranks = _predictions(text)
+        require(len(scores) == I and np.all(np.isfinite(scores)),
+                f"{mode} predict: {len(scores)} predictions, want {I}")
+        items = [i for i, _ in ranks]
+        require(sorted(items) == sorted(set(range(I)) - set(rated.tolist())),
+                f"{mode} predict: the ranking is not the unrated items")
+        require(all(abs(s - scores[i]) <= 1e-4 * max(1.0, abs(s))
+                    for i, s in ranks),
+                f"{mode} predict: a rank's rating is not its prediction")
+        ranked = scores[items]
+        require(np.all(ranked[:-1] >= ranked[1:] - 1e-5 * np.maximum(
+                    1.0, np.abs(ranked[1:]))),
+                f"{mode} predict: the ranking is not sorted by prediction")
+        require(device == "cpu" or launches[mode] > 0,
+                f"{mode} predict launched no kernel")
+        log(f"[predict] {mode}: {len(scores)} predictions, {len(ranks)} "
+            f"ranked, rated items absent, {launches[mode]} kernel "
+            f"launches, {wall:.2f} s wall on {card}")
+    return launches
+
+
+def phase_probes():
+    from cu2rec_torch.experiments import gather_roofline, vmem_gather_probe
+    from cu2rec_torch.ops.cuda_gather import row_gather, smem_gather
+
+    row_gather.LAUNCHES = smem_gather.LAUNCHES = 0
+    require(gather_roofline.main([]) == 0, "gather_roofline failed")
+    require(vmem_gather_probe.main([]) == 0, "vmem_gather_probe failed")
+    launches = {"row_gather": row_gather.LAUNCHES,
+                "smem_gather": smem_gather.LAUNCHES}
+    require(all(launches.values()), f"a probe launched no kernel: "
+            f"{launches}")
+    log(f"[probes] kernel launches {launches}")
+    return launches
+
+
+# -- phase 6: serve ----------------------------------------------------------
 
 def _replay(wave):
     """The same requests under new ids."""
@@ -490,10 +978,25 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(HERE))
 
     t0 = time.perf_counter()
+    dev = torch.device("cuda")
     name, count, smi = phase_device(torch)
     phase_build()
-    kernels = phase_kernels(torch, torch.device("cuda"))
-    kernels[0]["launches"] = phase_serve(torch, args.seed, smi)
+    kernels = phase_kernels(torch, dev)
+    kernels += phase_train_kernels(torch, dev, args.seed)
+    by_name = {k["name"]: k for k in kernels}
+    # The main paths, each with the launch counts set to 0 just before it
+    # and read just after it.
+    with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
+        trained, out = phase_train(torch, args.seed, Path(tmp), smi)
+        predicted = phase_predict(args.seed, Path(tmp), out, smi)
+    probed = phase_probes()
+    served = phase_serve(torch, args.seed, smi)
+    by_name["sgd_step"]["launches"] = trained["sgd_step"] + \
+        predicted["explicit"]
+    by_name["eval_error"]["launches"] = trained["eval_error"]
+    by_name["ridge_cholesky"]["launches"] = served + predicted["implicit"]
+    by_name["row_gather"]["launches"] = probed["row_gather"]
+    by_name["smem_gather"]["launches"] = probed["smem_gather"]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,149 @@
+"""``mf`` — train a matrix-factorization model (reference mf.cu parity).
+
+Usage matches the reference binary (README.md:31):
+
+    python -m cu2rec_torch.cli.mf -c path/to/config train.csv test.csv
+
+plus the TPU package's extensions: ``--jsonl`` metrics stream,
+``--checkpoint`` / ``--resume`` (mid-run resume), ``--collision`` policy.
+It trains on the CUDA device unless ``--device cpu`` is given.  The SGD
+family is ported; ``--algo als|ials|bpr``, ``--devices N > 1``,
+``--collision mean`` and ``--dtype bfloat16`` raise and name the ROADMAP
+item that ports them.
+
+Output contract preserved: the five component CSVs are written next to the
+train file as ``{base}_f{factors}_{p,q,user_bias,item_bias,global_bias}.csv``
+(mf.cu:63-87).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from cu2rec_torch.data.csr import build_csr
+from cu2rec_torch.data.ratings import read_ratings_csv
+from cu2rec_torch.train.trainer import train
+from cu2rec_torch.utils.checkpoint import (
+    export_components, load_checkpoint, save_checkpoint,
+)
+from cu2rec_torch.utils.config import Config
+from cu2rec_torch.utils.device import print_free_memory, resolve_device
+from cu2rec_torch.utils.metrics import MetricsLogger
+
+# What each option not yet ported waits for (ROADMAP.md, Queue 1).
+_NOT_PORTED = {
+    "als": "ROADMAP Queue 1 item 8 (ALS)",
+    "ials": "ROADMAP Queue 1 item 9 (iALS)",
+    "bpr": "ROADMAP Queue 1 item 10 (BPR)",
+    "devices": "ROADMAP Queue 1 item 12 (multi-GPU)",
+    "mean": "ROADMAP Queue 1 item 4 (mean/sum collision policies)",
+    "bfloat16": "ROADMAP Queue 1 item 4 (bf16 tables)",
+}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="mf", description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("-c", "--config", default=None, help="config file "
+                   "(legacy 9-field, extended 13-field, or JSON)")
+    p.add_argument("train_csv")
+    p.add_argument("test_csv")
+    p.add_argument("--jsonl", default=None, help="append metrics JSONL here")
+    p.add_argument("--checkpoint", default=None,
+                   help="write a resumable .npz checkpoint here at the end")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="also checkpoint every N eval points")
+    p.add_argument("--resume", default=None,
+                   help="resume from a .npz checkpoint")
+    p.add_argument("--devices", type=int, default=0,
+                   help="number of devices; only 1 (or 0 = the default "
+                   "one) is supported")
+    p.add_argument("--collision", choices=["first_wins", "mean", "twin"],
+                   default=None,
+                   help="item-update policy: first_wins = deterministic "
+                        "Hogwild parity; twin = per-item sampling")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None)
+    p.add_argument("--algo", choices=["sgd", "als", "ials", "bpr"],
+                   default=None, help="training algorithm (sgd only here)")
+    p.add_argument("--outdir", default=None,
+                   help="component output dir (default: next to train csv)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device to train on (default: cuda; no fall-back)")
+    return p
+
+
+def _refuse(what: str) -> None:
+    raise NotImplementedError(f"{what} is not ported yet: "
+                              f"{_NOT_PORTED[what]}")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.devices > 1:
+        _refuse("devices")
+    device = resolve_device(args.device)
+
+    # Free-memory probe at startup (mf.cu:33-37).
+    print_free_memory(device)
+
+    # Both CSRs share dimensions (max over the two files): evaluation
+    # indexes the model tables by user/item id.
+    train_rd = read_ratings_csv(args.train_csv)
+    test_rd = read_ratings_csv(args.test_csv)
+    n_users = max(train_rd.n_users, test_rd.n_users)
+    n_items = max(train_rd.n_items, test_rd.n_items)
+    train_csr = build_csr(train_rd, n_users=n_users, n_items=n_items)
+    test_csr = build_csr(test_rd, n_users=n_users, n_items=n_items)
+
+    model = None
+    if args.resume:
+        model, cfg, _extra = load_checkpoint(args.resume, device=device)
+        print(f"Resuming from {args.resume} at iteration {cfg.cur_iterations}")
+    else:
+        cfg = Config()
+    if args.config:
+        # The config file overrides the checkpoint's hyperparameters, but a
+        # resumed cur_iterations survives unless the file sets it.
+        cur = cfg.cur_iterations
+        cfg.read_config(args.config)
+        if args.resume and cfg.cur_iterations == 0:
+            cfg.cur_iterations = cur
+    if args.collision:
+        cfg.collision_policy = args.collision
+    if args.dtype:
+        cfg.dtype = args.dtype
+    if args.algo:
+        cfg.algo = args.algo
+    if cfg.algo != "sgd":
+        _refuse(cfg.algo)
+    if cfg.collision_policy == "mean":
+        _refuse("mean")
+    if cfg.dtype == "bfloat16":
+        _refuse("bfloat16")
+    cfg.print_config()
+
+    logger = MetricsLogger(jsonl_path=args.jsonl,
+                           label="CPU" if device.type == "cpu" else "GPU")
+    model, _losses = train(train_csr, test_csr, cfg, train_rd.global_bias,
+                           model=model, logger=logger,
+                           checkpoint_path=args.checkpoint,
+                           checkpoint_every=args.checkpoint_every,
+                           device=device)
+
+    # Component export next to the train file (mf.cu:63-87).
+    outdir = args.outdir or (os.path.dirname(args.train_csv) or ".")
+    os.makedirs(outdir, exist_ok=True)
+    base = os.path.splitext(os.path.basename(args.train_csv))[0]
+    paths = export_components(model, outdir, base, cfg.n_factors)
+    for p in paths:
+        print(f"Wrote {p}")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, model, cfg)
+        print(f"Wrote checkpoint {args.checkpoint}")
+    logger.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -20,7 +20,8 @@ CSRC = Path(__file__).resolve().parent
 BUILD_ROOT = CSRC.parents[1] / "build" / "cu2rec_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("ridge_cholesky",)
+KERNELS = ("ridge_cholesky", "sgd_step", "eval_error", "row_gather",
+           "smem_gather")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -10,8 +10,13 @@ F, 1)`` the fold-in update of a user row is one expression,
 
 — column F of ``t̂`` being 1 makes the bias update fall out of the factor
 formula, and the padding stays zero because its reg is 0.  Same layout and
-widths as the TPU package's ``ops/packed.py`` (the SGD step comes with the
-training slice).
+widths as the TPU package's ``ops/packed.py``.
+
+``packed_step`` is one SGD iteration over the packed tables.  On CUDA
+tensors it launches kernel K0a (``ops/cuda_sgd.py``); on CPU tensors it
+runs ``packed_step_reference``, the same step in plain torch, line for
+line after the TPU package's ``packed_step``.  Both are functional: they
+return new tables and leave the inputs as they were.
 """
 
 from __future__ import annotations
@@ -21,7 +26,12 @@ from dataclasses import dataclass
 import torch
 
 from cu2rec_torch.models.state import MFModel
-from cu2rec_torch.ops.sgd import Hyper
+from cu2rec_torch.ops.sgd import (
+    INT32_MAX, Hyper, _take, elect_winners, rotated_priority, sample_items,
+    sample_positions, start_user_of,
+)
+
+COLLISIONS = ("first_wins", "twin")
 
 
 def packed_width(n_factors: int) -> int:
@@ -82,3 +92,138 @@ def _reg_vectors(hp: Hyper, F: int, W: int, device=None):
                         torch.where(biascol, hp.item_bias_reg, zero))
     return (factor.to(torch.float32), biascol.to(torch.float32),
             reg_u.to(torch.float32), reg_i.to(torch.float32))
+
+
+def check_collision(collision: str) -> None:
+    if collision in ("mean", "sum"):
+        raise NotImplementedError(
+            f"collision={collision!r} is not ported yet (ROADMAP Queue 1 "
+            "item 4: needs a deterministic segmented reduction)")
+    if collision not in COLLISIONS:
+        raise ValueError(f"unknown collision policy: {collision}")
+
+
+def check_step_args(pm: PackedModel, dev, train_items: bool,
+                    collision: str) -> None:
+    """Raise for what the step does not take (yet)."""
+    if train_items:
+        check_collision(collision)
+    if pm.T_u.dtype != torch.float32 or pm.T_i.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{pm.T_u.dtype} tables are not ported yet (ROADMAP Queue 1 "
+            "item 4: bf16 tables); use float32")
+    if train_items and collision == "twin" and dev.it_indptr is None:
+        raise ValueError("collision='twin' needs item-major arrays: "
+                         "build DeviceRatings with item_major=True")
+
+
+def _item_update(T_i32, w_rows, w_rat, has_w, pm: PackedModel, hp: Hyper,
+                 factor, biascol, reg_i):
+    """The dense item-side update from each item's (pre-step) partner row
+    ``w_rows`` and rating ``w_rat`` (packed.py:158-166 / 202-210 there)."""
+    F = pm.n_factors
+    ihat_d = T_i32 * factor + biascol
+    uhat_w = w_rows * factor + biascol
+    pred_w = (pm.global_bias + torch.sum(w_rows * ihat_d, dim=-1)
+              + T_i32[:, F])
+    err_w = torch.where(has_w, w_rat - pred_w, 0.0)
+    di = hp.learning_rate * (err_w[:, None] * uhat_w - reg_i * T_i32)
+    return torch.where(has_w[:, None], T_i32 + di, T_i32)
+
+
+def packed_step_reference(pm: PackedModel, dev, hp: Hyper, key,
+                          iteration: int, *, train_items: bool = True,
+                          collision: str = "first_wins",
+                          rotation: int = 250) -> PackedModel:
+    """The plain version of K0a: one SGD iteration in plain torch, on any
+    device.  Every read is of the pre-step tables."""
+    check_step_args(pm, dev, train_items, collision)
+    T_u, T_i = pm.T_u, pm.T_i
+    U, W = T_u.shape
+    I = T_i.shape[0]
+    F = pm.n_factors
+    lr = hp.learning_rate
+
+    items, ratings, has = sample_items(key, iteration, dev.indptr,
+                                       dev.indices, dev.data)
+    row_i = T_i[torch.where(has, items, 0)]              # (U, W) pre-step
+    row_u32 = T_u
+
+    factor, biascol, reg_u, reg_i = _reg_vectors(hp, F, W, T_u.device)
+    ihat = row_i * factor + biascol
+    pred = (pm.global_bias + torch.sum(row_u32 * ihat, dim=-1)
+            + row_i[:, F])
+    err = torch.where(has, ratings - pred, 0.0)
+    du = lr * (err[:, None] * ihat - reg_u * row_u32)
+    T_u_new = torch.where(has[:, None], row_u32 + du, row_u32)
+    if not train_items:
+        return PackedModel(T_u=T_u_new, T_i=T_i, global_bias=pm.global_bias,
+                           n_factors=F)
+
+    if collision == "first_wins":
+        # Election inversion: uid = (prio + start_user) mod U, so the item
+        # side is a dense map that gathers each item's winning user.
+        prio = rotated_priority(U, iteration, 0, U, rotation, T_u.device)
+        best, _cand = elect_winners(items, has, prio, I)
+        start_user = start_user_of(iteration, U, rotation)
+        has_w = best != INT32_MAX
+        winner = torch.where(has_w, (best.to(torch.int64) + start_user) % U,
+                             0)
+        w_rows = row_u32[winner]                         # (I, W) pre-step
+        w_rat = ratings[winner]
+    else:
+        # Twin: each item samples its own (user, rating) from the
+        # item-major arrays, on the stream offset by the user count.
+        pos, has_w = sample_positions(key, iteration, dev.it_indptr,
+                                      user_offset=dev.n_users)
+        if dev.it_order is not None:
+            q = _take(dev.it_order, pos).to(torch.int64)
+            s_uid, w_rat = _take(dev.row_ids, q), _take(dev.data, q)
+        else:
+            s_uid, w_rat = _take(dev.it_users, pos), _take(dev.it_vals, pos)
+        w_rows = row_u32[torch.where(has_w, s_uid.to(torch.int64), 0)]
+    T_i_new = _item_update(T_i, w_rows, w_rat, has_w, pm, hp, factor,
+                           biascol, reg_i)
+    return PackedModel(T_u=T_u_new, T_i=T_i_new, global_bias=pm.global_bias,
+                       n_factors=F)
+
+
+def packed_step(pm: PackedModel, dev, hp: Hyper, key, iteration: int, *,
+                train_items: bool = True, collision: str = "first_wins",
+                rotation: int = 250, best=None, mu=None) -> PackedModel:
+    """One SGD iteration over packed tables (single device): kernel K0a on
+    CUDA tensors, ``packed_step_reference`` on CPU tensors.  ``best`` (K0a's
+    election buffer) and ``mu`` (the global bias as a float, read once
+    instead of once a step) are what ``packed_run_steps`` carries across
+    steps."""
+    if pm.T_u.device.type == "cpu":
+        return packed_step_reference(pm, dev, hp, key, iteration,
+                                     train_items=train_items,
+                                     collision=collision, rotation=rotation)
+    from cu2rec_torch.ops.cuda_sgd import sgd_step_cuda
+    check_step_args(pm, dev, train_items, collision)
+    mu = float(pm.global_bias) if mu is None else mu
+    T_u, T_i = sgd_step_cuda(pm.T_u, pm.T_i, mu, dev, hp,
+                             key, iteration, n_factors=pm.n_factors,
+                             train_items=train_items, collision=collision,
+                             rotation=rotation, best=best)
+    return PackedModel(T_u=T_u, T_i=T_i, global_bias=pm.global_bias,
+                       n_factors=pm.n_factors)
+
+
+def packed_run_steps(pm: PackedModel, dev, hp: Hyper, key, start_iter: int,
+                     n_steps: int, train_items: bool = True,
+                     collision: str = "first_wins") -> PackedModel:
+    """``n_steps`` iterations from ``start_iter``: a host loop of steps (one
+    or two kernel launches each on the card, nothing synchronizes)."""
+    best = mu = None
+    if pm.T_u.device.type == "cuda":
+        mu = float(pm.global_bias)
+        if train_items and collision == "first_wins":
+            best = torch.full((pm.T_i.shape[0],), INT32_MAX,
+                              dtype=torch.int32, device=pm.T_u.device)
+    for i in range(int(n_steps)):
+        pm = packed_step(pm, dev, hp, key, int(start_iter) + i,
+                         train_items=train_items, collision=collision,
+                         best=best, mu=mu)
+    return pm

@@ -88,3 +88,85 @@ def counter_uniform(key, iteration, uids: torch.Tensor) -> torch.Tensor:
     h = _fmix32((h + 0x9E3779B9) & _M32)
     # 24 high bits → exact float32 in [0, 1)
     return (h >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def sample_positions(key, iteration, indptr: torch.Tensor,
+                     user_offset: int = 0):
+    """Per-row sampled CSR position (the curand draw of sgd.cu:31-37):
+    ``(pos, has)``, both (n,), bit-equal to the TPU package's stream.
+
+    A pure function of (key, iteration, global row id): row ``r`` draws
+    with id ``r + user_offset`` (the twin item stream passes the user
+    count).  ``pos`` is int64; rows with no ratings have ``has`` False and
+    ``pos`` = their (empty) start."""
+    start = indptr[:-1].to(torch.int64)
+    length = (indptr[1:].to(torch.int64) - start).to(torch.int32)
+    n = start.shape[0]
+    uids = torch.arange(n, dtype=torch.int64, device=indptr.device) + \
+        int(user_offset)
+    u01 = counter_uniform(key, iteration, uids)
+    # float32 product, truncated: the TPU package's (u01 * len).astype(int32)
+    off = torch.minimum((u01 * length).to(torch.int32),
+                        (length - 1).clamp(min=0))
+    return start + off.to(torch.int64), length > 0
+
+
+def _take(flat: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``flat[pos]`` with positions clamped into range: an empty row's
+    position may equal ``len(flat)``; its value is masked by ``has``."""
+    if flat.shape[0] == 0:
+        return torch.zeros(pos.shape, dtype=flat.dtype, device=flat.device)
+    return flat[pos.clamp(max=flat.shape[0] - 1)]
+
+
+def sample_items(key, iteration, indptr: torch.Tensor, indices: torch.Tensor,
+                 data: torch.Tensor, user_offset: int = 0):
+    """One sampled (item, rating) per row of a CSR: ``(items, ratings,
+    has)``.  ``items`` is int64; entries of rows without ratings are
+    meaningless and masked by ``has``."""
+    pos, has = sample_positions(key, iteration, indptr, user_offset)
+    return _take(indices, pos).to(torch.int64), _take(data, pos), has
+
+
+def rotated_priority(n_users_global: int, iteration: int, user_offset: int,
+                     n_local: int, rotation: int = 250,
+                     device=None) -> torch.Tensor:
+    """Election priority of each local user at ``iteration`` (int64 values
+    in [0, U)): the reference's ``start_user += 250`` rotation
+    (training.cu:95-98; sgd.cu:27)."""
+    start_user = start_user_of(iteration, n_users_global, rotation)
+    uids = torch.arange(n_local, dtype=torch.int64, device=device) + \
+        int(user_offset)
+    return (uids - start_user) % n_users_global
+
+
+def start_user_of(iteration: int, n_users: int, rotation: int = 250) -> int:
+    """``(iteration * rotation) % n_users`` with the product wrapped to
+    int32 first, as the TPU package's traced int32 arithmetic does."""
+    prod = (int(iteration) * rotation + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return prod % n_users
+
+
+def elect_winners(items: torch.Tensor, has: torch.Tensor, prio: torch.Tensor,
+                  n_items: int):
+    """Deterministic first-writer-wins election (replaces the racy
+    ``early_bird`` flag of sgd.cu:47-50): the user of least priority among
+    those who sampled item ``y`` wins ``y``.  Returns ``(best, cand)``:
+    the per-item least priority (int32, ``INT32_MAX`` where nobody
+    sampled the item) and each user's candidate priority."""
+    cand = torch.where(has, prio.to(torch.int32),
+                       torch.full_like(prio, INT32_MAX, dtype=torch.int32))
+    best = torch.full((n_items,), INT32_MAX, dtype=torch.int32,
+                      device=cand.device)
+    idx = torch.where(has, items, torch.zeros_like(items))
+    best.scatter_reduce_(0, idx, cand, reduce="amin")
+    return best, cand
+
+
+def win_mask(best: torch.Tensor, items: torch.Tensor, cand: torch.Tensor,
+             has: torch.Tensor) -> torch.Tensor:
+    idx = torch.where(has, items, torch.zeros_like(items))
+    return has & (best[idx] == cand)

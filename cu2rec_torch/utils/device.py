@@ -20,3 +20,22 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
+
+
+def free_memory_bytes(device=None):
+    """(free_bytes, total_bytes) of a CUDA device, or (None, None) for the
+    CPU, which reports no device memory."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None, None
+    return torch.cuda.mem_get_info(dev)
+
+
+def print_free_memory(device=None) -> None:
+    """The startup free-memory line (``getFreeBytes``, reference
+    util.cu:184-195, printed by mf.cu:33-37)."""
+    free, _total = free_memory_bytes(device)
+    if free is None:
+        print("Free memory: n/a (backend exposes no memory stats)\n")
+    else:
+        print(f"Free memory: {free}\n")

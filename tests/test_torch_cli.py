@@ -1,0 +1,166 @@
+"""The port's ``mf`` and ``predict`` CLIs on the CPU against the TPU
+package's, with the TPU package's initial tables injected into the port
+(its ``init_model`` is patched to return the TPU package's draw): the same
+stdout lines, RMSE values within 1e-4, the five component CSVs under the
+same names and within 1e-5, checkpoints that resume in either package, and
+the same predictions and ranking.
+"""
+
+import re
+
+import numpy as np
+import pytest
+
+from cu2rec_torch.cli import mf as tmf
+from cu2rec_torch.cli import predict as tpred
+from cu2rec_torch.models.state import model_from_numpy
+from cu2rec_tpu.cli import mf as jmf
+from cu2rec_tpu.cli import predict as jpred
+from cu2rec_tpu.models.state import init_model as j_init_model
+from cu2rec_tpu.models.state import model_to_numpy as j_model_to_numpy
+
+# The verify recipe's config: 200 iterations, F=8, lr 0.05, seed 42.
+CONFIG = "0 200 8 0.05 42 0.02 0.02 0.02 0.02\n"
+COMPONENTS = ("p", "q", "user_bias", "item_bias", "global_bias")
+
+
+@pytest.fixture
+def jax_init(monkeypatch):
+    """The port's trainer and fold-in draw the TPU package's init."""
+    import cu2rec_torch.serve.foldin as foldin
+    import cu2rec_torch.train.trainer as trainer
+
+    def init(n_users, n_items, n_factors, global_bias, seed=42, dtype=None,
+             Q=None, item_bias=None, device=None):
+        return model_from_numpy(j_model_to_numpy(j_init_model(
+            n_users, n_items, n_factors, global_bias, seed=seed, Q=Q,
+            item_bias=item_bias)), device)
+
+    monkeypatch.setattr(trainer, "init_model", init)
+    monkeypatch.setattr(foldin, "init_model", init)
+
+
+def _run(main, args, capsys):
+    capsys.readouterr()
+    assert main(args) == 0
+    return capsys.readouterr().out
+
+
+def _shape(out):
+    """Each line with its numbers, paths and device word blanked."""
+    out = re.sub(r"(Wrote )\S+", r"\1<path>", out)
+    out = re.sub(r"\b(TPU|CPU|GPU)\b", "<device>", out)
+    return re.sub(r"-?\d+(\.\d+)?(e-?\d+)?", "<n>", out).splitlines()
+
+
+def _metric_lines(out):
+    return [(ln.split()[0], int(ln.split()[2]),
+             float(ln.split("MAE:")[1].split()[0]),
+             float(ln.split("RMSE:")[1])) for ln in out.splitlines()
+            if ln.startswith(("TRAIN:", "TEST:"))]
+
+
+def _compare_metrics(t_out, j_out):
+    t, j = _metric_lines(t_out), _metric_lines(j_out)
+    assert [x[:2] for x in t] == [x[:2] for x in j] and t
+    np.testing.assert_allclose([x[2:] for x in t], [x[2:] for x in j],
+                               rtol=0, atol=1e-4)
+
+
+def _components(d, base="test_ratings", F=8):
+    return {c: np.loadtxt(d / f"{base}_f{F}_{c}.csv", delimiter=",",
+                          ndmin=2) for c in COMPONENTS}
+
+
+@pytest.fixture
+def trained(tmp_path, data_dir, jax_init, capsys):
+    """Both CLIs trained on the toy fixture: (outputs, component dirs)."""
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text(CONFIG)
+    train = str(data_dir / "test_ratings.csv")
+    outs, dirs = {}, {}
+    for name, main, extra in (("jax", jmf.main, []),
+                              ("port", tmf.main, ["--device", "cpu"])):
+        dirs[name] = tmp_path / name
+        outs[name] = _run(main, ["-c", str(cfg), train, train, "--outdir",
+                                 str(dirs[name])] + extra, capsys)
+    return cfg, outs, dirs
+
+
+def test_mf_matches_the_tpu_package(trained):
+    _, outs, dirs = trained
+    assert _shape(outs["port"]) == _shape(outs["jax"])
+    assert "TRAIN: Iteration 200 CPU MAE:" in outs["port"]
+    _compare_metrics(outs["port"], outs["jax"])
+    names = sorted(p.name for p in dirs["port"].iterdir())
+    assert names == sorted(p.name for p in dirs["jax"].iterdir())
+    assert names == sorted(f"test_ratings_f8_{c}.csv" for c in COMPONENTS)
+    a, b = _components(dirs["port"]), _components(dirs["jax"])
+    for c in COMPONENTS:
+        assert a[c].shape == b[c].shape
+        np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoints_resume_in_either_package(tmp_path, data_dir, jax_init,
+                                             capsys, writer):
+    """A checkpoint written after 100 iterations by one package resumes to
+    200 in both, with the same results."""
+    train = str(data_dir / "test_ratings.csv")
+    cfg100, cfg200 = tmp_path / "c100.txt", tmp_path / "c200.txt"
+    cfg100.write_text(CONFIG.replace(" 200 ", " 100 "))
+    cfg200.write_text(CONFIG)
+    ck = str(tmp_path / "ck.npz")
+    mains = {"jax": (jmf.main, []), "port": (tmf.main, ["--device", "cpu"])}
+    main, extra = mains[writer]
+    _run(main, ["-c", str(cfg100), train, train, "--outdir",
+                str(tmp_path / "w"), "--checkpoint", ck] + extra, capsys)
+    outs = {}
+    for name, (main, extra) in mains.items():
+        outs[name] = _run(main, ["--resume", ck, "-c", str(cfg200), train,
+                                 train, "--outdir", str(tmp_path / name)]
+                          + extra, capsys)
+        assert f"Resuming from {ck} at iteration 100" in outs[name]
+        assert "TRAIN: Iteration 1 " not in outs[name]
+        assert re.search(r"TEST: Iteration 200 \w+ MAE", outs[name])
+    _compare_metrics(outs["port"], outs["jax"])
+    a, b = _components(tmp_path / "port"), _components(tmp_path / "jax")
+    for c in COMPONENTS:
+        np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-5)
+
+
+def _predictions(out):
+    lines = out.splitlines()
+    i = lines.index("Predictions: ")
+    scores = np.array([float(x) for x in
+                       lines[i + 1].strip("[], ").split(",")])
+    ranks = [(int(ln.split("Item:")[1].split()[0]),
+              float(ln.split("rating:")[1])) for ln in lines
+             if ln.startswith("Rank:")]
+    return scores, ranks
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_predict_matches_the_tpu_package(trained, data_dir, capsys,
+                                         implicit):
+    cfg, _, dirs = trained
+    comp = dirs["jax"]
+    args = ["-c", str(cfg), "-i", str(comp / "test_ratings_f8_item_bias.csv"),
+            "-g", str(comp / "test_ratings_f8_global_bias.csv"),
+            "-q", str(comp / "test_ratings_f8_q.csv"),
+            str(data_dir / "test_user_ratings.csv")]
+    if implicit:
+        args += ["--implicit", "--alpha", "5", "--reg", "0.1"]
+    j_scores, j_ranks = _predictions(_run(jpred.main, args, capsys))
+    t_out = _run(tpred.main, args + ["--device", "cpu"], capsys)
+    t_scores, t_ranks = _predictions(t_out)
+    np.testing.assert_allclose(t_scores, j_scores, rtol=0, atol=1e-4)
+    # Rated items (0-based 0, 1, 3) are absent; the rest are ranked.
+    assert sorted(i for i, _ in t_ranks) == [2, 4]
+    assert len(t_ranks) == len(j_ranks)
+    for n, ((ti, ts), (ji, _)) in enumerate(zip(t_ranks, j_ranks)):
+        near = [abs(ts - t_ranks[m][1]) <= 1e-5
+                for m in (n - 1, n + 1) if 0 <= m < len(t_ranks)]
+        if not any(near):
+            assert ti == ji
+        assert ts == pytest.approx(float(t_scores[ti]), abs=1e-5)

@@ -111,3 +111,213 @@ def test_engine_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(g_rows, c_rows, rtol=RTOL, atol=ATOL)
     cfg_rows = gpu.fold_in(rated, vals, mask)[0]
     assert np.isfinite(cfg_rows).all()
+
+
+def _ratings(U, I, seed, empty_users=(3,), empty_items=(5,)):
+    """A random CSR with a few users and items that have no ratings."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, 12, U)
+    deg[list(empty_users)] = 0
+    users = np.repeat(np.arange(U), deg)
+    items = rng.integers(0, I, len(users))
+    items[np.isin(items, empty_items)] = 0
+    vals = rng.integers(1, 11, len(users)) / 2.0
+    return csr_from_arrays(users, items, vals.astype(np.float32), U, I)
+
+
+def _packed(U, I, F, seed, device):
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops.packed import pack
+
+    rng = np.random.default_rng(seed)
+    d = {"p": rng.normal(0, 0.1, (U, F)), "q": rng.normal(0, 0.1, (I, F)),
+         "user_bias": rng.normal(0, 0.1, U),
+         "item_bias": rng.normal(0, 0.1, I), "global_bias": [3.5]}
+    return pack(model_from_numpy(d, device))
+
+
+STEP_CASES = [("first_wins", False, True), ("twin", False, True),
+              ("twin", True, True), ("first_wins", False, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [16, 100])
+@pytest.mark.parametrize("collision,lean,train_items", STEP_CASES)
+def test_sgd_step_kernel_matches_plain(cuda_device, F, collision, lean,
+                                       train_items):
+    """K0a against its plain version, step by step from the same tables:
+    the same item rows change, and the tables agree within 1e-5 (float32
+    FMA contraction in the kernel; positions and winners are exact)."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops import cuda_sgd
+    from cu2rec_torch.ops.packed import packed_step, packed_step_reference
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    U, I = 300, 120
+    csr = _ratings(U, I, seed=F)
+    dev = to_device(csr, cuda_device, item_major=collision == "twin",
+                    lean=lean)
+    pm = _packed(U, I, F, seed=1, device=cuda_device)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    for it in (0, 1, 4095):
+        n0 = cuda_sgd.LAUNCHES
+        got = packed_step(pm, dev, hp, prng_key(42), it,
+                          train_items=train_items, collision=collision)
+        torch.cuda.synchronize()
+        assert cuda_sgd.LAUNCHES == n0 + 1
+        want = packed_step_reference(pm, dev, hp, prng_key(42), it,
+                                     train_items=train_items,
+                                     collision=collision)
+        changed_got = (got.T_i != pm.T_i).any(dim=1)
+        changed_want = (want.T_i != pm.T_i).any(dim=1)
+        assert torch.equal(changed_got, changed_want)
+        assert torch.equal((got.T_u != pm.T_u).any(dim=1),
+                           (want.T_u != pm.T_u).any(dim=1))
+        torch.testing.assert_close(got.T_u, want.T_u, rtol=0, atol=1e-5)
+        torch.testing.assert_close(got.T_i, want.T_i, rtol=0, atol=1e-5)
+        if not train_items:
+            assert got.T_i is pm.T_i
+        pm = got
+
+
+@pytest.mark.gpu
+def test_sgd_step_run_keeps_election_buffer_clean(cuda_device):
+    """Across a run of first_wins steps the shared election buffer is
+    reset by each item kernel: the run equals step-by-step plain steps."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.packed import packed_run_steps, packed_step_reference
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    csr = _ratings(200, 64, seed=5)
+    dev = to_device(csr, cuda_device)
+    pm = _packed(200, 64, 8, seed=2, device=cuda_device)
+    hp = Hyper(0.05, 0.02, 0.02, 0.02, 0.02)
+    got = packed_run_steps(pm, dev, hp, prng_key(3), 10, 6)
+    want = pm
+    for it in range(10, 16):
+        want = packed_step_reference(want, dev, hp, prng_key(3), it)
+    torch.testing.assert_close(got.T_u, want.T_u, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.T_i, want.T_i, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,n", [(16, 1), (16, 4999), (100, 70_001)])
+def test_eval_kernel_matches_plain(cuda_device, F, n):
+    """K0b against its plain version (both sum in float64): rtol 1e-6."""
+    from cu2rec_torch.ops import cuda_loss
+    from cu2rec_torch.ops.loss import packed_error_sums_reference
+
+    rng = np.random.default_rng(n)
+    U, I = 500, 300
+    pm = _packed(U, I, F, seed=3, device=cuda_device)
+    rows = torch.from_numpy(np.sort(rng.integers(0, U, n)).astype(
+        np.int32)).to(cuda_device)
+    cols = torch.from_numpy(rng.integers(0, I, n).astype(np.int32)).to(
+        cuda_device)
+    vals = torch.from_numpy((rng.integers(1, 11, n) / 2.0).astype(
+        np.float32)).to(cuda_device)
+    n0 = cuda_loss.LAUNCHES
+    got = cuda_loss.packed_error_sums_cuda(pm.T_u, pm.T_i, 3.5, rows, cols,
+                                           vals, F)
+    again = cuda_loss.packed_error_sums_cuda(pm.T_u, pm.T_i, 3.5, rows,
+                                             cols, vals, F)
+    torch.cuda.synchronize()
+    assert cuda_loss.LAUNCHES == n0 + 2
+    assert torch.equal(got, again)  # deterministic reduction
+    want = packed_error_sums_reference(pm.T_u, pm.T_i, pm.global_bias, rows,
+                                       cols, vals, F)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [32, 128, 512])
+def test_row_gather_kernel_is_exact(cuda_device, W):
+    from cu2rec_torch.ops.cuda_gather import row_gather
+
+    g = torch.Generator().manual_seed(W)
+    table = torch.randn((5000, W), generator=g).to(cuda_device)
+    for M in (1, 15, 16, 17, 1000, 70_001):
+        idx = torch.randint(0, 5000, (M,), generator=g).to(cuda_device)
+        n0 = row_gather.LAUNCHES
+        got = row_gather(table, idx.to(torch.int32))
+        torch.cuda.synchronize()
+        assert row_gather.LAUNCHES == n0 + 1
+        assert torch.equal(got, table[idx])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("I", [1, 64, 448])
+def test_smem_gather_kernel_is_exact(cuda_device, I):
+    from cu2rec_torch.ops.cuda_gather import smem_gather
+
+    g = torch.Generator().manual_seed(I)
+    table = torch.randn((I, 128), generator=g).to(cuda_device)
+    for M in (1, 2047, 2049, 300_000):
+        idx = torch.randint(0, I, (M,), generator=g).to(cuda_device)
+        n0 = smem_gather.LAUNCHES
+        got = smem_gather(table, idx.to(torch.int32))
+        torch.cuda.synchronize()
+        assert smem_gather.LAUNCHES == n0 + 1
+        assert torch.equal(got, table[idx])
+    big = torch.zeros((455, 128), device=cuda_device)
+    n0 = smem_gather.LAUNCHES
+    with pytest.raises(ValueError, match="does not fit"):
+        smem_gather(big, torch.zeros(4, dtype=torch.int32,
+                                     device=cuda_device))
+    assert smem_gather.LAUNCHES == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["row_gather", "smem_gather"])
+def test_gather_kernels_give_nan_rows_for_indices_out_of_range(cuda_device,
+                                                               which):
+    from cu2rec_torch.ops import cuda_gather
+
+    fn = getattr(cuda_gather, which)
+    g = torch.Generator().manual_seed(7)
+    table = torch.randn((100, 128), generator=g).to(cuda_device)
+    idx = torch.randint(0, 100, (3000,), generator=g).to(torch.int32)
+    bad = torch.tensor([0, 17, 18, 2999])
+    idx[bad] = torch.tensor([100, -1, 1 << 30, -(1 << 31)], dtype=torch.int32)
+    got = fn(table, idx.to(cuda_device)).cpu()
+    good = torch.ones(3000, dtype=torch.bool)
+    good[bad] = False
+    assert torch.isnan(got[bad]).all()
+    assert torch.equal(got[good], table.cpu()[idx[good].long()])
+
+
+@pytest.mark.gpu
+def test_train_on_card_matches_cpu(cuda_device):
+    """A short training run on the card (K0a, K0b) and on the CPU (their
+    plain versions) from the same tables: per-eval RMSE within 1e-4."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops import cuda_loss, cuda_sgd
+    from cu2rec_torch.train.trainer import train
+    from cu2rec_torch.utils.config import Config
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    csr = _ratings(400, 150, seed=9)
+    rng = np.random.default_rng(0)
+    d = {"p": rng.normal(0, 0.1, (400, 8)), "q": rng.normal(0, 0.1, (150, 8)),
+         "user_bias": np.zeros(400), "item_bias": np.zeros(150),
+         "global_bias": [2.75]}
+    runs = {}
+    for device in (cuda_device, "cpu"):
+        for collision in ("first_wins", "twin"):
+            cfg = Config(total_iterations=60, n_factors=8, check_error=20,
+                         learning_rate=0.05, collision_policy=collision)
+            logger = MetricsLogger(verbose=False)
+            n0 = (cuda_sgd.LAUNCHES, cuda_loss.LAUNCHES)
+            train(csr, csr, cfg, 2.75, model=model_from_numpy(d, device),
+                  logger=logger, device=device)
+            if device != "cpu":
+                assert cuda_sgd.LAUNCHES > n0[0]
+                assert cuda_loss.LAUNCHES > n0[1]
+            runs[(str(device), collision)] = [
+                (r["train_rmse"], r["test_mae"]) for r in logger.history
+                if r["event"] == "eval"]
+    for collision in ("first_wins", "twin"):
+        np.testing.assert_allclose(runs[("cuda", collision)],
+                                   runs[("cpu", collision)], atol=1e-4)

@@ -74,16 +74,30 @@ def test_entry_points_default_to_cuda():
     for: without a card they raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
+    from cu2rec_torch.cli import mf, predict
     from cu2rec_torch.cli.serve import build_parser
+    from cu2rec_torch.data.csr import csr_from_arrays
     from cu2rec_torch.models.state import init_model
     from cu2rec_torch.serve.engine import ServingEngine
+    from cu2rec_torch.train.trainer import SingleChipEngine
+    from cu2rec_torch.utils.config import Config
 
     assert build_parser().parse_args([]).device == "cuda"
+    assert mf.build_parser().parse_args(["a.csv", "b.csv"]).device == "cuda"
+    assert predict.build_parser().parse_args(
+        ["-c", "c", "-i", "i", "-g", "g", "-q", "q", "u.csv"]).device == \
+        "cuda"
     model = init_model(3, 4, 2, 3.0, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_model(3, 4, 2, 3.0)
+    csr = csr_from_arrays(np.array([0, 1]), np.array([1, 2]),
+                          np.array([4.0, 3.0], np.float32), 3, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SingleChipEngine(csr, csr, Config(n_factors=2))
+    assert SingleChipEngine(csr, csr, Config(n_factors=2),
+                            device="cpu").device == torch.device("cpu")
 
 
 def test_port_builds_nothing_at_import():
@@ -96,6 +110,8 @@ def test_port_builds_nothing_at_import():
         "def boom(*a, **k): raise SystemExit('subprocess at import')\n"
         "subprocess.Popen = boom; subprocess.run = boom\n"
         "import cu2rec_torch.ops.cuda_linalg, cu2rec_torch.csrc.build\n"
+        "import cu2rec_torch.ops.cuda_sgd, cu2rec_torch.ops.cuda_loss\n"
+        "import cu2rec_torch.ops.cuda_gather, cu2rec_torch.cli.mf\n"
         "import cu2rec_torch.ops.als, cu2rec_torch.ops.ials\n"
         "print('NO_BUILD_AT_IMPORT')\n" % str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
