@@ -10,7 +10,8 @@ fatal on failure:
 1. device: the card's name, count and power limit; float32 matmuls in full
    float32 (TF32 off);
 2. build: every CUDA kernel of the port from ``cu2rec_torch/csrc``, one
-   nvcc each, all started together, and each one's ``-Xptxas -v`` report;
+   nvcc each, all started together, and each entry function's registers a
+   thread, spills and shared memory from the ``-Xptxas -v`` report;
 3. kernels: K1 (the ridge solve) against its plain PyTorch version at the
    serving path's shapes and the edge shapes, with its time, the plain
    version's, the library call's and the bound;
@@ -19,9 +20,13 @@ fatal on failure:
    headline shape (138,000 users, 27,000 items, F=100, 20,000,000 ratings
    built in memory from ``--seed``), the changed rows exactly and the
    tables within 1e-5 of the plain version; K0b (the eval sums) over the
-   20,000,000 ratings within 1e-6; K2 and K3 (the gather probes' kernels)
-   exactly equal to ``table[idx]``; each timed with CUDA events beside its
-   bound, the step loop also under ``torch.profiler``;
+   20,000,000 ratings within 1e-6 and bit-identical between two calls,
+   with its item-row gather rate through L2; K2 and K3 (the gather
+   probes' kernels) exactly equal to ``table[idx]``; each timed with CUDA
+   events beside its bound; the step loop as the trainer runs it, with the
+   host's enqueue time a step beside the profiler's kernel time a step
+   (which shows whether the host sets the pace), and beside a plain copy
+   of ``T_u``;
 5. the entry points, each with the launch counts set to 0 before it and
    read after it: ``mf`` trains a planted rank-20 model at the headline
    widths (1,000,000 train and 100,000 test ratings as CSVs, 300
@@ -111,17 +116,49 @@ def phase_device(torch):
 
 # -- phase 2: build ----------------------------------------------------------
 
+def _ptxas_report(text: str):
+    """[(function, registers, spilled bytes, shared bytes)] for each entry
+    function of an ``-Xptxas -v`` build log, the name shortened from its
+    mangling to ``kernel<template args>``."""
+    report, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m[1])
+            name = k[1] if k else m[1]
+            if k and k[2]:
+                name += f"<{','.join(re.findall(r'Li(\d+)E', k[2]))}>"
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            report.append((name, int(m[1]), spill,
+                           int(smem[1]) if smem else 0))
+            name = None
+    return report
+
+
 def phase_build():
+    """Builds every kernel; returns {library: {function: registers}}."""
     from cu2rec_torch.csrc.build import KERNELS, build, build_log
 
     t0 = time.perf_counter()
     libs = build(KERNELS)
     log(f"[build] {len(libs)} kernel(s) in "
         f"{time.perf_counter() - t0:.1f} s")
+    registers = {}
     for name in KERNELS:
-        for line in build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {name}: {line.strip()}")
+        report = _ptxas_report(build_log(name))
+        require(report, f"no -Xptxas -v report in the build log of {name}")
+        registers[name] = {fn: regs for fn, regs, _, _ in report}
+        for fn, regs, spill, smem in report:
+            log(f"[build] {name}: {fn}: {regs} registers a thread, {spill} "
+                f"bytes spilled, {smem} bytes of static shared memory")
+    return registers
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -347,8 +384,12 @@ def _check_steps(torch, csr, n_factors, seed, dev, label):
 
 
 def _time_steps(torch, pm, dr, collision, n_steps: int = 50):
-    """(device ms per step with CUDA events, host ms per step) over a run
-    of ``packed_run_steps``, after a warm-up run."""
+    """(event ms, host ms, host enqueue ms), each a step, over a run of
+    ``packed_run_steps`` as the trainer runs it, after a warm-up run: CUDA
+    events around the run, the host clock to its synchronize, and the host
+    clock from ``start.record()`` to the end of its launch loop.  Where the
+    enqueue time reaches the card's kernel time a step, the host sets the
+    loop's pace."""
     from cu2rec_torch.ops.packed import packed_run_steps
     from cu2rec_torch.ops.sgd import prng_key
 
@@ -358,11 +399,13 @@ def _time_steps(torch, pm, dr, collision, n_steps: int = 50):
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
+    t_rec = time.perf_counter()
     packed_run_steps(pm, dr, _hp(), prng_key(1), 3, n_steps, True, collision)
+    enqueue = (time.perf_counter() - t_rec) * 1e3 / n_steps
     end.record()
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) * 1e3 / n_steps
-    return start.elapsed_time(end) / n_steps, host
+    return start.elapsed_time(end) / n_steps, host, enqueue
 
 
 def _profile_steps(torch, pm, dr, collision, n_steps: int = 20):
@@ -407,30 +450,49 @@ def phase_train_kernels(torch, dev, seed: int):
     _profile_steps(torch, pm, to_device(csr, dev), "first_wins", n_steps=2)
     for collision in ("first_wins", "twin"):
         dr = to_device(csr, dev, item_major=collision == "twin")
-        ms, host_ms = _time_steps(torch, pm, dr, collision)
+        ms, host_ms, enqueue_ms = _time_steps(torch, pm, dr, collision)
         busy_ms, prof_host_ms, top = _profile_steps(torch, pm, dr,
                                                     collision)
+        user_ms = sum(t / n for k, t, n in top if "sgd_user_kernel" in k)
         plain_ms = time_ms(lambda: packed_step_reference(
             pm, dr, _hp(), prng_key(1), 7, collision=collision), [()],
             reps=3)
         times[collision] = (ms, plain_ms, _step_bytes(csr, F, collision,
-                                                      False, True))
+                                                      False, True),
+                            enqueue_ms, busy_ms, user_ms)
         log(f"[steps] {collision} at U={U} I={I} F={F}: {ms:.4f} ms a step "
-            f"(CUDA events over 50 steps), {U / ms * 1e3:.4g} user "
-            f"updates/s; host clock {host_ms:.4f} ms a step; under the "
+            f"(CUDA events over 50 steps as the trainer runs them), "
+            f"{U / ms * 1e3:.4g} user updates/s; the host enqueueing a step "
+            f"in {enqueue_ms:.4f} ms, {enqueue_ms / busy_ms:.1%} of the "
+            f"card's kernel time a step "
+            f"({'host' if enqueue_ms >= busy_ms else 'device'}-paced), "
+            f"{host_ms:.4f} ms a step by the host clock; under the "
             f"profiler {busy_ms:.4f} ms of kernel time a step, "
-            f"{busy_ms / ms:.1%} of the event time a step, in "
-            f"{prof_host_ms:.4f} ms of host time a step; top: "
+            f"{busy_ms / ms:.1%} of the event time a step, user kernel "
+            f"span {user_ms:.4f} ms (the span of an early-launched kernel "
+            f"includes its wait), in {prof_host_ms:.4f} ms of host time a "
+            f"step; top: "
             + "; ".join(f"{k[:50]} {t:.3f} ms x{n}" for k, t, n in top[:3]))
         del dr
-    ms, plain_ms, n_bytes = times["first_wins"]
+    # A plain copy of T_u, its read and its write: the least the user
+    # kernel's own traffic takes on this card.
+    T_copy = torch.empty_like(pm.T_u)
+    copy_ms = time_ms(lambda: T_copy.copy_(pm.T_u), [()], reps=50)
+    log(f"[steps] a plain copy of T_u ({pm.T_u.numel() * 4 / 1e6:.1f} MB "
+        f"each way): {copy_ms:.4f} ms, "
+        f"{2 * pm.T_u.numel() * 4 / copy_ms / 1e9:.3f} TB/s")
+    del T_copy
+    ms, plain_ms, n_bytes, enqueue_ms, busy_ms, user_ms = times["first_wins"]
     n_ops = 5 * 128 * (U + I)
     entry = _entry("sgd_step", _tpu_kernel_site("ops/packed.py",
                                                 "def packed_step("),
                    err, ms, plain_ms, n_bytes, n_ops, None,
                    {"U": U, "I": I, "F": F, "W": 128, "nnz": N_HEADLINE,
                     "collision": "first_wins"}, semantics="packed_step")
+    entry.update(kernel_ms=busy_ms, enqueue_ms=enqueue_ms,
+                 user_kernel_ms=user_ms, tu_copy_ms=copy_ms)
     entry["twin_ms"], entry["twin_plain_ms"] = times["twin"][:2]
+    entry["twin_kernel_ms"] = times["twin"][4]
     entry["twin_bound_ms"] = _bound(times["twin"][2], n_ops)[0]
     entries.append(entry)
 
@@ -453,13 +515,21 @@ def phase_train_kernels(torch, dev, seed: int):
                         [(pm.T_u, pm.T_i, pm.global_bias) + args[3:]],
                         reps=3)
     n_bytes = 12 * N_HEADLINE + 4 * (F + 1) * (U + I) + 16
-    entries.append(_entry(
+    entry = _entry(
         "eval_error", _tpu_kernel_site("ops/loss.py",
                                        "def _eval_packed_jit"),
         float((got - want).abs().max()), ms, plain_ms, n_bytes,
         (2 * (F + 1) + 4) * N_HEADLINE, None,
         {"U": U, "I": I, "F": F, "W": 128, "nnz": N_HEADLINE},
-        semantics="_eval_packed_jit"))
+        semantics="_eval_packed_jit")
+    # Each rating gathers its item row's F + 1 used columns through L2: the
+    # practical floor of a per-rating eval, above the HBM byte bound.
+    entry["l2_gather_tb_s"] = N_HEADLINE * 4 * (F + 1) / (ms * 1e-3) / 1e12
+    log(f"[kernel] eval_error: item-row gather through L2 "
+        f"{N_HEADLINE * 4 * (F + 1) / 1e9:.2f} GB at "
+        f"{entry['l2_gather_tb_s']:.3f} TB/s; HBM bound share "
+        f"{entry['bound_ms'] / ms:.1%}")
+    entries.append(entry)
     del dr, csr
 
     # K2 and K3 at the probes' shapes, exact against table[idx].
@@ -980,10 +1050,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     name, count, smi = phase_device(torch)
-    phase_build()
+    registers = phase_build()
     kernels = phase_kernels(torch, dev)
     kernels += phase_train_kernels(torch, dev, args.seed)
     by_name = {k["name"]: k for k in kernels}
+    for k in kernels:
+        k["registers"] = registers[k["name"]]
     # The main paths, each with the launch counts set to 0 just before it
     # and read just after it.
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on its
 own, into ``build/cu2rec_torch/<hash>/lib<name>.so`` at the repository
-root, where ``<hash>`` covers the source and the flags — so an edited
-source builds anew and an unchanged one loads at once.  ``build()`` starts
-one ``nvcc`` per source, all together.  Nothing here runs at import time.
+root, where ``<hash>`` covers the source, the shared ``*.cuh`` headers and
+the flags — so an edited source builds anew and an unchanged one loads at
+once.  ``build()`` starts one ``nvcc`` per source, all together.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[Path, Path, Path]:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     out_dir = BUILD_ROOT / digest
     return src, out_dir / f"lib{name}.so", out_dir / f"{name}.log"
 

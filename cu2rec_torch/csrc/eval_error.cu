@@ -7,72 +7,154 @@
 //   err  = rating − pred   (float32)
 // and the sums of err² and |err| are taken in float64.
 //
-// Deterministic: each block writes its two partial sums into a buffer, and a
-// second launch of one block adds the partials in a fixed order.  The grid
-// depends only on the rating count, so a run gives the same bits every time
-// (the learning-rate plateau compares test RMSEs between eval points; a
-// wobble must not flip a decay).
+// Work split.  A warp takes chunks of kChunk consecutive ratings: it loads
+// the chunk's rows, cols and vals coalesced into shared memory (the next
+// chunk's are fetched into registers while this one is worked on), and
+// each group of G lanes (packed_rows.cuh) takes a run of kChunk · G / 32
+// consecutive ratings of it, two at a time.  So a warp has 2 · 32 / G item
+// rows in flight, eight at W = 128, each lane reading its float4s of the
+// F + 1 used columns.  A group keeps the user row in registers while the
+// ratings of one user follow each other (the ratings come user-sorted),
+// and reads it again only when the user changes; any order of the ratings
+// gives the same sums, only slower.
 //
-// What bounds it: memory bytes.  It needs 12 bytes a rating (user id, item
-// id, rating) and each table once: at 20,000,000 ratings and W = 128 about
-// 0.33 GB, ~0.1 ms at 3.35 TB/s.  One warp per rating reads the F + 1 used
-// columns of the two rows as coalesced lines; ratings are user-sorted, so
-// consecutive warps share user rows, and the item table (14 MB at ML-20M
-// scale) stays in L2.  The gathered rows still cross L2 once a rating, which
-// is what this simple form spends above the bound.
+// Deterministic: the chunks a warp takes and the order it sums them depend
+// only on the rating count and the constants here.  Each group sums its
+// ratings in order, the warp adds its groups' sums in a fixed tree, the
+// block writes its warps' sums as one partial, and a second launch of one
+// block adds the partials in a fixed order, so a run gives the same bits
+// every time (the learning-rate plateau compares test RMSEs between eval
+// points; a wobble must not flip a decay).
+//
+// What bounds it.  The HBM bytes the inputs need, 12 bytes a rating and the
+// used columns of each table once (about 0.31 GB at 20,000,000 ratings and
+// F = 100, ~0.09 ms at 3.35 TB/s), are not its practical floor: each
+// rating gathers its item row, 4·(F + 1) bytes, through L2 (the item table,
+// 14 MB at ML-20M scale, stays in the 50 MB L2), about 8 GB at 20,000,000
+// ratings.  That L2 gather traffic is the floor of a per-rating design; the
+// design keeps enough of it in flight to stream at L2's rate.
 
 #include <cuda_runtime.h>
+
+#include "packed_rows.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxBlocks = 4096;
+constexpr int kChunk = 64;                 // ratings a warp stages at once
+constexpr int kPerLane = kChunk / 32;      // of them, loaded by each lane
+// 132 SMs × 8: whole waves on an H100 at 1, 2, 4 or 8 blocks an SM.
+constexpr int kMaxBlocks = 132 * 8;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 eval_partials_kernel(const float* __restrict__ T_u,
                      const float* __restrict__ T_i,
                      const int* __restrict__ rows,
                      const int* __restrict__ cols,
-                     const float* __restrict__ vals, long long n, int W,
-                     int F, float mu, double* __restrict__ partials) {
-  __shared__ double s_sse[kWarps];
-  __shared__ double s_sae[kWarps];
+                     const float* __restrict__ vals, long long n, int F,
+                     float mu, double* __restrict__ partials) {
+  using L = RowLayout<W>;
+  constexpr int G = L::G, V = L::V;
+  constexpr int kRun = kChunk / L::kRowsPerWarp;  // a group's ratings
+  static_assert(kRun % 2 == 0, "ratings are taken two at a time");
+  __shared__ int s_row[kWarps][kChunk];
+  __shared__ int s_col[kWarps][kChunk];
+  __shared__ float s_val[kWarps][kChunk];
+  __shared__ double s_sum[2][kWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  double sse = 0.0, sae = 0.0;
+  const int gl = lane & (G - 1);
+  const int first = (lane / G) * kRun;
+  const unsigned mask = group_mask<G>(lane);
+  const long long n_chunks = (n + kChunk - 1) / kChunk;
   const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long r = static_cast<long long>(blockIdx.x) * kWarps + warp;
-       r < n; r += stride) {
-    const float* ru = T_u + static_cast<size_t>(rows[r]) * W;
-    const float* ri = T_i + static_cast<size_t>(cols[r]) * W;
-    float acc = 0.f;
-    for (int c = lane; c <= F; c += 32)
-      acc += ru[c] * (c < F ? ri[c] : 1.f);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const double e = static_cast<double>(vals[r] - (mu + acc + ri[F]));
-      sse += e * e;
-      sae += fabs(e);
+
+  // The chunk's ratings, kPerLane a lane; row −1 past the end.
+  int nr[kPerLane], nc[kPerLane];
+  float nv[kPerLane];
+  auto fetch = [&](long long chunk) {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const long long j = chunk * kChunk + lane + 32 * k;
+      const bool ok = j < n;
+      nr[k] = ok ? __ldcs(rows + j) : -1;
+      nc[k] = ok ? __ldcs(cols + j) : 0;
+      nv[k] = ok ? __ldcs(vals + j) : 0.f;
+    }
+  };
+
+  double sse = 0.0, sae = 0.0;
+  int cur = -1;  // the user whose row u holds
+  float4 u[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) u[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  long long chunk = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  fetch(chunk);
+  for (; chunk < n_chunks; chunk += stride) {
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      s_row[warp][lane + 32 * k] = nr[k];
+      s_col[warp][lane + 32 * k] = nc[k];
+      s_val[warp][lane + 32 * k] = nv[k];
+    }
+    __syncwarp();
+    fetch(chunk + stride);
+    for (int t = first; t < first + kRun; t += 2) {
+      const int ra = s_row[warp][t], rb = s_row[warp][t + 1];
+      const float va = s_val[warp][t], vb = s_val[warp][t + 1];
+      // Both item rows are in flight before the user row is needed.
+      float4 ia[V], ib[V];
+      load_row<W, Read::kReadOnly>(
+          T_i + static_cast<size_t>(s_col[warp][t]) * W, gl,
+          ra >= 0 ? F : -1, ia);
+      load_row<W, Read::kReadOnly>(
+          T_i + static_cast<size_t>(s_col[warp][t + 1]) * W, gl,
+          rb >= 0 ? F : -1, ib);
+      if (ra >= 0 && ra != cur) {
+        load_row<W, Read::kStream>(T_u + static_cast<size_t>(ra) * W, gl, F,
+                                   u);
+        cur = ra;
+      }
+      const float da = group_sum<G>(row_dot<W>(u, ia, gl, F), mask);
+      if (rb >= 0 && rb != cur) {
+        load_row<W, Read::kStream>(T_u + static_cast<size_t>(rb) * W, gl, F,
+                                   u);
+        cur = rb;
+      }
+      const float db = group_sum<G>(row_dot<W>(u, ib, gl, F), mask);
+      if (gl == 0) {
+        if (ra >= 0) {
+          const double e = static_cast<double>(va - (mu + da));
+          sse += e * e;
+          sae += fabs(e);
+        }
+        if (rb >= 0) {
+          const double e = static_cast<double>(vb - (mu + db));
+          sse += e * e;
+          sae += fabs(e);
+        }
+      }
     }
   }
+  // The group leaders' sums (the other lanes hold 0) in a fixed tree.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sse += __shfl_xor_sync(0xffffffffu, sse, off);
+    sae += __shfl_xor_sync(0xffffffffu, sae, off);
+  }
   if (lane == 0) {
-    s_sse[warp] = sse;
-    s_sae[warp] = sae;
+    s_sum[0][warp] = sse;
+    s_sum[1][warp] = sae;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     double a = 0.0, b = 0.0;
     for (int w = 0; w < kWarps; ++w) {
-      a += s_sse[w];
-      b += s_sae[w];
+      a += s_sum[0][w];
+      b += s_sum[1][w];
     }
     partials[2 * blockIdx.x] = a;
     partials[2 * blockIdx.x + 1] = b;
@@ -107,7 +189,8 @@ eval_finish_kernel(const double* __restrict__ partials, int n_blocks,
 }
 
 int blocks_for(long long n) {
-  const long long b = (n + kWarps - 1) / kWarps;
+  const long long chunks = (n + kChunk - 1) / kChunk;
+  const long long b = (chunks + kWarps - 1) / kWarps;
   return static_cast<int>(b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks);
 }
 
@@ -118,9 +201,10 @@ extern "C" {
 // Doubles of scratch the launch for n ratings needs.
 int eval_error_partials(long long n) { return 2 * blocks_for(n); }
 
-// T_u (·, W) and T_i (·, W) float32; rows, cols int32 and vals float32, each
-// of n entries; partials of eval_error_partials(n) doubles; out of 2 doubles
-// (Σerr², Σ|err|).  Launches on `stream`; returns the cudaError_t.
+// T_u (·, W) and T_i (·, W) float32, 16-byte aligned, W one of 64, 128,
+// 256, 384, 512; rows, cols int32 and vals float32, each of n entries;
+// partials of eval_error_partials(n) doubles; out of 2 doubles (Σerr²,
+// Σ|err|).  Launches on `stream`; returns the cudaError_t.
 int eval_error_launch(const float* T_u, const float* T_i, const int* rows,
                       const int* cols, const float* vals, long long n, int W,
                       int F, float mu, double* partials, double* out,
@@ -128,11 +212,13 @@ int eval_error_launch(const float* T_u, const float* T_i, const int* rows,
   if (n < 0 || W <= F || F < 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = blocks_for(n);
-  eval_partials_kernel<<<blocks, kThreads, 0, s>>>(T_u, T_i, rows, cols,
-                                                   vals, n, W, F, mu,
-                                                   partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rc = dispatch_width(W, [&](auto layout) {
+    eval_partials_kernel<decltype(layout)::kWidth>
+        <<<blocks, kThreads, 0, s>>>(T_u, T_i, rows, cols, vals, n, F, mu,
+                                     partials);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (rc != cudaSuccess) return rc;
   eval_finish_kernel<<<1, kThreads, 0, s>>>(partials, blocks, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -111,6 +111,14 @@ class DeviceRatings:
     ``it_vals``) or, lean, the item-major→flat permutation ``it_order``
     (4 bytes a rating instead of 8).  ``indptr`` is None for an eval-only
     subsample, which cannot be sampled from.
+
+    On the card the arrays are written by host-to-device copies
+    (``to_device``), and nothing writes them while steps run.  The SGD step
+    (``ops/cuda_sgd.py``) samples from ``indptr``, ``indices`` and ``data``
+    while the kernel ahead of it on the stream may still be ending, and
+    CUDA makes that kernel's writes certain to be visible only later.  So
+    arrays built on the card by a kernel must be finished before the step
+    is queued: ``torch.cuda.synchronize()``, or an event the host waits on.
     """
 
     indptr: torch.Tensor | None   # (n_users + 1,) int32

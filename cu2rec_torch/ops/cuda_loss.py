@@ -1,9 +1,13 @@
 """Σerr² and Σ|err| over packed tables on the card — kernel K0b.
 
 The TPU package's ``ops/loss.py::_eval_packed_jit`` has no Pallas kernel:
-XLA fuses it.  Here it is ``csrc/eval_error.cu`` (one warp per rating, a
-deterministic two-launch float64 reduction; its header says what bounds
-it), bound with ctypes.  Its plain version is
+XLA fuses it.  Here it is ``csrc/eval_error.cu``, bound with ctypes: each
+warp stages a chunk of ratings, a group of lanes takes a run of them with
+the user row held while the user repeats (eight item rows in flight a
+warp at W = 128), and a deterministic two-launch float64 reduction adds
+the sums.  Its header says why the item rows' L2 traffic, not the HBM
+bytes, is its floor.  It takes the widths in
+``ops/packed.py::KERNEL_WIDTHS``.  Its plain version is
 ``ops/loss.py::packed_error_sums_reference``; ``evaluate_packed`` takes that
 on CPU tensors and this wrapper on CUDA tensors.
 
@@ -16,6 +20,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from cu2rec_torch.ops.packed import check_kernel_tables
 
 KERNEL = "eval_error"
 # Eval launches in this process (incremented where the kernel launches).
@@ -71,6 +77,7 @@ def packed_error_sums_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float,
         raise ValueError(f"bad shapes: T_u {tuple(T_u.shape)}, T_i "
                          f"{tuple(T_i.shape)}, F={F}, ratings {n}/"
                          f"{cols.shape[0]}/{vals.shape[0]}")
+    check_kernel_tables("K0b", T_u, T_i)
     lib = _load()
     partials = torch.empty(lib.eval_error_partials(n), dtype=torch.float64,
                            device=device)

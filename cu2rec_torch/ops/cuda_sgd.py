@@ -1,10 +1,15 @@
 """One SGD iteration over the packed tables on the card — kernel K0a.
 
 The TPU package's ``ops/packed.py::packed_step`` has no Pallas kernel: XLA
-fuses it.  Here it is ``csrc/sgd_step.cu`` (its header says what bounds it
-and how the read-before-write hazard is handled), bound with ctypes.  Its
-plain version is ``ops/packed.py::packed_step_reference``; ``packed_step``
-takes that on CPU tensors and this wrapper on CUDA tensors.
+fuses it.  Here it is ``csrc/sgd_step.cu``, bound with ctypes: a user
+kernel and an item kernel, each row held in float4 registers by a group of
+lanes (four rows a warp at W = 128), each kernel launched so that its
+sampling chain runs while the kernel before it ends (programmatic
+dependent launch).  Its header says what bounds it and how the
+read-before-write hazard is handled.  Its plain version is
+``ops/packed.py::packed_step_reference``; ``packed_step`` takes that on CPU
+tensors and this wrapper on CUDA tensors.  The kernel takes the widths in
+``ops/packed.py::KERNEL_WIDTHS``.
 
 ``sgd_step_cuda`` launches the kernel or raises: it takes CUDA tensors only
 and never falls back.  ``LAUNCHES`` counts its calls, one per step (one
@@ -17,6 +22,7 @@ import ctypes
 
 import torch
 
+from cu2rec_torch.ops.packed import check_kernel_tables
 from cu2rec_torch.ops.sgd import INT32_MAX, Hyper, _key_words, start_user_of
 
 KERNEL = "sgd_step"
@@ -37,7 +43,6 @@ def _load():
         lib.sgd_step_launch.argtypes = (
             [P] * 14 + [I] * 4 + [F] * 6 + [U] * 3 + [I, I, P])
         lib.sgd_step_launch.restype = ctypes.c_int
-        lib.sgd_step_max_width.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -69,7 +74,14 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
     ``T_u`` (U, W) and ``T_i`` (I, W) float32 on one CUDA device; ``dev`` a
     ``DeviceRatings`` there (item-major for twin).  ``best`` is the
     election buffer (I,) int32, all ``INT32_MAX``, which the kernel leaves
-    so; without it a fresh one is made."""
+    so; without it a fresh one is made.
+
+    The user kernel reads ``dev.indptr``, ``dev.indices`` and ``dev.data``
+    before it waits on the kernel ahead of it on the stream (programmatic
+    dependent launch).  They must therefore not be written by a kernel
+    still queued or running when the step is called: upload them
+    (``data/csr.py::to_device``), or finish the kernel that builds them
+    with ``torch.cuda.synchronize()`` first."""
     global LAUNCHES
     device = T_u.device
     if device.type != "cuda":
@@ -81,6 +93,7 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
     _check("T_i", T_i, torch.float32, device, (I, W))
     if not 0 <= F < W:
         raise ValueError(f"n_factors {F} does not fit rows of width {W}")
+    check_kernel_tables("K0a", T_u, T_i)
     if dev.n_users != U or dev.n_items != I:
         raise ValueError(f"ratings are {dev.n_users}x{dev.n_items}, tables "
                          f"{U}x{I}")
@@ -103,9 +116,6 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
                 _check("it_users", dev.it_users, torch.int32, device)
                 _check("it_vals", dev.it_vals, torch.float32, device)
     lib = _load()
-    if W > lib.sgd_step_max_width():
-        raise ValueError(f"K0a takes rows of at most "
-                         f"{lib.sgd_step_max_width()} floats, got {W}")
     T_u_out = torch.empty_like(T_u)
     T_i_out = torch.empty_like(T_i) if mode >= 0 else T_i
     w_rating = None

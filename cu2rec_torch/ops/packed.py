@@ -32,6 +32,21 @@ from cu2rec_torch.ops.sgd import (
 )
 
 COLLISIONS = ("first_wins", "twin")
+# The row widths kernels K0a and K0b take: packed_width(F) for F < 512.
+KERNEL_WIDTHS = (64, 128, 256, 384, 512)
+
+
+def check_kernel_tables(kernel: str, T_u: torch.Tensor,
+                        T_i: torch.Tensor) -> None:
+    """Raise unless both tables suit the kernels' float4 rows: a width in
+    ``KERNEL_WIDTHS`` and a start on a 16-byte boundary."""
+    W = T_u.shape[1]
+    if W not in KERNEL_WIDTHS:
+        raise ValueError(f"{kernel} takes rows of {KERNEL_WIDTHS} floats, "
+                         f"got {W}")
+    for name, t in (("T_u", T_u), ("T_i", T_i)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def packed_width(n_factors: int) -> int:

@@ -153,3 +153,32 @@ def test_smoke_names_the_tpu_code_of_each_kernel(monkeypatch, rel, needle,
         path = f"experiments/{mod}.py"
     line = _def_line(getattr(module, name))
     assert smoke._tpu_kernel_site(rel, needle) == f"{path}:{line}"
+
+
+def test_smoke_reads_the_register_report_of_each_kernel():
+    """chip_smoke.py turns an ``-Xptxas -v`` build log into one row per
+    entry function: its name as ``kernel<template arguments>``, its
+    registers a thread, spilled bytes and static shared bytes."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115sgd_item_kernelILi128ELi0EEEvNS_4StepE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115sgd_item_kernelILi128ELi0EEEvNS_4StepE
+    16 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 132 bytes smem, 552 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118eval_finish_kernelEPKdiPd' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118eval_finish_kernelEPKdiPd
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 4096 bytes smem
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__3b16e78f_14_smem_gather_cu_b7067f9318smem_gather_kernelEPK6float4PKiPS0_xii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 46 registers, used 1 barriers
+"""
+    assert smoke._ptxas_report(log) == [
+        ("sgd_item_kernel<128,0>", 40, 12, 132),
+        ("eval_finish_kernel", 32, 0, 4096),
+        ("smem_gather_kernel", 46, 0, 0)]
+    assert smoke._ptxas_report("nvcc: no report\n") == []

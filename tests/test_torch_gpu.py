@@ -119,7 +119,7 @@ def _ratings(U, I, seed, empty_users=(3,), empty_items=(5,)):
 
     rng = np.random.default_rng(seed)
     deg = rng.integers(1, 12, U)
-    deg[list(empty_users)] = 0
+    deg[[u for u in empty_users if u < U]] = 0
     users = np.repeat(np.arange(U), deg)
     items = rng.integers(0, I, len(users))
     items[np.isin(items, empty_items)] = 0
@@ -140,26 +140,20 @@ def _packed(U, I, F, seed, device):
 
 STEP_CASES = [("first_wins", False, True), ("twin", False, True),
               ("twin", True, True), ("first_wins", False, False)]
+# One F for each row width the kernels take: W = 64, 128, 256, 384, 512.
+WIDTH_FS = [16, 100, 200, 300, 450]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("F", [16, 100])
-@pytest.mark.parametrize("collision,lean,train_items", STEP_CASES)
-def test_sgd_step_kernel_matches_plain(cuda_device, F, collision, lean,
-                                       train_items):
+def _check_kernel_steps(device, U, I, F, collision, train_items, dev):
     """K0a against its plain version, step by step from the same tables:
-    the same item rows change, and the tables agree within 1e-5 (float32
-    FMA contraction in the kernel; positions and winners are exact)."""
-    from cu2rec_torch.data.csr import to_device
+    the same rows change, and the tables agree within 1e-5 (float32 FMA
+    contraction and another sum order in the kernel; positions and winners
+    are exact)."""
     from cu2rec_torch.ops import cuda_sgd
     from cu2rec_torch.ops.packed import packed_step, packed_step_reference
     from cu2rec_torch.ops.sgd import Hyper, prng_key
 
-    U, I = 300, 120
-    csr = _ratings(U, I, seed=F)
-    dev = to_device(csr, cuda_device, item_major=collision == "twin",
-                    lean=lean)
-    pm = _packed(U, I, F, seed=1, device=cuda_device)
+    pm = _packed(U, I, F, seed=1, device=device)
     hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
     for it in (0, 1, 4095):
         n0 = cuda_sgd.LAUNCHES
@@ -183,6 +177,88 @@ def test_sgd_step_kernel_matches_plain(cuda_device, F, collision, lean,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("collision,lean,train_items", STEP_CASES)
+@pytest.mark.parametrize("U,I", [(300, 120), (301, 97)])
+def test_sgd_step_kernel_matches_plain(cuda_device, F, collision, lean,
+                                       train_items, U, I):
+    """Every row width; 301 users and 97 items are no multiple of the rows
+    a warp or a block of either kernel takes."""
+    from cu2rec_torch.data.csr import to_device
+
+    dev = to_device(_ratings(U, I, seed=F), cuda_device,
+                    item_major=collision == "twin", lean=lean)
+    _check_kernel_steps(cuda_device, U, I, F, collision, train_items, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+def test_sgd_step_kernel_one_user_frozen_items(cuda_device, F):
+    """``predict``'s fold-in: one user, items frozen."""
+    from cu2rec_torch.data.csr import to_device
+
+    dev = to_device(_ratings(1, 120, seed=F, empty_users=()), cuda_device)
+    _check_kernel_steps(cuda_device, 1, 120, F, "first_wins", False, dev)
+
+
+def _ratings_built_on_card(U, I, seed, device, item_major, lean):
+    """A ``DeviceRatings`` made on the card by torch kernels from unsorted
+    (user, item, rating) triples, as an ingest on the card would make it."""
+    from cu2rec_torch.data.csr import DeviceRatings
+
+    rng = np.random.default_rng(seed)
+    n = 4000
+    users = torch.from_numpy(rng.integers(2, U, n)).to(device)
+    items = torch.from_numpy(rng.integers(1, I, n)).to(device)
+    vals = torch.from_numpy((rng.integers(1, 11, n) / 2.0).astype(
+        np.float32)).to(device)
+
+    def indptr(keys, size):
+        counts = torch.bincount(keys, minlength=size)
+        return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+
+    order = torch.argsort(users, stable=True)
+    row_ids, indices = users[order].int(), items[order].int()
+    data = vals[order].contiguous()
+    extra = {}
+    if item_major:
+        it_order = torch.argsort(indices, stable=True)
+        extra["it_indptr"] = indptr(indices.long(), I)
+        if lean:
+            extra["it_order"] = it_order.int()
+        else:
+            extra["it_users"] = row_ids[it_order].contiguous()
+            extra["it_vals"] = data[it_order].contiguous()
+    return DeviceRatings(indptr=indptr(users, U), indices=indices, data=data,
+                         row_ids=row_ids, nnz=n, n_users=U, n_items=I,
+                         **extra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collision,lean,train_items", STEP_CASES)
+def test_sgd_step_kernel_on_ratings_built_on_the_card(cuda_device, collision,
+                                                      lean, train_items):
+    """Ratings arrays written by torch kernels, finished by a synchronize
+    before the step as ``DeviceRatings`` asks: K0a samples from them before
+    it waits on the kernel ahead of it, and still matches its plain
+    version."""
+    dev = _ratings_built_on_card(300, 120, 7, cuda_device,
+                                 collision == "twin", lean)
+    torch.cuda.synchronize()
+    _check_kernel_steps(cuda_device, 300, 120, 100, collision, train_items,
+                        dev)
+
+
+@pytest.mark.gpu
+def test_sgd_step_kernel_widths(cuda_device):
+    """The library's widest row is the widest width the wrapper passes."""
+    from cu2rec_torch.ops import cuda_sgd
+    from cu2rec_torch.ops.packed import KERNEL_WIDTHS
+
+    assert cuda_sgd._load().sgd_step_max_width() == max(KERNEL_WIDTHS)
+
+
+@pytest.mark.gpu
 def test_sgd_step_run_keeps_election_buffer_clean(cuda_device):
     """Across a run of first_wins steps the shared election buffer is
     reset by each item kernel: the run equals step-by-step plain steps."""
@@ -202,17 +278,32 @@ def test_sgd_step_run_keeps_election_buffer_clean(cuda_device):
     torch.testing.assert_close(got.T_i, want.T_i, rtol=0, atol=1e-4)
 
 
+def _eval_rows(rng, U, n, order):
+    """n user ids: sorted, in random order, or sorted around one user of
+    1,500 ratings in a row (a run across several warps' 64-rating chunks
+    and a block's 512)."""
+    if order == "long run":
+        return np.sort(np.concatenate([rng.integers(0, U, n - 1500),
+                                       np.full(1500, U // 2)]))
+    rows = rng.integers(0, U, n)
+    return np.sort(rows) if order == "sorted" else rows
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("F,n", [(16, 1), (16, 4999), (100, 70_001)])
-def test_eval_kernel_matches_plain(cuda_device, F, n):
-    """K0b against its plain version (both sum in float64): rtol 1e-6."""
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("n,order", [(1, "sorted"), (4999, "sorted"),
+                                     (70_001, "sorted"), (70_001, "random"),
+                                     (3001, "long run")])
+def test_eval_kernel_matches_plain(cuda_device, F, n, order):
+    """K0b against its plain version (both sum in float64): rtol 1e-6, for
+    every row width, rows in any order, and n no multiple of a chunk."""
     from cu2rec_torch.ops import cuda_loss
     from cu2rec_torch.ops.loss import packed_error_sums_reference
 
     rng = np.random.default_rng(n)
     U, I = 500, 300
     pm = _packed(U, I, F, seed=3, device=cuda_device)
-    rows = torch.from_numpy(np.sort(rng.integers(0, U, n)).astype(
+    rows = torch.from_numpy(_eval_rows(rng, U, n, order).astype(
         np.int32)).to(cuda_device)
     cols = torch.from_numpy(rng.integers(0, I, n).astype(np.int32)).to(
         cuda_device)

@@ -151,3 +151,38 @@ def test_twin_needs_item_major(setup):
     with pytest.raises(ValueError, match="item-major"):
         packed_step(_port_model(setup[2]), td, hp, prng_key(1), 0,
                     collision="twin")
+
+
+def test_kernel_widths_are_the_packed_widths():
+    """K0a and K0b take every width ``packed_width`` gives (the port's and
+    the TPU package's) for F < 512, and no other."""
+    from cu2rec_torch.ops.packed import KERNEL_WIDTHS, packed_width
+    from cu2rec_tpu.ops.packed import packed_width as j_packed_width
+
+    widths = {packed_width(F) for F in range(512)}
+    assert widths == set(KERNEL_WIDTHS)
+    assert widths == {j_packed_width(F) for F in range(512)}
+    assert packed_width(512) not in KERNEL_WIDTHS
+
+
+@pytest.mark.parametrize("W", [32, 96, 640])
+def test_kernel_tables_check_rejects_other_widths(W):
+    from cu2rec_torch.ops.packed import check_kernel_tables
+
+    T = torch.zeros((4, W))
+    with pytest.raises(ValueError, match="K0a takes rows of"):
+        check_kernel_tables("K0a", T, T)
+
+
+def test_kernel_tables_check_rejects_unaligned_rows():
+    """The kernels read rows as float4s: a table that starts off a 16-byte
+    boundary is refused, one that starts on it is taken."""
+    from cu2rec_torch.ops.packed import check_kernel_tables
+
+    flat = torch.zeros(8 * 128 + 4)
+    start = (-flat.data_ptr() // 4) % 4  # the first 16-byte boundary
+    aligned = flat[start:start + 4 * 128].view(4, 128)
+    check_kernel_tables("K0b", aligned, aligned)
+    shifted = flat[start + 1:start + 1 + 4 * 128].view(4, 128)
+    with pytest.raises(ValueError, match="T_i must start on a 16-byte"):
+        check_kernel_tables("K0b", aligned, shifted)
