@@ -13,8 +13,11 @@ fatal on failure:
    nvcc each, all started together, and each entry function's registers a
    thread, spills and shared memory from the ``-Xptxas -v`` report;
 3. kernels: K1 (the ridge solve) against its plain PyTorch version at the
-   serving path's shapes and the edge shapes, with its time, the plain
-   version's, the library call's and the bound;
+   serving path's shapes and at N on both sides of every edge between its
+   kernels (``cuda_linalg.kernel_for``), with its time, the plain
+   version's, the library call's, the one-block-a-system kernel's and the
+   bound at the implicit fold-in wave (B=256, N=100) and at an ALS half
+   sweep of ML-20M's items (B=27,000, N=101);
 4. training kernels: K0a (the SGD step) for first_wins, twin (mirror and
    lean) and frozen items, three steps each at a small shape and at the
    headline shape (138,000 users, 27,000 items, F=100, 20,000,000 ratings
@@ -67,8 +70,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 # Ridge-solve tolerance: float32 Cholesky of condition number < ~10.
 RTOL, ATOL = 1e-3, 1e-4
-SHAPES = [(7, 9), (1000, 51), (256, 100), (64, 101), (33, 301), (8, 400)]
+# N on both sides of each edge between K1's kernels (31|32, 63|64,
+# 103|104, 127|128, 338|339), and the serving path's shapes.
+SHAPES = [(7, 9), (64, 31), (64, 32), (1000, 51), (64, 63), (64, 64),
+          (256, 100), (64, 101), (64, 103), (64, 104), (64, 127), (64, 128),
+          (33, 301), (8, 338), (8, 339), (8, 400)]
 MAIN_SHAPE = (256, 100)          # the implicit fold-in batch at F=100
+ALS_SHAPE = (27_000, 101)        # an ALS item half sweep of ML-20M at F=100
 U, I, F = 138_000, 27_000, 100   # bench.py's ML-20M-scale headline model
 N_RATINGS = 1_000_000            # the serve phase's train ratings
 N_HEADLINE = 20_000_000          # bench.py's rating count: K0a and K0b
@@ -83,6 +91,10 @@ STEP_CASES = (("first_wins", False, True), ("twin", False, True),
 # not): a step's tables agree within a few float32 roundings.  K0b and its
 # plain version both sum in float64.
 STEP_ATOL, EVAL_RTOL = 1e-5, 1e-6
+# A CUDA profiler session at times records no device event at all (once in
+# a smoke run, the twin step loop's session came back empty): a session
+# that does is run again, up to this many times.
+PROFILE_TRIES = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -124,10 +136,10 @@ def _ptxas_report(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m[1])
+            k = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m[1])
             name = k[1] if k else m[1]
             if k and k[2]:
-                name += f"<{','.join(re.findall(r'Li(\d+)E', k[2]))}>"
+                name += f"<{','.join(re.findall(r'L[ib](\d+)E', k[2]))}>"
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -177,16 +189,66 @@ def _tpu_kernel_site(rel: str, needle: str) -> str:
 
 
 def _spd(torch, B, N, seed, dev):
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, N, N)).astype(np.float32)
-    G = np.einsum("bik,bjk->bij", A, A) / N + \
-        np.eye(N, dtype=np.float32)[None] * 0.5
-    rhs = rng.normal(size=(B, N)).astype(np.float32)
-    return (torch.from_numpy(G).to(dev), torch.from_numpy(rhs).to(dev))
+    """B random SPD systems G = A·Aᵀ/N + I/2 (condition number below ~10)
+    and right-hand sides, made on the card from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, N, N), generator=gen, device=dev)
+    G = A @ A.mT / N + 0.5 * torch.eye(N, device=dev)
+    rhs = torch.randn((B, N), generator=gen, device=dev)
+    return (G + G.mT) / 2, rhs
+
+
+def _time_ridge(torch, cl, sets, reps):
+    """K1 through its wrapper, its plain version, the library solve and the
+    one-block-a-system kernel (called past the wrapper, so uncounted) on
+    the same sets: a dict of the max abs error against the plain version,
+    the times and the bound."""
+    from cu2rec_torch.experiments.common import time_ms
+
+    def library(G, rhs):  # cholesky_ex: no host sync on the info check
+        L = torch.linalg.cholesky_ex(G).L
+        return torch.cholesky_solve(rhs[..., None], L)[..., 0]
+
+    def one_block(G, rhs):
+        return cl._launch(G, rhs, "shared")
+
+    got = cl.ridge_solve_batched_cuda(*sets[0])
+    want = cl.ridge_solve_reference(*sets[0])
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+            f"ridge_cholesky disagrees with its plain version: {err}")
+    for fn in (library, one_block):
+        other = float((fn(*sets[0]) - got).abs().max())
+        require(other < 1e-3, f"{fn.__name__} disagrees with K1: {other}")
+    B, N = sets[0][1].shape
+    # A Cholesky solve of a symmetric G needs only its lower triangle.
+    n_bytes = 4 * (B * N * (N + 1) // 2 + 2 * B * N)
+    n_ops = B * (N ** 3 / 3 + 2 * N ** 2)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    # The kernels' time on the card alone: a call of the wrapper costs the
+    # host about as much as K1 takes on the card at the serving shape.  The
+    # library call, whose host side takes longer than its kernels, is timed
+    # as its caller sees it; so is K1's wrapper, for ``call_ms``.
+    t = {"ms": time_ms(cl.ridge_solve_batched_cuda, sets, reps=reps,
+                       hold=True),
+         "call_ms": time_ms(cl.ridge_solve_batched_cuda, sets, reps=reps),
+         "one_block_ms": time_ms(one_block, sets, reps=reps, hold=True),
+         "library_ms": time_ms(library, sets, reps=max(1, reps // 2)),
+         "plain_ms": time_ms(cl.ridge_solve_reference, sets, reps=1,
+                             warm=1)}
+    log(f"[kernel] ridge_cholesky B={B} N={N} ({cl.kernel_for(N)}): "
+        f"{t['ms']:.4f} ms kernel ({t['call_ms']:.4f} ms a call of the "
+        f"wrapper, host included), {t['one_block_ms']:.4f} ms one block a "
+        f"system, {t['plain_ms']:.3f} ms plain, {t['library_ms']:.4f} ms "
+        f"library (cholesky_ex + cholesky_solve), bound {bound_ms:.4f} ms "
+        f"({bound_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} MFLOP), "
+        f"max_abs_err {err:.3e}")
+    return dict(t, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                shape={"B": B, "N": N})
 
 
 def phase_kernels(torch, dev):
-    from cu2rec_torch.experiments.common import time_ms
     from cu2rec_torch.ops import cuda_linalg as cl
 
     for B, N in SHAPES:
@@ -196,52 +258,27 @@ def phase_kernels(torch, dev):
         want = cl.ridge_solve_reference(G, rhs)
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        path = "global" if cl._load().ridge_cholesky_scratch_floats(N) \
-            else "shared"
         ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
-        log(f"[kernel] ridge_cholesky B={B} N={N} ({path} memory): "
+        log(f"[kernel] ridge_cholesky B={B} N={N} ({cl.kernel_for(N)}): "
             f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ok={ok}")
         require(ok and torch.isfinite(got).all(),
                 f"ridge_cholesky disagrees with its plain version at "
                 f"B={B} N={N}: max abs err {err}")
 
     B, N = MAIN_SHAPE
-    sets = [_spd(torch, B, N, seed=1000 + s, dev=dev) for s in range(6)]
-    got = cl.ridge_solve_batched_cuda(*sets[0])
-    want = cl.ridge_solve_reference(*sets[0])
-    err = float((got - want).abs().max())
-
-    def library(G, rhs):
-        L = torch.linalg.cholesky(G)
-        return torch.cholesky_solve(rhs[..., None], L)[..., 0]
-
-    lib_err = float((library(*sets[0]) - got).abs().max())
-    require(lib_err < 1e-3, f"library solve disagrees: {lib_err}")
-    ms = time_ms(cl.ridge_solve_batched_cuda, sets, reps=60)
-    plain_ms = time_ms(cl.ridge_solve_reference, sets, reps=5)
-    library_ms = time_ms(library, sets, reps=30)
-    # A Cholesky solve of a symmetric G needs only its lower triangle.
-    n_bytes = 4 * (B * N * (N + 1) // 2 + 2 * B * N)
-    n_ops = B * (N ** 3 / 3 + 2 * N ** 2)
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = n_ops / PEAK_F32_FLOP_S * 1e3
-    entry = {
-        "name": "ridge_cholesky", "route": "cuda",
-        "source": "cu2rec_torch/csrc/ridge_cholesky.cu",
-        "replaces": _tpu_kernel_site("ops/pallas_linalg.py",
-                                     "def _ridge_kernel"),
-        "launches": None, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-        "shape": {"B": B, "N": N},
-    }
-    log(f"[kernel] ridge_cholesky B={B} N={N}: {ms:.4f} ms kernel, "
-        f"{plain_ms:.3f} ms plain, {library_ms:.4f} ms library "
-        f"(cholesky + cholesky_solve), bound {entry['bound_ms']:.4f} ms "
-        f"({entry['bound_by']}: {n_bytes / 1e6:.2f} MB, "
-        f"{n_ops / 1e6:.1f} MFLOP)")
+    entry = {"name": "ridge_cholesky", "route": "cuda",
+             "source": "cu2rec_torch/csrc/ridge_cholesky.cu",
+             "replaces": _tpu_kernel_site("ops/pallas_linalg.py",
+                                          "def _ridge_kernel"),
+             "launches": None}
+    entry.update(_time_ridge(torch, cl, [
+        _spd(torch, B, N, seed=1000 + s, dev=dev) for s in range(6)],
+        reps=60))
+    # The ALS shape: one set of 1.1 GB, so each call finds the cache cold.
+    B, N = ALS_SHAPE
+    entry["als"] = _time_ridge(torch, cl, [_spd(torch, B, N, seed=2000,
+                                                dev=dev)], reps=10)
+    torch.cuda.empty_cache()
     return [entry]
 
 
@@ -408,21 +445,50 @@ def _time_steps(torch, pm, dr, collision, n_steps: int = 50):
     return start.elapsed_time(end) / n_steps, host, enqueue
 
 
+def _has_device_time(torch, prof) -> bool:
+    """Whether a stopped session recorded a device event, read from its raw
+    trace: the parsed event list is built only when asked for, and building
+    it while the daemon serves would hold the interpreter."""
+    return any(e.device_type() == torch.autograd.DeviceType.CUDA
+               for e in prof.profiler.kineto_results.events())
+
+
+def _new_profile(torch):
+    from torch.profiler import ProfilerActivity
+
+    return torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+
+
+def _profiled(torch, run, profile):
+    """(profile, host seconds) of ``run()`` under a session from
+    ``profile()``, run again while the session records no device event, at
+    most PROFILE_TRIES times; ``run`` ends in a synchronize."""
+    for _ in range(PROFILE_TRIES):
+        prof = profile()
+        prof.start()
+        t0 = time.perf_counter()
+        run()
+        host_s = time.perf_counter() - t0
+        prof.stop()
+        if _has_device_time(torch, prof):
+            return prof, host_s
+    raise SmokeFailure(f"{PROFILE_TRIES} profiler sessions in a row "
+                       "recorded no device time")
+
+
 def _profile_steps(torch, pm, dr, collision, n_steps: int = 20):
     """The step loop under torch.profiler: (device busy ms per step, host
     ms per step, top kernels)."""
-    from torch.profiler import ProfilerActivity
-
     from cu2rec_torch.ops.packed import packed_run_steps
     from cu2rec_torch.ops.sgd import prng_key
 
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
         packed_run_steps(pm, dr, _hp(), prng_key(2), 0, n_steps, True,
                          collision)
         torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
+
+    prof, host_s = _profiled(torch, run, lambda: _new_profile(torch))
     busy_s, top = _device_breakdown(torch, prof)
     return busy_s * 1e3 / n_steps, host_s * 1e3 / n_steps, top
 
@@ -753,9 +819,9 @@ def phase_probes():
 
 # -- phase 6: serve ----------------------------------------------------------
 
-def _replay(wave):
-    """The same requests under new ids."""
-    return [dict(r, id=f"{r['id']}~prof") for r in wave]
+def _replay(wave, attempt: int = 0):
+    """The same requests under new ids (one set of ids an attempt)."""
+    return [dict(r, id=f"{r['id']}~prof{attempt}") for r in wave]
 
 
 class _WaveInput:
@@ -765,11 +831,13 @@ class _WaveInput:
     count) is read as each wave starts and once its responses are out.
     Each wave is timed with no profiler running; then, except for the
     last (stats) wave, its replay runs under a profiler from
-    ``profile()``."""
+    ``profile()``, again under new ids while ``busy(profile)`` is false,
+    at most PROFILE_TRIES times.  ``profiles`` holds (profile, start,
+    attempt) of each wave's kept replay."""
 
-    def __init__(self, waves, out, probe, profile):
+    def __init__(self, waves, out, probe, profile, busy):
         self.waves, self.out, self.probe = waves, out, probe
-        self.profile = profile
+        self.profile, self.busy = profile, busy
         self.t_start: list[float] = []
         self.counts: list[tuple[int, int]] = []
         self.profiles: list = []
@@ -790,12 +858,15 @@ class _WaveInput:
             self.counts.append((before, self.probe()))
             if n == len(self.waves) - 1:
                 continue
-            prof = self.profile()
-            prof.start()
-            t0 = time.perf_counter()
-            yield from self._send(_replay(wave))
-            prof.stop()
-            self.profiles.append((prof, t0))
+            for attempt in range(PROFILE_TRIES):
+                prof = self.profile()
+                prof.start()
+                t0 = time.perf_counter()
+                yield from self._send(_replay(wave, attempt))
+                prof.stop()
+                if self.busy(prof):
+                    break
+            self.profiles.append((prof, t0, attempt))
 
 
 def _device_breakdown(torch, prof, top: int = 6):
@@ -915,8 +986,6 @@ def _check_topk(items, scores, ref_scores, excluded, what: str):
 
 
 def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
-    from torch.profiler import ProfilerActivity
-
     from cu2rec_torch.cli.serve import main as serve_main
     from cu2rec_torch.ops import cuda_linalg
 
@@ -930,8 +999,8 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
         rec_users, waves = _requests(rng)
         out = _ResponseOutput()
         inp = _WaveInput(waves, out, lambda: cuda_linalg.LAUNCHES,
-                         lambda: torch.profiler.profile(activities=[
-                             ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                         lambda: _new_profile(torch),
+                         lambda prof: _has_device_time(torch, prof))
         saved = sys.stdin, sys.stdout
         sys.stdin, sys.stdout = inp, out
         cuda_linalg.LAUNCHES = 0
@@ -950,7 +1019,8 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
     require(rc == 0, f"serve exited with {rc}")
 
     want = {r["id"] for w in waves for r in w} | {
-        r["id"] for w in waves[:-1] for r in _replay(w)}
+        r["id"] for w, (_, _, attempt) in zip(waves, inp.profiles)
+        for a in range(attempt + 1) for r in _replay(w, a)}
     require(want <= out.resp.keys(),
             f"missing responses: {sorted(want - out.resp.keys())[:5]}")
     errors = [r for r in out.resp.values() if "error" in r]
@@ -1013,12 +1083,17 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
     log(f"[serve] ridge_cholesky launches: {launches} in the run "
         f"(warm-up ladder and replays included), per wave {per_wave[:3]} "
         f"(recommend, explicit, implicit); stats: {json.dumps(stats)}")
-    for what, (prof, t0), wave, wave_s in zip(
+    for what, (prof, t0, attempt), wave, wave_s in zip(
             ("recommend", "explicit fold-in", "implicit fold-in"),
             inp.profiles, waves, lat):
-        replay_s = max(out.t_done[r["id"]] for r in _replay(wave)) - t0
+        replay_s = max(out.t_done[r["id"]]
+                       for r in _replay(wave, attempt)) - t0
         busy_s, top = _device_breakdown(torch, prof)
         require(top, f"profile of the {what} wave holds no device time")
+        if attempt:
+            log(f"[profile] {what}: replay {attempt + 1} of "
+                f"{PROFILE_TRIES}, the earlier sessions recorded no device "
+                "time")
         log(f"[profile] {what}: device busy {busy_s * 1e3:.3f} ms, "
             f"{busy_s / replay_s:.1%} of the profiled replay's "
             f"{replay_s * 1e3:.1f} ms, {busy_s / wave_s:.1%} of the "

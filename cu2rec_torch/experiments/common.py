@@ -4,25 +4,47 @@ the JSON record stream."""
 from __future__ import annotations
 
 import json
+import time
 
 import torch
 
 
-def time_ms(fn, inputs, reps: int, warm: int = 2) -> float:
+# A spin of the card long enough for the host to enqueue a timed run behind
+# it: about 20 ms at the H100's boost clock.
+HOLD_CYCLES = 40_000_000
+
+
+def time_ms(fn, inputs, reps: int, warm: int = 2, hold: bool = False) -> float:
     """Mean ms per call of ``fn(*inputs[r % len(inputs)])`` over ``reps``
     calls, timed with CUDA events after ``warm`` calls.  Cycle through
     sets whose total exceeds the 50 MB L2 where a real caller would find
-    the cache cold."""
+    the cache cold.
+
+    With ``hold``, a spin of the card (``torch.cuda._sleep``) holds the
+    stream while the host enqueues the calls, so that the events time the
+    card's work alone, not the host's launch overhead; ``fn`` must then not
+    synchronize.  It raises if the spin ended before the host had enqueued
+    every call."""
     for r in range(warm):
         fn(*inputs[r % len(inputs)])
     torch.cuda.synchronize()
+    spin = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        spin.record()
+        torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
     start.record()
     for r in range(reps):
         fn(*inputs[r % len(inputs)])
     end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    if hold and spin.elapsed_time(start) < enqueue_ms:
+        raise RuntimeError(f"the spin ({spin.elapsed_time(start):.2f} ms) "
+                           f"ended before the host had enqueued the run "
+                           f"({enqueue_ms:.2f} ms)")
     return start.elapsed_time(end) / reps
 
 

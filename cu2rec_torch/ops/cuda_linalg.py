@@ -1,10 +1,15 @@
 """Batched ridge solve θ = G⁻¹·rhs for many small SPD systems — kernel K1.
 
-The port of the TPU package's ``ops/pallas_linalg.py::_ridge_kernel``: a
-CUDA kernel for Hopper (``csrc/ridge_cholesky.cu``, one thread block per
-system; its header says what bounds it and why it is built so), and
-``ridge_solve_reference``, the same column loop written with batched torch
-ops.
+The port of the TPU package's ``ops/pallas_linalg.py::_ridge_kernel``: CUDA
+kernels for Hopper (``csrc/ridge_cholesky.cu``; its header says what bounds
+them and why they are built so), and ``ridge_solve_reference``, the same
+column loop written with batched torch ops.
+
+``kernel_for(n)`` picks the kernel from N alone: the register-resident
+bucket kernel whose augmented triangle of 32, 64, 104 or 128 rows holds
+N + 1 rows, else the one-block-a-system kernel with its triangle in shared
+memory (N ≤ 338, a block's 227 KB on an H100), else the same kernel on
+global scratch.
 
 ``ridge_solve_batched_cuda`` is the one entry point.  On CPU tensors it runs
 the plain version; on CUDA tensors it launches the kernel or raises — it
@@ -24,17 +29,37 @@ LAUNCHES = 0
 
 _lib = None
 
+# Augmented rows (N + 1) each bucket kernel takes, smallest first.
+BUCKET_ROWS = (32, 64, 104, 128)
+# The largest N whose packed triangle, pivot column and solution fit a
+# block's shared memory on an H100 (232,448 bytes).
+SHARED_MAX_N = 338
+
+
+def kernel_for(n: int) -> str:
+    """The kernel K1 launches for systems of size ``n`` (≥ 1): the smallest
+    ``"bucket<rows>"`` of ``BUCKET_ROWS`` that n + 1 fits, else ``"shared"``
+    up to ``SHARED_MAX_N``, else ``"global"``."""
+    for rows in BUCKET_ROWS:
+        if n + 1 <= rows:
+            return f"bucket{rows}"
+    return "shared" if n <= SHARED_MAX_N else "global"
+
+
+# Each kernel's code in ``ridge_cholesky_launch``.
+_KERNEL_CODE = {**{f"bucket{rows}": rows for rows in BUCKET_ROWS},
+                "shared": 0, "global": -1}
+
 
 def _load():
     global _lib
     if _lib is None:
         from cu2rec_torch.csrc.build import load
         lib = load(KERNEL)
-        lib.ridge_cholesky_scratch_floats.argtypes = [ctypes.c_int]
-        lib.ridge_cholesky_scratch_floats.restype = ctypes.c_longlong
         lib.ridge_cholesky_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         lib.ridge_cholesky_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -79,8 +104,9 @@ def ridge_solve_batched_cuda(G: torch.Tensor,
                              rhs: torch.Tensor) -> torch.Tensor:
     """θ = G⁻¹ rhs per system: ``G`` (B, N, N) SPD, ``rhs`` (B, N), float32.
 
-    CUDA tensors launch K1 on the current stream without synchronizing;
-    CPU tensors run ``ridge_solve_reference``."""
+    CUDA tensors launch the kernel ``kernel_for(N)`` names on the current
+    stream without synchronizing; CPU tensors run
+    ``ridge_solve_reference``."""
     global LAUNCHES
     _check(G, rhs)
     if G.device.type == "cpu":
@@ -90,22 +116,33 @@ def ridge_solve_batched_cuda(G: torch.Tensor,
     if not (G.is_contiguous() and rhs.is_contiguous()):
         raise ValueError("G and rhs must be contiguous")
     B, n = rhs.shape
-    out = torch.empty_like(rhs)
     if B == 0 or n == 0:
-        return out
+        return torch.empty_like(rhs)
+    out = _launch(G, rhs, kernel_for(n))
+    LAUNCHES += 1
+    return out
+
+
+def _launch(G: torch.Tensor, rhs: torch.Tensor,
+            kernel: str) -> torch.Tensor:
+    """Launches ``kernel`` (a name ``kernel_for`` returns; the bucket kernel
+    only where N + 1 fits it) on checked, contiguous, non-empty CUDA
+    inputs, uncounted; raises if the launch fails."""
+    B, n = rhs.shape
+    out = torch.empty_like(rhs)
     lib = _load()
     with torch.cuda.device(G.device):
-        per_system = lib.ridge_cholesky_scratch_floats(n)
-        if per_system < 0:
-            raise RuntimeError("ridge_cholesky: device query failed")
-        scratch = (torch.empty(B * per_system, dtype=torch.float32,
-                               device=G.device) if per_system else None)
+        # The global-scratch kernel's workspace: triangle, pivot column and
+        # solution of each system.
+        scratch = (torch.empty(B * (n * (n + 1) // 2 + 2 * n),
+                               dtype=torch.float32, device=G.device)
+                   if kernel == "global" else None)
         stream = torch.cuda.current_stream(G.device).cuda_stream
         rc = lib.ridge_cholesky_launch(
             G.data_ptr(), rhs.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            B, n, stream)
+            B, n, _KERNEL_CODE[kernel], stream)
     if rc != 0:
-        raise RuntimeError(f"ridge_cholesky launch failed: cudaError {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"ridge_cholesky ({kernel}) launch failed: "
+                           f"cudaError {rc}")
     return out

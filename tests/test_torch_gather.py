@@ -176,9 +176,17 @@ ptxas info    : Used 32 registers, used 1 barriers, 4096 bytes smem
 ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__3b16e78f_14_smem_gather_cu_b7067f9318smem_gather_kernelEPK6float4PKiPS0_xii' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 46 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__cde82dc2_17_ridge_cholesky_cu_bb6c8ca019ridge_bucket_kernelILi8ELi16ELi1EEEvPKfS2_Pfii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 207 registers, used 1 barriers, 33536 bytes smem
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__cde82dc2_17_ridge_cholesky_cu_bb6c8ca021ridge_cholesky_kernelILb1EEEvPKfS2_PfS3_i' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
 """
     assert smoke._ptxas_report(log) == [
         ("sgd_item_kernel<128,0>", 40, 12, 132),
         ("eval_finish_kernel", 32, 0, 4096),
-        ("smem_gather_kernel", 46, 0, 0)]
+        ("smem_gather_kernel", 46, 0, 0),
+        ("ridge_bucket_kernel<8,16,1>", 207, 0, 33536),
+        ("ridge_cholesky_kernel<1>", 32, 0, 0)]
     assert smoke._ptxas_report("nvcc: no report\n") == []

@@ -1,6 +1,7 @@
-"""Tests of the PyTorch port that need a CUDA device: kernel K1 against its
-plain version on the card, and the serving engine on the card against the
-same engine on the CPU.  Here, without a card, each skips with a reason.
+"""Tests of the PyTorch port that need a CUDA device: each kernel against
+its plain version on the card (K1 at N on both sides of every edge between
+its kernels), and the serving engine and trainer on the card against the
+same code on the CPU.  Here, without a card, each skips with a reason.
 
 This file imports neither JAX nor the TPU package, so that it also runs on
 a machine with a GPU and no JAX:
@@ -53,6 +54,67 @@ def test_kernel_matches_plain(cuda_device, B, N):
                             rhs[..., None].astype(np.float64))[..., 0]
     np.testing.assert_allclose(got.cpu().numpy(), exact, rtol=RTOL,
                                atol=ATOL)
+
+
+def _system_on_card(B, N, seed, device, ridge=None):
+    """B random SPD systems made on the card: A·Aᵀ/N + I/2, or with
+    ``ridge`` XᵀX/2N + ridge·I for X of 2N rows (condition number ~34)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if ridge is None:
+        A = torch.randn((B, N, N), generator=gen, device=device)
+        G = A @ A.mT / N + 0.5 * torch.eye(N, device=device)
+    else:
+        X = torch.randn((B, 2 * N, N), generator=gen, device=device)
+        G = X.mT @ X / (2 * N) + ridge * torch.eye(N, device=device)
+    rhs = torch.randn((B, N), generator=gen, device=device)
+    return (G + G.mT) / 2, rhs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 7, 256])
+@pytest.mark.parametrize("N", [1, 2, 31, 32, 33, 63, 64, 65, 100, 101, 103,
+                               104, 127, 128, 129, 301, 339, 400])
+def test_kernel_matches_plain_at_every_kernel_edge(cuda_device, B, N):
+    """Every kernel ``kernel_for`` picks, on both sides of each edge, at
+    one system, a block's spare systems and a full wave."""
+    from cu2rec_torch.ops import cuda_linalg
+
+    G, rhs = _system_on_card(B, N, seed=B * 1000 + N, device=cuda_device)
+    n0 = cuda_linalg.LAUNCHES
+    got = cuda_linalg.ridge_solve_batched_cuda(G, rhs)
+    torch.cuda.synchronize()
+    assert cuda_linalg.LAUNCHES == n0 + 1
+    want = cuda_linalg.ridge_solve_reference(G, rhs)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [20, 50, 100, 200])
+def test_kernel_matches_plain_with_a_small_ridge(cuda_device, N):
+    """A Gram matrix of 2N random rows plus λ = 1e-3 on the diagonal."""
+    from cu2rec_torch.ops import cuda_linalg
+
+    G, rhs = _system_on_card(64, N, seed=N, device=cuda_device, ridge=1e-3)
+    got = cuda_linalg.ridge_solve_batched_cuda(G, rhs)
+    want = cuda_linalg.ridge_solve_reference(G, rhs)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_every_kernel_launches_on_its_own(cuda_device):
+    """Each kernel, launched past the wrapper where N fits it, solves the
+    same systems; a bucket too small for N is refused."""
+    from cu2rec_torch.ops import cuda_linalg
+
+    G, rhs = _system_on_card(9, 30, seed=3, device=cuda_device)
+    want = cuda_linalg.ridge_solve_reference(G, rhs)
+    for kernel in ("bucket32", "bucket64", "bucket104", "bucket128",
+                   "shared", "global"):
+        got = cuda_linalg._launch(G, rhs, kernel)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    G, rhs = _system_on_card(2, 32, seed=4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="bucket32"):
+        cuda_linalg._launch(G, rhs, "bucket32")
 
 
 @pytest.mark.gpu
@@ -339,13 +401,15 @@ def test_row_gather_kernel_is_exact(cuda_device, W):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("I", [1, 64, 448])
+@pytest.mark.parametrize("I", [1, 64, 448, 454])
 def test_smem_gather_kernel_is_exact(cuda_device, I):
+    """Up to the largest table that fits (454 rows of 512 bytes); M off the
+    32 indices a warp takes and the 1,024 a block takes."""
     from cu2rec_torch.ops.cuda_gather import smem_gather
 
     g = torch.Generator().manual_seed(I)
     table = torch.randn((I, 128), generator=g).to(cuda_device)
-    for M in (1, 2047, 2049, 300_000):
+    for M in (1, 31, 33, 1025, 2047, 2049, 300_001):
         idx = torch.randint(0, I, (M,), generator=g).to(cuda_device)
         n0 = smem_gather.LAUNCHES
         got = smem_gather(table, idx.to(torch.int32))
@@ -358,6 +422,26 @@ def test_smem_gather_kernel_is_exact(cuda_device, I):
         smem_gather(big, torch.zeros(4, dtype=torch.int32,
                                      device=cuda_device))
     assert smem_gather.LAUNCHES == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [4, 12, 32, 64, 256, 512])
+def test_smem_gather_kernel_every_row_width(cuda_device, W):
+    """Rows narrower than a warp's 32 float4s (idle lanes) and wider ones
+    (several float4s a lane), with NaN rows for indices out of range."""
+    from cu2rec_torch.ops.cuda_gather import SMEM_LIMIT_BYTES, smem_gather
+
+    I = min(300, SMEM_LIMIT_BYTES // (4 * W))
+    g = torch.Generator().manual_seed(W)
+    table = torch.randn((I, W), generator=g).to(cuda_device)
+    idx = torch.randint(0, I, (5001,), generator=g).to(torch.int32)
+    bad = torch.tensor([0, 31, 32, 5000])
+    idx[bad] = torch.tensor([I, -1, 1 << 30, -(1 << 31)], dtype=torch.int32)
+    got = smem_gather(table, idx.to(cuda_device)).cpu()
+    good = torch.ones(5001, dtype=torch.bool)
+    good[bad] = False
+    assert torch.isnan(got[bad]).all()
+    assert torch.equal(got[good], table.cpu()[idx[good].long()])
 
 
 @pytest.mark.gpu

@@ -15,7 +15,9 @@ import torch
 
 from cu2rec_torch.ops import cuda_linalg
 from cu2rec_torch.ops.als import SOLVERS, _ridge_finish
-from cu2rec_torch.ops.cuda_linalg import (ridge_solve_batched_cuda,
+from cu2rec_torch.ops.cuda_linalg import (BUCKET_ROWS, SHARED_MAX_N,
+                                          kernel_for,
+                                          ridge_solve_batched_cuda,
                                           ridge_solve_reference)
 from cu2rec_tpu.ops.batched_linalg import ridge_solve_batched
 from cu2rec_tpu.ops.pallas_linalg import ridge_solve_batched_pallas
@@ -89,6 +91,71 @@ def test_plain_solves_exactly_on_cpu():
     got = ridge_solve_batched_cuda(torch.from_numpy(G),
                                    torch.from_numpy(rhs)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# K1's kernels in the order of the N they take.
+KERNEL_ORDER = ("bucket32", "bucket64", "bucket104", "bucket128", "shared",
+                "global")
+
+
+def test_kernel_for_takes_every_n_with_one_kernel():
+    """Every N from 1 to 512 goes to one of K1's kernels, each kernel
+    taking one run of N, in order."""
+    names = [kernel_for(n) for n in range(1, 513)]
+    assert set(names) == set(KERNEL_ORDER) == set(cuda_linalg._KERNEL_CODE)
+    ranks = [KERNEL_ORDER.index(name) for name in names]
+    assert ranks == sorted(ranks)
+
+
+def _workspace_bytes(n):
+    """The one-block-a-system kernel's triangle, pivot column and solution."""
+    return 4 * (n * (n + 1) // 2 + 2 * n)
+
+
+@pytest.mark.parametrize("kernel", KERNEL_ORDER)
+def test_kernel_for_gives_each_kernel_only_what_fits_it(kernel):
+    """A bucket takes N with N + 1 within its rows and no smaller bucket
+    takes them; the shared-memory kernel takes the N whose workspace fits
+    an H100 block's 232,448 bytes of shared memory above the buckets, the
+    global-scratch kernel the rest."""
+    ns = [n for n in range(1, 513) if kernel_for(n) == kernel]
+    assert ns == list(range(ns[0], ns[-1] + 1))
+    if kernel.startswith("bucket"):
+        rows = int(kernel[len("bucket"):])
+        smaller = [r for r in BUCKET_ROWS if r < rows]
+        assert ns[-1] + 1 == rows
+        assert ns[0] == (max(smaller) if smaller else 1)
+    elif kernel == "shared":
+        assert ns[0] == max(BUCKET_ROWS) and ns[-1] == SHARED_MAX_N
+        assert _workspace_bytes(SHARED_MAX_N) <= 232_448
+    else:
+        assert ns[0] == SHARED_MAX_N + 1 and ns[-1] == 512
+        assert _workspace_bytes(SHARED_MAX_N + 1) > 232_448
+
+
+def _smoke():
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_smoke_shapes_reach_every_kernel_on_both_sides_of_each_edge():
+    """chip_smoke.py checks K1 on the card at N on both sides of every edge
+    between two of its kernels, so it reaches all of them."""
+    smoke = _smoke()
+    ns = {n for _, n in smoke.SHAPES}
+    assert {kernel_for(n) for n in ns} == set(KERNEL_ORDER)
+    edges = [n for n in range(1, 512) if kernel_for(n) != kernel_for(n + 1)]
+    assert len(edges) == len(KERNEL_ORDER) - 1
+    for n in edges:
+        assert {n, n + 1} <= ns
+    assert smoke.MAIN_SHAPE in smoke.SHAPES
 
 
 def test_smoke_names_the_tpu_kernel_it_replaces():
