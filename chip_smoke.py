@@ -43,7 +43,20 @@ fatal on failure:
    items excluded, scores against a float64 reference for a sample), with
    the kernels' launch counts read across the run.  Each wave is timed
    without a profiler, then sent again under ``torch.profiler``; that
-   replay gives the card's busy time and its top kernels.
+   replay gives the card's busy time and its top kernels;
+7. families: ALS, iALS and BPR at the headline widths.  ALS trains 5
+   sweeps (F=100, regs 0.05) on ``data/synth.py::generate_planted`` draws
+   (22,200,000, split 90/10, ≥ 100 items above the heavy edge of 8,192
+   ratings) and its test RMSE must fall below sweep 1's and the global
+   mean's; each half sweep is timed with CUDA events, one sweep runs under
+   the profiler (K1's share of its device time), and K1 is held against
+   its plain version on the item sweep's largest regular chunk and on a
+   heavy chunk.  iALS trains 5 sweeps (alpha 40) on implicit planted data
+   built on the card (20,000,000 draws): AUC ≥ 0.65 and recall@10 ≥
+   5·10/I at sweep 5.  BPR runs three steps on the card and on the CPU
+   (the same ids, tables within 1e-5), then trains 2,000 iterations: AUC
+   ≥ 0.6 and above iteration 1's.  Last, ``mf --algo als|ials|bpr`` on
+   ML-100K-shaped planted CSVs (K1 and K0b launched).
 
 It prints the kernels' JSON line, then the nvidia-smi name/power line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -1103,6 +1116,499 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
     return launches
 
 
+# -- phase 7: the training families (ALS, iALS, BPR) -----------------------
+
+# ALS's explicit planted draws at the headline shape (about 20,000,000 train
+# and 2,200,000 test ratings after the 90/10 split), its sweeps and regs.
+ALS_DRAWS, SWEEPS, FAMILY_REG = 22_200_000, 5, 0.05
+HEAVY_DEGREE, MIN_HEAVY = 8192, 100      # the heavy path's edge; a gate
+IMPLICIT_DRAWS, ALPHA = 20_000_000, 40.0
+IALS_AUC_GATE, RECALL_GATE_X = 0.65, 5   # recall@10 ≥ 5 × a random 10 / I
+# BPR's iterations: at this shape 500 left AUC at 0.587 on an H100, below
+# its gate, so the run takes 2,000; the gate stays.
+BPR_ITERATIONS, BPR_CHECK, BPR_LR, BPR_REG, BPR_AUC_GATE = \
+    2000, 1000, 0.1, 0.01, 0.6
+# The entry points' planted CSVs: ML-100K's shape.
+ML100K = (943, 1682, 100_000)
+IMPLICIT_LINE = re.compile(
+    r"^(IALS sweep|BPR iteration) (\d+): AUC = (\d+\.\d+)  recall@\d+ = "
+    r"(\d+\.\d+)  ndcg@\d+ = (\d+\.\d+)$")
+
+
+def _implicit_metrics(text: str):
+    """[(iteration, auc, recall, ndcg)] of the implicit metric lines of a
+    run's output; fails if a line that starts like one does not parse."""
+    rows = []
+    for line in text.splitlines():
+        if line.startswith(("IALS sweep", "BPR iteration")):
+            m = IMPLICIT_LINE.match(line)
+            require(m, f"an implicit metric line does not parse: {line!r}")
+            rows.append((int(m[2]), float(m[3]), float(m[4]), float(m[5])))
+    require(rows, "no implicit metric line")
+    return rows
+
+
+def _history_rows(logger):
+    """The same rows from a MetricsLogger's implicit eval records."""
+    return [(r["iteration"], r["auc"], r["recall_at_k"], r["ndcg_at_k"])
+            for r in logger.history if r["event"] == "eval"]
+
+
+def _gate_als(test_rmse, mean_rmse: float) -> None:
+    """The last sweep's test RMSE below the first's and the global mean's."""
+    first, last = test_rmse[0], test_rmse[-1]
+    require(last < first and last < mean_rmse,
+            f"ALS test RMSE {last} is not below sweep 1's {first} and the "
+            f"global mean's {mean_rmse}")
+
+
+def _gate_ials(rows, n_items: int) -> None:
+    _it, auc, recall, _ndcg = rows[-1]
+    need = RECALL_GATE_X * 10 / n_items
+    require(auc >= IALS_AUC_GATE and recall >= need,
+            f"iALS at sweep {_it}: AUC {auc} (need {IALS_AUC_GATE}), "
+            f"recall@10 {recall} (need {need:.5f})")
+
+
+def _gate_bpr(rows) -> None:
+    first, last = rows[0][1], rows[-1][1]
+    require(last >= BPR_AUC_GATE and last > first,
+            f"BPR AUC {last} at iteration {rows[-1][0]} is not >= "
+            f"{BPR_AUC_GATE} and above iteration {rows[0][0]}'s {first}")
+
+
+def _csr_of_keys(keys, n_users: int, n_items: int):
+    """A host CSR of sorted unique keys user·I + item, every rating 1."""
+    from cu2rec_torch.data.csr import CSRRatings
+
+    keys = keys.cpu().numpy()
+    users = keys // n_items
+    indptr = np.zeros(n_users + 1, np.int32)
+    np.cumsum(np.bincount(users, minlength=n_users), out=indptr[1:])
+    return CSRRatings(indptr=indptr,
+                      indices=(keys % n_items).astype(np.int32),
+                      data=np.ones(len(keys), np.float32),
+                      n_users=n_users, n_items=n_items)
+
+
+def _implicit_on_card(torch, n_users: int, n_items: int, n_draws: int,
+                      n_factors: int, seed: int, dev, chunk_users=2048,
+                      oracle_samples=200_000, signal_std=2.0, bias_std=0.45,
+                      test_share=0.1):
+    """The recipe of ``data/synth.py::generate_planted_implicit`` on the
+    device (its NumPy copy takes minutes at the headline shape): lognormal
+    user activity, each user's items drawn from a softmax over p·q + b by a
+    searchsorted on the float64 cumsum, repeated pairs dropped, and the
+    oracle AUC by Monte Carlo.  The kept pairs split at random, about
+    ``test_share`` to test.  Returns (train CSR, test CSR, oracle AUC)."""
+    f64 = torch.float64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U, I = n_users, n_items
+    s = (signal_std ** 2 / n_factors) ** 0.25
+    P = torch.randn((U, n_factors), generator=g, device=dev) * s
+    Q = torch.randn((I, n_factors), generator=g, device=dev) * s
+    ib = torch.randn(I, generator=g, device=dev) * bias_std
+    w_u = torch.exp(torch.randn(U, generator=g, device=dev, dtype=f64))
+    cdf_u = torch.cumsum(w_u / w_u.sum(), 0)
+    drawn_u = torch.searchsorted(cdf_u, torch.rand(n_draws, generator=g,
+                                                   device=dev, dtype=f64))
+    counts = torch.bincount(drawn_u.clamp(max=U - 1), minlength=U)
+    keys, hits, total = [], 0, 0
+    per_chunk = max(1, oracle_samples // max(1, U // chunk_users))
+    for lo in range(0, U, chunk_users):
+        hi = min(lo + chunk_users, U)
+        c = hi - lo
+        logits = P[lo:hi] @ Q.T + ib
+        w = torch.exp(logits - logits.max(dim=1, keepdim=True).values)
+        cdf = torch.cumsum(w, dim=1, dtype=f64)
+        cdf /= cdf[:, -1:].clone()
+        flat = (cdf + torch.arange(c, device=dev, dtype=f64)[:, None]) \
+            .reshape(-1)
+        rows = torch.repeat_interleave(torch.arange(c, device=dev),
+                                       counts[lo:hi])
+        u01 = torch.rand(rows.shape[0], generator=g, device=dev, dtype=f64)
+        items = (torch.searchsorted(flat, u01 + rows) - rows * I).clamp(
+            0, I - 1)
+        keys.append((rows + lo) * I + items)
+        m = min(per_chunk, c)
+        sel = torch.randint(0, c, (m,), generator=g, device=dev)
+        su = torch.rand(m, generator=g, device=dev, dtype=f64) + sel
+        pos = (torch.searchsorted(flat, su) - sel * I).clamp(0, I - 1)
+        neg = torch.randint(0, I, (m,), generator=g, device=dev)
+        a = P[lo + sel]
+        s_pos = (a * Q[pos]).sum(-1) + ib[pos]
+        s_neg = (a * Q[neg]).sum(-1) + ib[neg]
+        hits += int((s_pos > s_neg).sum())
+        total += m
+    keys = torch.unique(torch.cat(keys))
+    test = torch.rand(keys.shape[0], generator=g, device=dev) < test_share
+    return (_csr_of_keys(keys[~test], U, I),
+            _csr_of_keys(keys[test], U, I), hits / max(1, total))
+
+
+def _explicit_family_data(seed: int):
+    """``generate_planted`` at the headline shape, split 90/10: (train CSR,
+    test CSR, train mean, the global-mean predictor's test RMSE)."""
+    from cu2rec_torch.data.csr import CSRRatings
+    from cu2rec_torch.data.synth import generate_planted, split_arrays
+
+    d = generate_planted(U, I, ALS_DRAWS, seed=seed)
+    csrs = []
+    for u, i, r in split_arrays(d.users, d.items, d.ratings, 0.9, seed=seed):
+        indptr = np.zeros(U + 1, np.int32)
+        np.cumsum(np.bincount(u, minlength=U), out=indptr[1:])
+        csrs.append(CSRRatings(indptr=indptr, indices=i, data=r,
+                               n_users=U, n_items=I))
+    mu = float(np.mean(csrs[0].data))
+    mean_rmse = float(np.sqrt(np.mean((csrs[1].data.astype(np.float64)
+                                       - mu) ** 2)))
+    return csrs[0], csrs[1], mu, mean_rmse
+
+
+def _family_cfg(seed: int, **kw):
+    from cu2rec_torch.utils.config import Config
+
+    return Config(n_factors=F, total_iterations=SWEEPS, seed=seed,
+                  P_reg=FAMILY_REG, Q_reg=FAMILY_REG,
+                  user_bias_reg=FAMILY_REG, item_bias_reg=FAMILY_REG)\
+        .replace(**kw)
+
+
+def _check_systems(torch, pm, item_chunks, mu: float, card: str):
+    """The item half sweep's systems of its largest regular chunk and of
+    one heavy chunk, assembled as the sweep assembles them: K1's θ (an
+    uncounted launch) against its plain version, and K1's time on the
+    largest regular chunk."""
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.ops import als, cuda_linalg as cl
+
+    kernel = cl.kernel_for(F + 1)
+    reg = als.reg_vector(FAMILY_REG, FAMILY_REG, F, pm.T_u.device)
+    mu32 = torch.tensor(mu, dtype=torch.float32, device=pm.T_u.device)
+    regs, heavies = als.split_chunks(item_chunks)
+    cols, vals, mask, _rows = max(regs, key=lambda ch: ch[0].shape[0])
+    deg = mask.sum(dim=1).to(torch.float32)[:, None]
+    systems = {"regular": als.bucket_system(pm.T_u, cols, vals, mask, mu32,
+                                            reg, deg)}
+    require(heavies, "the item half sweep has no heavy chunk")
+    h = heavies[0]
+    systems["heavy"] = als.heavy_system(pm.T_u, *h[:3], mu32, reg, *h[4:7])
+    out = {}
+    for name, (G, rhs) in systems.items():
+        got = cl._launch(G.contiguous(), rhs.contiguous(), kernel)
+        want = cl.ridge_solve_reference(G, rhs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+                and bool(torch.isfinite(got).all()),
+                f"K1 on the item sweep's {name} chunk disagrees with its "
+                f"plain version: {err}")
+        out[name] = {"B": G.shape[0], "N": G.shape[-1], "max_abs_err": err}
+    G, rhs = (x.contiguous() for x in systems["regular"])
+    out["regular"]["ms"] = time_ms(lambda: cl._launch(G, rhs, kernel),
+                                   [()], reps=10, hold=True)
+    log(f"[als] K1 on the item sweep's systems: largest regular chunk "
+        f"B={out['regular']['B']} N={out['regular']['N']} "
+        f"{out['regular']['ms']:.4f} ms, max_abs_err "
+        f"{out['regular']['max_abs_err']:.3e}; heavy chunk B="
+        f"{out['heavy']['B']}, max_abs_err {out['heavy']['max_abs_err']:.3e}"
+        f" (rtol {RTOL}, atol {ATOL}) on {card}")
+    return out
+
+
+def _profile_sweep(torch, pm, user_chunks, item_chunks, mu: float,
+                   card: str):
+    """One ALS sweep (both half sweeps) under torch.profiler, after one
+    unprofiled: the card's busy time, K1's share of it and the top device
+    operations."""
+    from cu2rec_torch.ops.als import als_half_sweep
+
+    def run():
+        T_u = als_half_sweep(pm.T_u, pm.T_i, user_chunks, mu, FAMILY_REG,
+                             FAMILY_REG, F)
+        als_half_sweep(pm.T_i, T_u, item_chunks, mu, FAMILY_REG,
+                       FAMILY_REG, F)
+        torch.cuda.synchronize()
+
+    run()
+    prof, host_s = _profiled(torch, run, lambda: _new_profile(torch))
+    busy_s, ops = _device_breakdown(torch, prof, top=10_000)
+    k1_ms = sum(ms for k, ms, _n in ops if "ridge" in k)
+    k1_n = sum(n for k, _ms, n in ops if "ridge" in k)
+    # The sweep's bound: each padded slot's design row (F + 1 floats)
+    # gathered once, and its Gram and rhs products at the float32 peak.
+    slots = sum(ch[1].numel() for ch in (*user_chunks, *item_chunks))
+    n_bytes, n_ops = 4 * (F + 1) * slots, 2 * slots * (F + 1) * (F + 2)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    log(f"[als] one sweep under the profiler: {host_s * 1e3:.1f} ms host, "
+        f"device busy {busy_s * 1e3:.3f} ms; K1 {k1_ms:.3f} ms in {k1_n} "
+        f"launches, {k1_ms / (busy_s * 1e3):.1%} of the device time "
+        f"({len(user_chunks)} user and {len(item_chunks)} item chunks, "
+        f"{slots} padded slots); the sweep's bound {bound_ms:.3f} ms "
+        f"({bound_by}: {n_ops / 1e12:.3f} TFLOP, {n_bytes / 1e9:.2f} GB) on "
+        f"{card}; top: " + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}"
+                                     for k, ms, n in ops[:8]))
+    return {"busy_ms": busy_s * 1e3, "k1_ms": k1_ms, "host_ms": host_s * 1e3,
+            "slots": slots, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _als_run(torch, dev, seed: int, card: str):
+    from cu2rec_torch.ops import cuda_linalg, cuda_loss
+    from cu2rec_torch.ops.packed import pack
+    from cu2rec_torch.train.als import sweep_chunks, train_als
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    t0 = time.perf_counter()
+    train_csr, test_csr, mu, mean_rmse = _explicit_family_data(seed)
+    deg = np.bincount(train_csr.indices, minlength=I)
+    heavy = int((deg > HEAVY_DEGREE).sum())
+    log(f"[als] planted data: {train_csr.nnz} train and {test_csr.nnz} "
+        f"test ratings ({time.perf_counter() - t0:.1f} s); {heavy} items "
+        f"of degree > {HEAVY_DEGREE} (top {int(deg.max())}); global-mean "
+        f"test RMSE {mean_rmse:.6f}")
+    require(heavy >= MIN_HEAVY, f"{heavy} heavy items, want >= {MIN_HEAVY}")
+    logger = MetricsLogger(verbose=False)
+    cuda_linalg.LAUNCHES = cuda_loss.LAUNCHES = 0
+    t0 = time.perf_counter()
+    model, _losses = train_als(train_csr, test_csr, _family_cfg(seed), mu,
+                               logger=logger, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {"ridge_cholesky": cuda_linalg.LAUNCHES,
+                "eval_error": cuda_loss.LAUNCHES}
+    require(all(launches.values()), f"train_als launched {launches}")
+    recs = [r for r in logger.history if r["event"] == "eval"]
+    _gate_als([r["test_rmse"] for r in recs], mean_rmse)
+    for r in recs:
+        log(f"[als] sweep {r['iteration']}: user half sweep "
+            f"{r['half_sweep_ms'][0]:.3f} ms, item half sweep "
+            f"{r['half_sweep_ms'][1]:.3f} ms (CUDA events); train RMSE "
+            f"{r['train_rmse']:.6f}, test RMSE {r['test_rmse']:.6f}")
+    log(f"[als] train_als: {wall:.1f} s wall with set-up; launches "
+        f"{launches}; on {card}")
+    pm = pack(model)
+    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
+                                            device_buckets=True)
+    systems = _check_systems(torch, pm, item_chunks, mu, card)
+    profile = _profile_sweep(torch, pm, user_chunks, item_chunks, mu, card)
+    del model, pm, user_chunks, item_chunks
+    torch.cuda.empty_cache()
+    return launches, {"half_sweep_ms": [r["half_sweep_ms"] for r in recs],
+                      "test_rmse": [r["test_rmse"] for r in recs],
+                      "mean_rmse": mean_rmse, "heavy_items": heavy,
+                      "systems": systems, "profile": profile}
+
+
+def _ials_run(torch, dev, seed: int, card: str):
+    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.train.ials import train_ials
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    t0 = time.perf_counter()
+    train_csr, test_csr, oracle = _implicit_on_card(
+        torch, U, I, IMPLICIT_DRAWS, F, seed, dev)
+    log(f"[ials] implicit planted data built on the card: {train_csr.nnz} "
+        f"train and {test_csr.nnz} test pairs of {IMPLICIT_DRAWS} draws "
+        f"({time.perf_counter() - t0:.1f} s); oracle AUC {oracle:.4f}")
+    logger = MetricsLogger(verbose=False)
+    cuda_linalg.LAUNCHES = 0
+    t0 = time.perf_counter()
+    train_ials(train_csr, test_csr, _family_cfg(seed), alpha=ALPHA,
+               logger=logger, device=dev)
+    wall = time.perf_counter() - t0
+    launches = cuda_linalg.LAUNCHES
+    require(launches > 0, "train_ials launched no K1")
+    rows = _history_rows(logger)
+    _gate_ials(rows, I)
+    for r, (it, auc, rec, ndcg) in zip(
+            [r for r in logger.history if r["event"] == "eval"], rows):
+        log(f"[ials] sweep {it}: user half sweep {r['half_sweep_ms'][0]:.3f}"
+            f" ms, item half sweep {r['half_sweep_ms'][1]:.3f} ms (CUDA "
+            f"events); AUC {auc:.4f}, recall@10 {rec:.4f}, ndcg@10 "
+            f"{ndcg:.4f}")
+    log(f"[ials] train_ials: {wall:.1f} s wall; K1 launches {launches}; "
+        f"oracle AUC {oracle:.4f}; on {card}")
+    return launches, (train_csr, test_csr), {
+        "half_sweep_ms": [r["half_sweep_ms"] for r in logger.history
+                          if r["event"] == "eval"],
+        "metrics": rows, "oracle_auc": oracle}
+
+
+def _bpr_run(torch, dev, seed: int, csrs, card: str):
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops.bpr import bpr_draws, bpr_run_steps, bpr_step
+    from cu2rec_torch.ops.packed import pack
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+    from cu2rec_torch.train.bpr import train_bpr
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    train_csr, test_csr = csrs
+    hp = Hyper(BPR_LR, BPR_REG, BPR_REG, BPR_REG, BPR_REG)
+    rng = np.random.default_rng(seed)
+    tables = {"p": rng.normal(0, 0.1, (U, F)), "q": rng.normal(0, 0.1, (I, F)),
+              "user_bias": np.zeros(U), "item_bias": np.zeros(I),
+              "global_bias": [0.0]}
+    t0 = time.perf_counter()
+    pms = {d: pack(model_from_numpy(tables, d)) for d in (dev, "cpu")}
+    devs = {d: to_device(train_csr, d, item_major=True) for d in pms}
+    worst = 0.0
+    for it in range(3):
+        a, b = (bpr_draws(devs[d], prng_key(seed), it) for d in pms)
+        for name in a._fields:
+            require(torch.equal(getattr(a, name).cpu(), getattr(b, name)),
+                    f"bpr step {it}: the card's {name} differs from the CPU's")
+        for d in pms:
+            pms[d] = bpr_step(pms[d], devs[d], hp, prng_key(seed), it)
+        for side in ("T_u", "T_i"):
+            err = float((getattr(pms[dev], side).cpu()
+                         - getattr(pms["cpu"], side)).abs().max())
+            worst = max(worst, err)
+            require(err <= STEP_ATOL, f"bpr step {it}: {side} differs from "
+                    f"the CPU's by {err}")
+    log(f"[bpr] 3 steps on the card and on the CPU: the same sampled ids, "
+        f"tables within {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    pm, dr = pms[dev], devs[dev]
+    del pms, devs
+    bpr_run_steps(pm, dr, hp, prng_key(seed), 3, 3)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    bpr_run_steps(pm, dr, hp, prng_key(seed), 6, 50)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 50
+
+    def run():
+        bpr_run_steps(pm, dr, hp, prng_key(seed), 56, 20)
+        torch.cuda.synchronize()
+
+    prof, host_s = _profiled(torch, run, lambda: _new_profile(torch))
+    busy_s, ops = _device_breakdown(torch, prof, top=10_000)
+    busy_ms, launches = busy_s * 1e3 / 20, sum(n for _k, _ms, n in ops) / 20
+    logger = MetricsLogger(verbose=False)
+    t0 = time.perf_counter()
+    cfg = _family_cfg(seed, total_iterations=BPR_ITERATIONS,
+                      check_error=BPR_CHECK, learning_rate=BPR_LR,
+                      P_reg=BPR_REG, Q_reg=BPR_REG, user_bias_reg=BPR_REG,
+                      item_bias_reg=BPR_REG)
+    train_bpr(train_csr, test_csr, cfg, logger=logger, device=dev)
+    wall = time.perf_counter() - t0
+    rows = _history_rows(logger)
+    _gate_bpr(rows)
+    log(f"[bpr] a step at U={U} I={I} F={F}: {step_ms:.4f} ms (CUDA events "
+        f"over 50 steps), {U / step_ms * 1e3:.4g} user updates/s; under the "
+        f"profiler {busy_ms:.4f} ms of device time a step "
+        f"({busy_ms / step_ms:.1%} of the event time) in {launches:.0f} "
+        f"kernels, {host_s * 1e3 / 20:.4f} ms of host time a step; train_bpr "
+        f"{BPR_ITERATIONS} iterations {wall:.1f} s wall with evals; "
+        + "; ".join(f"iteration {it}: AUC {auc:.4f}, recall@10 {rec:.4f}, "
+                    f"ndcg@10 {ndcg:.4f}" for it, auc, rec, ndcg in rows)
+        + f" on {card}")
+    return {"step_ms": step_ms, "busy_ms": busy_ms, "kernels": launches,
+            "metrics": rows, "max_abs_err": worst}
+
+
+def _family_csvs(seed: int, workdir: Path):
+    """ML-100K-shaped planted CSVs: explicit (for ALS) and implicit (for
+    iALS and BPR), each split 90/10, through ``write_planted_csv``."""
+    import dataclasses
+
+    from cu2rec_torch.data.synth import (
+        generate_planted, generate_planted_implicit, split_arrays,
+        write_planted_csv,
+    )
+
+    paths = {}
+    explicit = generate_planted(*ML100K, seed=seed)
+    implicit, _oracle = generate_planted_implicit(*ML100K, seed=seed)
+    for kind, d in (("explicit", explicit), ("implicit", implicit)):
+        sides = split_arrays(d.users, d.items, d.ratings, 0.9, seed=seed)
+        for name, (u, i, r) in zip(("train", "test"), sides):
+            path = workdir / f"{kind}_{name}.csv"
+            write_planted_csv(dataclasses.replace(d, users=u, items=i,
+                                                  ratings=r), str(path))
+            paths[kind, name] = str(path)
+    return paths
+
+
+def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
+    """``mf --algo als|ials|bpr`` on the planted CSVs: exit 0, every metric
+    line parses, the five component CSVs, and K1 (ALS, iALS) and K0b
+    (ALS) launched.  Returns {algo: {kernel: launches}}."""
+    from cu2rec_torch.cli import mf
+    from cu2rec_torch.ops import cuda_linalg, cuda_loss
+
+    paths = _family_csvs(seed, workdir)
+    # cur total F lr seed P_reg Q_reg ub_reg ib_reg n_threads check_error
+    # patience lr_decay
+    configs = {
+        "als": f"0 {SWEEPS} {F} 0.05 {seed} {FAMILY_REG} {FAMILY_REG} "
+               f"{FAMILY_REG} {FAMILY_REG} 32 1 2 0.2\n",
+        "ials": f"0 {SWEEPS} {F} 0.05 {seed} {FAMILY_REG} {FAMILY_REG} "
+                f"{FAMILY_REG} {FAMILY_REG} 32 1 2 0.2\n",
+        "bpr": f"0 200 {F} {BPR_LR} {seed} {BPR_REG} {BPR_REG} {BPR_REG} "
+               f"{BPR_REG} 32 100 2 0.2\n"}
+    launches = {}
+    for algo, cfg_text in configs.items():
+        kind = "explicit" if algo == "als" else "implicit"
+        cfg = workdir / f"{algo}.cfg"
+        cfg.write_text(cfg_text)
+        out = workdir / f"out_{algo}"
+        cuda_linalg.LAUNCHES = cuda_loss.LAUNCHES = 0
+        t0 = time.perf_counter()
+        text = _capture(mf.main, ["-c", str(cfg), paths[kind, "train"],
+                                  paths[kind, "test"], "--algo", algo,
+                                  "--outdir", str(out), "--device", device])
+        wall = time.perf_counter() - t0
+        launches[algo] = {"ridge_cholesky": cuda_linalg.LAUNCHES,
+                          "eval_error": cuda_loss.LAUNCHES}
+        if algo == "als":
+            metrics = [METRIC_LINE.match(ln) for ln in text.splitlines()
+                       if ln.startswith(("TRAIN:", "TEST:"))]
+            require(len(metrics) == 2 * SWEEPS and all(metrics),
+                    "an ALS TRAIN/TEST line does not parse")
+            last = metrics[-1][0]
+        else:
+            rows = _implicit_metrics(text)
+            last = rows[-1]
+        for comp in ("p", "q", "user_bias", "item_bias", "global_bias"):
+            require((out / f"{kind}_train_f{F}_{comp}.csv").exists(),
+                    f"mf --algo {algo}: {comp} CSV missing")
+        want = {"als": ("ridge_cholesky", "eval_error"),
+                "ials": ("ridge_cholesky",), "bpr": ()}[algo]
+        require(device == "cpu" or all(launches[algo][k] for k in want),
+                f"mf --algo {algo} launched {launches[algo]}")
+        log(f"[mf] --algo {algo} on {ML100K[0]} x {ML100K[1]}, "
+            f"{ML100K[2]} planted draws: {wall:.1f} s wall, launches "
+            f"{launches[algo]}; last metrics: {last} on {card}")
+    return launches
+
+
+def phase_families(torch, dev, seed: int, card: str):
+    """Phase 7: ALS, iALS and BPR at the headline widths through their
+    trainers, then ``mf --algo als|ials|bpr``.  Returns the launch counts
+    of K1 and K0b over the phase's runs, and what it measured."""
+    t0 = time.perf_counter()
+    launches = {"ridge_cholesky": 0, "eval_error": 0}
+    als_launches, als = _als_run(torch, dev, seed, card)
+    ials_launches, csrs, ials = _ials_run(torch, dev, seed, card)
+    bpr = _bpr_run(torch, dev, seed, csrs, card)
+    del csrs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
+        cli = _entry_points(seed, Path(tmp), card)
+    for counts in (als_launches, {"ridge_cholesky": ials_launches},
+                   *cli.values()):
+        for k, n in counts.items():
+            launches[k] += n
+    wall = time.perf_counter() - t0
+    log(f"[families] phase wall {wall:.1f} s; K1 and K0b launches over its "
+        f"runs {launches}")
+    return launches, {"als": als, "ials": ials, "bpr": bpr, "mf": cli,
+                      "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1138,10 +1644,14 @@ def main(argv=None) -> int:
         predicted = phase_predict(args.seed, Path(tmp), out, smi)
     probed = phase_probes()
     served = phase_serve(torch, args.seed, smi)
+    families, measured = phase_families(torch, dev, args.seed, smi)
     by_name["sgd_step"]["launches"] = trained["sgd_step"] + \
         predicted["explicit"]
-    by_name["eval_error"]["launches"] = trained["eval_error"]
-    by_name["ridge_cholesky"]["launches"] = served + predicted["implicit"]
+    by_name["eval_error"]["launches"] = trained["eval_error"] + \
+        families["eval_error"]
+    by_name["ridge_cholesky"]["launches"] = served + predicted["implicit"] \
+        + families["ridge_cholesky"]
+    by_name["ridge_cholesky"]["families"] = measured
     by_name["row_gather"]["launches"] = probed["row_gather"]
     by_name["smem_gather"]["launches"] = probed["smem_gather"]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

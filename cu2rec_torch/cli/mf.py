@@ -5,11 +5,11 @@ Usage matches the reference binary (README.md:31):
     python -m cu2rec_torch.cli.mf -c path/to/config train.csv test.csv
 
 plus the TPU package's extensions: ``--jsonl`` metrics stream,
-``--checkpoint`` / ``--resume`` (mid-run resume), ``--collision`` policy.
-It trains on the CUDA device unless ``--device cpu`` is given.  The SGD
-family is ported; ``--algo als|ials|bpr``, ``--devices N > 1``,
-``--collision mean`` and ``--dtype bfloat16`` raise and name the ROADMAP
-item that ports them.
+``--checkpoint`` / ``--resume`` (mid-run resume), ``--collision`` policy,
+and the other training families, ``--algo als|ials|bpr`` (``--solver``,
+``--alpha``).  It trains on the CUDA device unless ``--device cpu`` is
+given.  ``--devices N > 1``, ``--collision mean`` and ``--dtype bfloat16``
+raise and name the ROADMAP item that ports them.
 
 Output contract preserved: the five component CSVs are written next to the
 train file as ``{base}_f{factors}_{p,q,user_bias,item_bias,global_bias}.csv``
@@ -23,6 +23,7 @@ import os
 
 from cu2rec_torch.data.csr import build_csr
 from cu2rec_torch.data.ratings import read_ratings_csv
+from cu2rec_torch.ops.als import SOLVERS
 from cu2rec_torch.train.trainer import train
 from cu2rec_torch.utils.checkpoint import (
     export_components, load_checkpoint, save_checkpoint,
@@ -33,9 +34,6 @@ from cu2rec_torch.utils.metrics import MetricsLogger
 
 # What each option not yet ported waits for (ROADMAP.md, Queue 1).
 _NOT_PORTED = {
-    "als": "ROADMAP Queue 1 item 8 (ALS)",
-    "ials": "ROADMAP Queue 1 item 9 (iALS)",
-    "bpr": "ROADMAP Queue 1 item 10 (BPR)",
     "devices": "ROADMAP Queue 1 item 12 (multi-GPU)",
     "mean": "ROADMAP Queue 1 item 4 (mean/sum collision policies)",
     "bfloat16": "ROADMAP Queue 1 item 4 (bf16 tables)",
@@ -65,7 +63,16 @@ def build_parser():
                         "Hogwild parity; twin = per-item sampling")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None)
     p.add_argument("--algo", choices=["sgd", "als", "ials", "bpr"],
-                   default=None, help="training algorithm (sgd only here)")
+                   default=None,
+                   help="training algorithm (als/ials: total_iterations = "
+                        "number of sweeps; ials = implicit-feedback "
+                        "weighted MF and bpr = pairwise ranking, both "
+                        "evaluated by recall@10)")
+    p.add_argument("--solver", choices=SOLVERS, default="auto",
+                   help="ridge solver for als/ials sweeps (every name runs "
+                        "the same kernel here)")
+    p.add_argument("--alpha", type=float, default=40.0,
+                   help="iALS confidence slope (c = 1 + alpha*r)")
     p.add_argument("--outdir", default=None,
                    help="component output dir (default: next to train csv)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -115,8 +122,6 @@ def main(argv=None) -> int:
         cfg.dtype = args.dtype
     if args.algo:
         cfg.algo = args.algo
-    if cfg.algo != "sgd":
-        _refuse(cfg.algo)
     if cfg.collision_policy == "mean":
         _refuse("mean")
     if cfg.dtype == "bfloat16":
@@ -125,11 +130,29 @@ def main(argv=None) -> int:
 
     logger = MetricsLogger(jsonl_path=args.jsonl,
                            label="CPU" if device.type == "cpu" else "GPU")
-    model, _losses = train(train_csr, test_csr, cfg, train_rd.global_bias,
-                           model=model, logger=logger,
-                           checkpoint_path=args.checkpoint,
-                           checkpoint_every=args.checkpoint_every,
-                           device=device)
+    if cfg.algo == "bpr":
+        from cu2rec_torch.train.bpr import train_bpr
+        model, _losses = train_bpr(train_csr, test_csr, cfg, model=model,
+                                   logger=logger, device=device)
+    elif cfg.algo == "ials":
+        from cu2rec_torch.train.ials import train_ials
+        model, _losses = train_ials(train_csr, test_csr, cfg,
+                                    alpha=args.alpha, model=model,
+                                    logger=logger, solver=args.solver,
+                                    device=device)
+    elif cfg.algo == "als":
+        from cu2rec_torch.train.als import train_als
+        model, _losses = train_als(train_csr, test_csr, cfg,
+                                   train_rd.global_bias, model=model,
+                                   logger=logger, solver=args.solver,
+                                   device=device)
+    else:
+        model, _losses = train(train_csr, test_csr, cfg,
+                               train_rd.global_bias, model=model,
+                               logger=logger,
+                               checkpoint_path=args.checkpoint,
+                               checkpoint_every=args.checkpoint_every,
+                               device=device)
 
     # Component export next to the train file (mf.cu:63-87).
     outdir = args.outdir or (os.path.dirname(args.train_csv) or ".")

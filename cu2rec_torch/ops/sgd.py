@@ -10,6 +10,10 @@ Torch on the CPU has no ``>>`` on uint32, so the arithmetic runs in int64
 on values masked to 32 bits.  A 32-bit × 32-bit product can reach 2^64 and
 would overflow signed int64; ``_mul32`` splits the constant into 16-bit
 halves so that no partial product exceeds 2^48.
+
+``fold_in`` derives a stream's key from the seed's as the TPU package's
+threefry ``fold_in`` does (BPR separates its draws so); a key is two Python
+integers on the host, so it computes in Python integers.
 """
 
 from __future__ import annotations
@@ -40,11 +44,10 @@ class Hyper(NamedTuple):
 
 
 def prng_key(seed: int) -> tuple[int, int]:
-    """The two 32-bit key words of a threefry ``PRNGKey(seed)``:
-    (high word, low word) of the 64-bit seed — ``(0, seed)`` for any seed
-    below 2^32."""
-    seed = int(seed)
-    return (seed >> 32) & _M32, seed & _M32
+    """The two 32-bit key words of a threefry ``PRNGKey(seed)`` as the TPU
+    package makes it (64-bit integers off): ``(0, seed mod 2^32)`` for any
+    integer seed, negative or above 2^32."""
+    return 0, int(seed) & _M32
 
 
 def _key_words(key) -> tuple[int, int]:
@@ -54,6 +57,39 @@ def _key_words(key) -> tuple[int, int]:
         key = key.tolist()
     k0, k1 = (int(k) for k in np.asarray(key).reshape(-1)[:2])
     return k0 & _M32, k1 & _M32
+
+
+def _rotl32(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+# Threefry-2x32's rotations: rounds 1-4 of each group of eight, then 5-8.
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry_2x32(key, count) -> tuple[int, int]:
+    """The 20-round Threefry-2x32 block cipher (Salmon et al. 2011) of one
+    block ``count`` = (x0, x1) under ``key`` = (k0, k1), in Python integers
+    masked to 32 bits: the TPU package's random-key arithmetic."""
+    k0, k1 = _key_words(key)
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (int(count[0]) + ks[0]) & _M32
+    x1 = (int(count[1]) + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def fold_in(key, data: int) -> tuple[int, int]:
+    """A new key from ``key`` and a 32-bit integer ``data``: Threefry-2x32
+    of the block (0, data), as the TPU package's ``fold_in`` of a threefry
+    key computes it.  ``fold_in(prng_key(42), 1)`` is (64467757,
+    2916123636)."""
+    return threefry_2x32(key, (0, int(data) & _M32))
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Replaces the reference's CPU ``std::sort`` over all items
 (predict.cu:49-63) with masked ``torch.topk`` on the device.  Rated items
-are excluded by a scatter-min to the ``NEG_INF`` sentinel.
+are excluded by a scatter-min to the ``NEG_INF`` sentinel.  ``recall_at_k``
+and ``ndcg_at_k`` score a top-k list against held-out items.
 """
 
 from __future__ import annotations
@@ -30,3 +31,38 @@ def mask_rated(scores: torch.Tensor, rated_items: torch.Tensor,
 def topk_scores(scores: torch.Tensor, k: int):
     """(values, item_ids) of the top-k per row."""
     return torch.topk(scores, k, dim=-1)
+
+
+def _hits(recommended, relevant_items, relevant_mask) -> torch.Tensor:
+    """(B, K, R): recommendation k is held-out item r."""
+    hits = recommended[:, :, None] == relevant_items[:, None, :]
+    return hits & relevant_mask[:, None, :]
+
+
+def recall_at_k(recommended: torch.Tensor, relevant_items: torch.Tensor,
+                relevant_mask: torch.Tensor) -> torch.Tensor:
+    """Per-user recall@k.
+
+    ``recommended`` (B, K) item ids; ``relevant_items`` (B, R) padded
+    held-out item ids with validity ``relevant_mask``."""
+    hits = _hits(recommended, relevant_items, relevant_mask)
+    n_hit = torch.sum(torch.any(hits, dim=1), dim=-1)
+    n_rel = torch.clamp(torch.sum(relevant_mask, dim=-1), min=1)
+    return n_hit / n_rel
+
+
+def ndcg_at_k(recommended: torch.Tensor, relevant_items: torch.Tensor,
+              relevant_mask: torch.Tensor) -> torch.Tensor:
+    """Per-user binary-relevance NDCG@k: DCG = Σ_j rel_j / log2(j+2) over
+    the recommendation list, over the ideal DCG for the user's held-out
+    count (clipped at k).  Users with no held-out items score 0."""
+    hits = _hits(recommended, relevant_items, relevant_mask)
+    rel = torch.any(hits, dim=-1).to(torch.float32)            # (B, K)
+    K = recommended.shape[1]
+    pos = torch.arange(K, dtype=torch.float32, device=recommended.device)
+    disc = 1.0 / torch.log2(pos + 2.0)
+    dcg = torch.sum(rel * disc, dim=-1)
+    n_rel = torch.sum(relevant_mask, dim=-1)                   # (B,)
+    ideal = torch.sum(torch.where(pos[None, :] < n_rel[:, None],
+                                  disc[None, :], 0.0), dim=-1)
+    return torch.where(ideal > 0, dcg / torch.clamp(ideal, min=1e-9), 0.0)

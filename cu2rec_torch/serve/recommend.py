@@ -1,9 +1,10 @@
-"""Serving helpers: full-catalog scoring and ranked recommendations.
+"""Serving helpers: full-catalog scoring, ranked recommendations, and the
+ranking eval (recall@k, NDCG@k).
 
 Replaces the reference's CPU scoring + ``std::sort`` serving path
 (predict.cu:17-29, 49-70): scoring a block of users against the whole
 catalog is one ``P_u @ Q.T``, and rated items are masked by a scatter-min
-before ``torch.topk``.
+before ``torch.topk``.  ``ranking_eval`` is the implicit trainers' metric.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from cu2rec_torch.models.state import MFModel
 from cu2rec_torch.ops.model import score_catalog
-from cu2rec_torch.ops.topk import mask_rated
+from cu2rec_torch.ops.topk import mask_rated, ndcg_at_k, recall_at_k
 
 
 def predict_all_items(p_row, user_bias, Q, item_bias, global_bias):
@@ -69,3 +70,40 @@ def padded_user_lists(csr, user_ids, pad_to: int | None = None):
         items[b, :len(s)] = s[:R]
         mask[b, :len(s)] = True
     return items, mask
+
+
+def ranking_eval(model: MFModel, train_csr, test_csr, k: int = 10,
+                 batch_size: int = 1024, max_users: int | None = None,
+                 metrics: tuple = ("recall", "ndcg")) -> dict:
+    """Mean top-k ranking metrics over test users (the first ``max_users``
+    with held-out items): recommend k items unrated in train, score them
+    against the held-out test items.  Returns ``{metric: mean}`` for
+    ``recall`` (hit fraction) and/or ``ndcg`` (binary relevance)."""
+    fns = {"recall": recall_at_k, "ndcg": ndcg_at_k}
+    unknown = set(metrics) - fns.keys()
+    if unknown:
+        raise ValueError(f"unknown ranking metric(s): {sorted(unknown)}")
+    users = np.nonzero(np.diff(test_csr.indptr) > 0)[0]
+    if max_users:
+        users = users[:max_users]
+    if len(users) == 0:
+        return {m: 0.0 for m in metrics}
+    dev = model.device
+    totals = {m: 0.0 for m in metrics}
+    for b0 in range(0, len(users), batch_size):
+        batch = users[b0:b0 + batch_size]
+        rated, rmask = padded_user_lists(train_csr, batch)
+        _, rec = recommend_users(model, batch, rated, rmask, k)
+        rel, relmask = padded_user_lists(test_csr, batch)
+        rel = torch.from_numpy(rel).to(dev, torch.int64)
+        relmask = torch.from_numpy(relmask).to(dev)
+        for m in metrics:
+            totals[m] += float(torch.sum(fns[m](rec, rel, relmask)))
+    return {m: totals[m] / len(users) for m in metrics}
+
+
+def recall_at_k_eval(model: MFModel, train_csr, test_csr, k: int = 10,
+                     batch_size: int = 1024, max_users: int | None = None):
+    """Mean recall@k over test users (see :func:`ranking_eval`)."""
+    return ranking_eval(model, train_csr, test_csr, k, batch_size,
+                        max_users, metrics=("recall",))["recall"]

@@ -59,14 +59,16 @@ class MetricsLogger:
                           objective: float | None = None,
                           learning_rate: float = 0.0,
                           updates_per_s: float | None = None,
-                          line_prefix: str | None = None) -> None:
+                          line_prefix: str | None = None,
+                          extras: dict | None = None) -> None:
         """Implicit-task eval record with first-class ranking columns —
         no aliasing into the rating-task mae/rmse schema (the r3 scheme
         of packing ``1-auc``/``1-recall`` into test_mae/test_rmse is
         gone).  ``objective`` is the minimized scalar that plateau /
         convergence logic keys off; it defaults to ``1 - recall@k``, the
         value the trainers also return in their ``losses`` dict.  Schema
-        documented in docs/API.md §metrics."""
+        documented in docs/API.md §metrics.  ``extras`` merges further
+        columns into the JSONL record, as in ``log_eval``."""
         if objective is None:
             objective = 1.0 - recall_at_k
         if self.verbose:
@@ -80,7 +82,7 @@ class MetricsLogger:
                     "auc": float(auc), "recall_at_k": float(recall_at_k),
                     "ndcg_at_k": float(ndcg_at_k), "k": int(k),
                     "learning_rate": learning_rate,
-                    "updates_per_s": updates_per_s})
+                    "updates_per_s": updates_per_s, **(extras or {})})
 
     def log_lr_decay(self, new_lr: float) -> None:
         if self.verbose:

@@ -164,3 +164,96 @@ def test_predict_matches_the_tpu_package(trained, data_dir, capsys,
         if not any(near):
             assert ti == ji
         assert ts == pytest.approx(float(t_scores[ti]), abs=1e-5)
+
+
+# ---- the other training families: --algo als | ials | bpr -----------------
+
+FAMILY_CONFIG = "0 4 8 0.05 42 0.05 0.05 0.02 0.02\n"
+# The toy fixture's ratings held out for the implicit families' test split.
+HELD_OUT = {"1,5,5.0", "3,3,4.0", "5,4,4.0", "6,5,5.0"}
+
+
+@pytest.fixture
+def family_init(monkeypatch):
+    """The port's ALS, iALS and BPR trainers draw the TPU package's init."""
+    import cu2rec_torch.train.als as als
+    import cu2rec_torch.train.bpr as bpr
+    import cu2rec_torch.train.ials as ials
+
+    def init(n_users, n_items, n_factors, global_bias, seed=42, dtype=None,
+             Q=None, item_bias=None, device=None):
+        return model_from_numpy(j_model_to_numpy(j_init_model(
+            n_users, n_items, n_factors, global_bias, seed=seed)), device)
+
+    for mod in (als, bpr, ials):
+        monkeypatch.setattr(mod, "init_model", init)
+
+
+def _implicit_lines(out):
+    """[(prefix, iteration, (auc, recall, ndcg))] of the implicit lines."""
+    rows = []
+    for ln in out.splitlines():
+        m = re.match(r"^(IALS sweep|BPR iteration) (\d+): AUC = (\S+)  "
+                     r"recall@\d+ = (\S+)  ndcg@\d+ = (\S+)$", ln)
+        if m:
+            rows.append((m[1], int(m[2]), tuple(map(float, m.groups()[2:]))))
+    return rows
+
+
+@pytest.mark.parametrize("algo", ["als", "ials", "bpr"])
+def test_mf_families_match_the_tpu_package(tmp_path, data_dir, family_init,
+                                           capsys, algo):
+    """ALS trains and tests on the toy fixture (RMSE within 1e-4); iALS and
+    BPR on a split of it, so that every held-out item ranks by a real
+    score (AUC, recall@k and NDCG@k as printed, within 2e-4).  Components
+    within 1e-4.  iALS runs at alpha 2 and λ = 1: at F=8 over 5 items the
+    Gramian is singular and only λ holds the systems, so a large alpha or a
+    small λ would magnify float32 rounding beyond any tolerance in both
+    packages alike."""
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text(FAMILY_CONFIG if algo != "ials" else
+                   FAMILY_CONFIG.replace("0.05 0.05", "1.0 1.0"))
+    lines = (data_dir / "test_ratings.csv").read_text().splitlines()
+    if algo == "als":
+        train = test = str(data_dir / "test_ratings.csv")
+    else:
+        train, test = str(tmp_path / "train.csv"), str(tmp_path / "test.csv")
+        (tmp_path / "train.csv").write_text("\n".join(
+            [lines[0]] + [ln for ln in lines[1:] if ln not in HELD_OUT]))
+        (tmp_path / "test.csv").write_text("\n".join(
+            [lines[0]] + [ln for ln in lines[1:] if ln in HELD_OUT]))
+    outs = {}
+    for name, main, extra in (("jax", jmf.main, []),
+                              ("port", tmf.main, ["--device", "cpu"])):
+        outs[name] = _run(main, ["-c", str(cfg), train, test, "--algo", algo,
+                                 "--outdir", str(tmp_path / name),
+                                 "--solver", "pallas" if name == "port"
+                                 else "auto", "--alpha", "2"] + extra,
+                           capsys)
+    assert _shape(outs["port"]) == _shape(outs["jax"])
+    if algo == "als":
+        assert "TEST: Iteration 4 CPU MAE:" in outs["port"]
+        _compare_metrics(outs["port"], outs["jax"])
+    else:
+        t, j = _implicit_lines(outs["port"]), _implicit_lines(outs["jax"])
+        assert [x[:2] for x in t] == [x[:2] for x in j] and t
+        np.testing.assert_allclose([x[2] for x in t], [x[2] for x in j],
+                                   rtol=0, atol=2e-4)
+    base = "test_ratings" if algo == "als" else "train"
+    a = _components(tmp_path / "port", base)
+    b = _components(tmp_path / "jax", base)
+    for c in COMPONENTS:
+        assert a[c].shape == b[c].shape
+        np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("args,what", [
+    (["--devices", "2"], "item 12"), (["--collision", "mean"], "item 4"),
+    (["--dtype", "bfloat16"], "item 4"),
+    (["--algo", "als", "--devices", "2"], "item 12")])
+def test_mf_still_refuses_what_is_not_ported(tmp_path, data_dir, args, what):
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text(FAMILY_CONFIG)
+    train = str(data_dir / "test_ratings.csv")
+    with pytest.raises(NotImplementedError, match=what):
+        tmf.main(["-c", str(cfg), train, train, "--device", "cpu"] + args)

@@ -496,3 +496,146 @@ def test_train_on_card_matches_cpu(cuda_device):
     for collision in ("first_wins", "twin"):
         np.testing.assert_allclose(runs[("cuda", collision)],
                                    runs[("cpu", collision)], atol=1e-4)
+
+
+def _family_ratings(U, I, seed):
+    """Ratings with power-law item popularity (items far above the small
+    bucket caps) and users 0 and 7 unrated."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, U, 20 * U)
+    u = u[~np.isin(u, (0, 7))]
+    i = np.minimum((I * rng.power(0.4, len(u))).astype(np.int64), I - 1)
+    keys = np.unique(u * I + i)
+    r = (rng.integers(1, 11, len(keys)) / 2.0).astype(np.float32)
+    return csr_from_arrays(keys // I, keys % I, r, U, I)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["als", "ials"])
+@pytest.mark.parametrize("side", ["users", "items"])
+@pytest.mark.parametrize("device_chunks", [False, True])
+def test_half_sweep_on_card_matches_cpu(cuda_device, family, side,
+                                        device_chunks):
+    """An ALS or iALS half sweep with heavy rows (caps 4, 8) on the card
+    (K1) and on the CPU (its plain version), from the same chunks: rtol
+    1e-3 / atol 1e-4 (float32 Grams summed in another order, then the
+    solve).  Every chunk's solve launches K1; unrated rows stay as they
+    were."""
+    from cu2rec_torch.data.csr import transpose_csr
+    from cu2rec_torch.ops import als, cuda_linalg
+    from cu2rec_torch.ops.ials import ials_half_sweep
+
+    csr = _family_ratings(300, 120, seed=3)
+    ip, ind, dat = ((csr.indptr, csr.indices, csr.data) if side == "users"
+                    else transpose_csr(csr))
+    n_self = len(ip) - 1
+    n_other = 120 if side == "users" else 300
+    F = 100 if family == "als" else 64
+    rng = np.random.default_rng(1)
+    W = 128
+    S = np.zeros((n_self, W), np.float32)
+    O = np.zeros((n_other, W), np.float32)
+    S[:, :F + 1] = rng.normal(0, 0.1, (n_self, F + 1))
+    O[:, :F + 1] = rng.normal(0, 0.1, (n_other, F + 1))
+    if family == "ials":
+        S, O = S[:, :F].copy(), O[:, :F].copy()
+    caps = (4, 8)
+    runs = {}
+    for device in ("cpu", cuda_device):
+        if device_chunks:
+            chunks = als.prepare_chunks_device(
+                torch.from_numpy(ind).to(device), torch.from_numpy(dat).to(
+                    device), ip, F, n_self, len(ind), caps=caps,
+                budget=200_000)
+        else:
+            chunks = als.prepare_chunks(als.bucket_csr(ip, ind, dat, caps),
+                                        F, n_self, budget=200_000,
+                                        device=device)
+        assert "heavy" in [c[0] for c in chunks]
+        Sd, Od = torch.from_numpy(S).to(device), torch.from_numpy(O).to(
+            device)
+        n0 = cuda_linalg.LAUNCHES
+        if family == "als":
+            out = als.als_half_sweep(Sd, Od, chunks, 3.0, 0.05, 0.02, F)
+        else:
+            # alpha 2 and λ 0.5 keep these random systems well
+            # conditioned (the fixed tolerance holds for such).
+            out = ials_half_sweep(Sd, Od, chunks, 2.0, 0.5)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert cuda_linalg.LAUNCHES == n0 + len(chunks)
+        runs[str(device)] = out.cpu()
+    torch.testing.assert_close(runs["cuda"], runs["cpu"], rtol=RTOL,
+                               atol=ATOL)
+    empty = torch.from_numpy(np.diff(ip) == 0)
+    assert torch.equal(runs["cuda"][empty], torch.from_numpy(S)[empty])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lean", [False, True])
+def test_bpr_steps_on_card_match_cpu(cuda_device, lean):
+    """Three BPR steps on the card and on the CPU from the same tables: the
+    same sampled ids, tables within 1e-5 (float32 sums of a row in another
+    order on the card)."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.bpr import bpr_draws, bpr_step
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    csr = _family_ratings(400, 150, seed=5)
+    hp = Hyper(0.1, 0.01, 0.01, 0.0, 0.01)
+    pms = {d: _packed(400, 150, 100, seed=2, device=d)
+           for d in ("cpu", cuda_device)}
+    devs = {d: to_device(csr, d, item_major=True, lean=lean)
+            for d in ("cpu", cuda_device)}
+    for it in range(3):
+        a = bpr_draws(devs[cuda_device], prng_key(9), it)
+        b = bpr_draws(devs["cpu"], prng_key(9), it)
+        for name in a._fields:
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), \
+                name
+        for d in pms:
+            pms[d] = bpr_step(pms[d], devs[d], hp, prng_key(9), it)
+        for side in ("T_u", "T_i"):
+            torch.testing.assert_close(getattr(pms[cuda_device], side).cpu(),
+                                       getattr(pms["cpu"], side), rtol=0,
+                                       atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_family_trainers_on_card_launch_their_kernels(cuda_device):
+    """train_als launches K1 and K0b on the card, train_ials K1; both
+    within 1e-4 of the CPU run's metrics."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops import cuda_linalg, cuda_loss
+    from cu2rec_torch.train.als import train_als
+    from cu2rec_torch.train.ials import train_ials
+    from cu2rec_torch.utils.config import Config
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    csr = _family_ratings(300, 120, seed=8)
+    rng = np.random.default_rng(4)
+    d = {"p": rng.normal(0, 0.1, (300, 16)), "q": rng.normal(0, 0.1, (120, 16)),
+         "user_bias": np.zeros(300), "item_bias": np.zeros(120),
+         "global_bias": [3.0]}
+    hist = {}
+    for device in ("cpu", cuda_device):
+        for name, train in (("als", train_als), ("ials", train_ials)):
+            cfg = Config(total_iterations=2, n_factors=16, P_reg=0.5,
+                         Q_reg=0.5)
+            logger = MetricsLogger(verbose=False)
+            n0 = (cuda_linalg.LAUNCHES, cuda_loss.LAUNCHES)
+            kw = {"global_bias": 3.0} if name == "als" else {"alpha": 2.0}
+            train(csr, csr, cfg, model=model_from_numpy(d, device),
+                  logger=logger, device=device, **kw)
+            if device != "cpu":
+                assert cuda_linalg.LAUNCHES > n0[0]
+                assert (cuda_loss.LAUNCHES > n0[1]) == (name == "als")
+            hist[(str(device), name)] = [
+                [r[k] for k in ("train_rmse", "test_mae", "auc",
+                                "recall_at_k") if k in r]
+                for r in logger.history if r["event"] == "eval"]
+    for name in ("als", "ials"):
+        np.testing.assert_allclose(hist[("cuda", name)], hist[("cpu", name)],
+                                   atol=1e-4)

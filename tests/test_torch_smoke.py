@@ -9,6 +9,7 @@ import pathlib
 import threading
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -102,3 +103,85 @@ def test_has_device_time_reads_a_real_session():
     prof.stop()
     assert not smoke._has_device_time(torch, prof)
     assert any(e.device_type == CPU for e in prof.events())
+
+
+# ---- phase 7 (the training families): its helpers on the CPU --------------
+
+def test_implicit_on_card_recipe_on_cpu_tensors():
+    """The on-card implicit generator, run on CPU tensors at a small size:
+    sorted unique pairs, disjoint train and test, about a tenth held out,
+    and an oracle AUC well above chance."""
+    import numpy as np
+
+    smoke = _smoke()
+    tr, te, oracle = smoke._implicit_on_card(torch, 400, 60, 12_000, 8, 3,
+                                             torch.device("cpu"),
+                                             chunk_users=64)
+    assert 0.6 < oracle <= 1.0
+    keys = {}
+    for name, csr in (("train", tr), ("test", te)):
+        assert csr.n_users == 400 and csr.n_items == 60
+        assert csr.indptr[-1] == csr.nnz and (np.diff(csr.indptr) >= 0).all()
+        k = csr.row_ids.astype(np.int64) * 60 + csr.indices
+        assert (np.diff(k) > 0).all()                  # sorted and unique
+        assert (csr.data == 1.0).all()
+        keys[name] = set(k.tolist())
+    assert not keys["train"] & keys["test"]
+    n = tr.nnz + te.nnz
+    assert 0.05 < te.nnz / n < 0.15 and n < 12_000     # deduplicated
+    # The same seed gives the same data.
+    again, _, oracle2 = smoke._implicit_on_card(
+        torch, 400, 60, 12_000, 8, 3, torch.device("cpu"), chunk_users=64)
+    assert np.array_equal(again.indices, tr.indices) and oracle2 == oracle
+
+
+def test_phase7_gates_and_metric_parsing():
+    smoke = _smoke()
+    text = ("IALS sweep 1: AUC = 0.6010  recall@10 = 0.0100  "
+            "ndcg@10 = 0.0200\nsomething else\n"
+            "IALS sweep 5: AUC = 0.7400  recall@10 = 0.0500  "
+            "ndcg@10 = 0.0600\n")
+    rows = smoke._implicit_metrics(text)
+    assert rows == [(1, 0.601, 0.01, 0.02), (5, 0.74, 0.05, 0.06)]
+    smoke._gate_ials(rows, 27_000)
+    with pytest.raises(smoke.SmokeFailure, match="recall"):
+        smoke._gate_ials(rows, 500)                # needs recall >= 0.1
+    with pytest.raises(smoke.SmokeFailure, match="AUC"):
+        smoke._gate_ials([(5, 0.64, 0.9, 0.9)], 27_000)
+    with pytest.raises(smoke.SmokeFailure, match="does not parse"):
+        smoke._implicit_metrics("BPR iteration 1: AUC = nan  recall@10 = "
+                                "0.1  ndcg@10 = 0.1\n")
+    with pytest.raises(smoke.SmokeFailure, match="no implicit"):
+        smoke._implicit_metrics("TRAIN: Iteration 1 GPU MAE: 1 RMSE: 1\n")
+    smoke._gate_bpr([(1, 0.5, 0, 0), (500, 0.61, 0, 0)])
+    for rows in ([(1, 0.5, 0, 0), (500, 0.59, 0, 0)],
+                 [(1, 0.7, 0, 0), (500, 0.65, 0, 0)]):
+        with pytest.raises(smoke.SmokeFailure, match="BPR AUC"):
+            smoke._gate_bpr(rows)
+    smoke._gate_als([0.9, 0.7, 0.5], 0.8)
+    for rmse, mean in (([0.9, 0.95], 1.0), ([0.9, 0.85], 0.8)):
+        with pytest.raises(smoke.SmokeFailure, match="ALS test RMSE"):
+            smoke._gate_als(rmse, mean)
+
+
+def test_phase7_entry_points_on_cpu(tmp_path, monkeypatch):
+    """``mf --algo als|ials|bpr`` as phase 7 runs it, on the CPU at a tiny
+    shape: every run exits 0, its lines parse and its CSVs are written."""
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "ML100K", (60, 40, 1500))
+    monkeypatch.setattr(smoke, "F", 8)
+    launches = smoke._entry_points(0, tmp_path, "cpu", device="cpu")
+    assert set(launches) == {"als", "ials", "bpr"}
+    assert (tmp_path / "out_bpr" / "implicit_train_f8_q.csv").exists()
+
+
+def test_explicit_family_data_at_a_small_shape(monkeypatch):
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "U", 300)
+    monkeypatch.setattr(smoke, "I", 80)
+    monkeypatch.setattr(smoke, "ALS_DRAWS", 6000)
+    tr, te, mu, mean_rmse = smoke._explicit_family_data(1)
+    assert tr.nnz == 5400 and te.nnz == 600
+    assert tr.n_users == te.n_users == 300 and tr.n_items == 80
+    assert (np.diff(tr.indptr) >= 0).all() and tr.indptr[-1] == tr.nnz
+    assert abs(mu - float(np.mean(tr.data))) < 1e-9 and 0.3 < mean_rmse < 2
