@@ -11,7 +11,9 @@ fatal on failure:
    float32 (TF32 off);
 2. build: every CUDA kernel of the port from ``cu2rec_torch/csrc``, one
    nvcc each, all started together, and each entry function's registers a
-   thread, spills and shared memory from the ``-Xptxas -v`` report;
+   thread, spills and shared memory from the ``-Xptxas -v`` report; then
+   the host library (``csrc/ingest.cpp``, g++) that reads and writes the
+   CSVs;
 3. kernels: K1 (the ridge solve) against its plain PyTorch version at the
    serving path's shapes and at N on both sides of every edge between its
    kernels (``cuda_linalg.kernel_for``), with its time, the plain
@@ -56,7 +58,19 @@ fatal on failure:
    5·10/I at sweep 5.  BPR runs three steps on the card and on the CPU
    (the same ids, tables within 1e-5), then trains 2,000 iterations: AUC
    ≥ 0.6 and above iteration 1's.  Last, ``mf --algo als|ials|bpr`` on
-   ML-100K-shaped planted CSVs (K1 and K0b launched).
+   ML-100K-shaped planted CSVs (K1 and K0b launched);
+8. pipeline: the preprocessing journey through the CLIs at ML-20M scale:
+   ``synth --preset ml20m`` (138,000 users x 27,000 items x 20,000,000
+   planted ratings), ``map_items``, ``split`` 90/10 (its fast path),
+   ``mf`` F=100 for 100 iterations on the card (K0a, K0b; set-up, loop
+   and export times; the native library must have been called),
+   ``evaluate`` from the checkpoint (within 1e-6 of mf's final TEST line),
+   from the component CSVs (within 1e-4) and with ``--ranking`` over
+   10,000 users (recall@10 and NDCG@10 within one user's share of a float64
+   NumPy top-10 from the checkpoint), ``convert_to_np`` of the
+   exported Q (within 5e-7 and the float32 rounding of the checkpoint's),
+   and the native ratings reader against its plain version on the test
+   split (the same arrays, both times printed).
 
 It prints the kernels' JSON line, then the nvidia-smi name/power line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -72,6 +86,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -97,6 +112,9 @@ N_HEADLINE = 20_000_000          # bench.py's rating count: K0a and K0b
 # genfromtxt, which is why they hold 1.1 M of the 20 M ratings).
 RANK, TRAIN_RATINGS, TEST_RATINGS = 20, 1_000_000, 100_000
 TRAIN_ITERATIONS = 300
+# The training phase's export with the per-value Python CSV writer, before
+# the native writer (NVIDIA H100 80GB HBM3, 700 W).
+PYTHON_EXPORT_S = 17.77
 # K0a's cases: (collision, lean item-major layout, train items).
 STEP_CASES = (("first_wins", False, True), ("twin", False, True),
               ("twin", True, True), ("first_wins", False, False))
@@ -170,10 +188,18 @@ def _ptxas_report(text: str):
 def phase_build():
     """Builds every kernel; returns {library: {function: registers}}."""
     from cu2rec_torch.csrc.build import KERNELS, build, build_log
+    from cu2rec_torch.data import native
 
     t0 = time.perf_counter()
-    libs = build(KERNELS)
-    log(f"[build] {len(libs)} kernel(s) in "
+    with ThreadPoolExecutor(1) as pool:
+        # The host library (g++) builds while nvcc builds the kernels.
+        host = pool.submit(native.available)
+        libs = build(KERNELS)
+        log(f"[build] {len(libs)} kernel(s) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(host.result(), "the native host library is switched off "
+                "(CU2REC_NO_NATIVE) or has no host compiler")
+    log(f"[build] host library ingest (g++, beside nvcc) done at "
         f"{time.perf_counter() - t0:.1f} s")
     registers = {}
     for name in KERNELS:
@@ -688,6 +714,16 @@ def _capture(main, args):
     return buf.getvalue()
 
 
+def _export_split(t_loop: float, csv_dir: Path, base: str, ckpt: Path):
+    """(CSV seconds, checkpoint seconds) of an ``mf`` export, from the end
+    of its loop (the JSONL time record) and the files' modification times:
+    the five component CSVs are written first, then the checkpoint."""
+    last_csv = max((csv_dir / f"{base}{c}.csv").stat().st_mtime
+                   for c in ("p", "q", "user_bias", "item_bias",
+                             "global_bias"))
+    return last_csv - t_loop, ckpt.stat().st_mtime - last_csv
+
+
 METRIC_LINE = re.compile(
     r"^(TRAIN|TEST): Iteration (\d+) [GC]PU MAE: (\d+\.\d+) RMSE: "
     r"(\d+\.\d+)$")
@@ -747,10 +783,13 @@ def phase_train(torch, seed: int, workdir: Path, card: str,
     # time record, then the CSV and checkpoint export.
     t_eval1 = next(r["ts"] for r in recs if r["event"] == "eval")
     t_loop = next(r["ts"] for r in recs if r["event"] == "time")
+    csv_s, ckpt_s = _export_split(t_loop, out, base, workdir / "model.npz")
     log(f"[train] mf on {card}: {wall:.1f} s wall: set-up and first eval "
         f"{t_eval1 - t_start:.2f} s, iterations 2-{TRAIN_ITERATIONS} with "
         f"their evals {t_loop - t_eval1:.3f} s, export "
-        f"{t_end - t_loop:.2f} s; test RMSE {first:.6f} at iteration 1 -> "
+        f"{t_end - t_loop:.2f} s: CSVs {csv_s:.2f} s, checkpoint "
+        f"{ckpt_s:.2f} s (the per-value Python writer's export took "
+        f"{PYTHON_EXPORT_S} s on an NVIDIA H100 80GB HBM3 at 700 W); test RMSE {first:.6f} at iteration 1 -> "
         f"{final:.6f} at {TRAIN_ITERATIONS} (global mean {mean_rmse:.6f}); "
         f"launches {launches}; user updates/s per segment (host clock, the "
         f"segment's train eval included): {rates}")
@@ -1609,6 +1648,237 @@ def phase_families(torch, dev, seed: int, card: str):
                       "wall_s": wall}
 
 
+# -- phase 8: the preprocessing journey (synth → map_items → split → mf →
+# evaluate → convert_to_np) ------------------------------------------------
+
+# ``synth --preset ml20m``: 138,000 users x 27,000 items x 20,000,000
+# planted ratings (rank 20); mf trains F=100 for 100 iterations on the 90%
+# split, evaluating every 50.
+PIPE_PRESET, PIPE_ITERATIONS, PIPE_CHECK, PIPE_TEST_RATIO = \
+    "ml20m", 100, 50, 0.1
+# evaluate from the checkpoint against mf's final TEST line (printed with 6
+# decimals); from the component CSVs (6 decimals a value) against that.
+PIPE_CKPT_TOL, PIPE_CSV_TOL = 1e-6, 1e-4
+# evaluate --ranking over the first 10,000 test users against a float64
+# NumPy top-10 from the checkpoint: a near-tie at the 10th place may swap
+# an item between float32 and float64, which moves the mean by at most one
+# user's recall or NDCG.
+PIPE_RANKING_USERS, PIPE_TOP_K = 10_000, 10
+# The exported Q (6 decimals, read back as float32) against the checkpoint's:
+# half a unit of the 6th decimal, plus the float32 rounding of the decimal.
+PIPE_Q_TOL = 5e-7
+
+
+def _timed(steps: dict, name: str, main, args):
+    t0 = time.perf_counter()
+    text = _capture(main, args)
+    steps[name] = time.perf_counter() - t0
+    return text
+
+
+def _eval_summary(text: str):
+    """(the TEST line's (MAE, RMSE), the JSON summary) of an evaluate run."""
+    m = METRIC_LINE.match(text.splitlines()[0])
+    require(m and m[1] == "TEST", f"evaluate printed {text[:200]!r}")
+    return (float(m[3]), float(m[4])), json.loads(text.splitlines()[-1])
+
+
+def _same_ratings(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               and getattr(a, f).dtype == getattr(b, f).dtype
+               for f in ("users", "items", "ratings")) and \
+        (a.n_users, a.n_items, a.global_bias) == \
+        (b.n_users, b.n_items, b.global_bias)
+
+
+def _ranking_reference(ck: Path, train, test, max_users: int, k: int,
+                       block: int = 512):
+    """(recall@k, NDCG@k, users) of the checkpoint's model over the first
+    ``max_users`` users with test ratings, in float64 NumPy: each user's
+    top k of the items unrated in train, scored against the test items
+    (the definitions of ``ops/topk.py``)."""
+    with np.load(ck) as z:
+        P, Q = z["p"].astype(np.float64), z["q"].astype(np.float64)
+        ub = z["user_bias"].astype(np.float64)
+        ib = z["item_bias"].astype(np.float64)
+        mu = float(z["global_bias"].reshape(-1)[0])
+    users = np.nonzero(np.diff(test.indptr) > 0)[0][:max_users]
+    disc = 1.0 / np.log2(np.arange(k) + 2.0)
+    recall = ndcg = 0.0
+    for b0 in range(0, len(users), block):
+        us = users[b0:b0 + block]
+        scores = P[us] @ Q.T + ib[None, :] + ub[us, None] + mu
+        for row, u in enumerate(us):
+            scores[row, train.indices[train.indptr[u]:
+                                      train.indptr[u + 1]]] = -np.inf
+        top = np.argpartition(-scores, k - 1, axis=1)[:, :k]
+        top = np.take_along_axis(top, np.argsort(
+            -np.take_along_axis(scores, top, 1), axis=1, kind="stable"), 1)
+        for row, u in enumerate(us):
+            rel = test.indices[test.indptr[u]:test.indptr[u + 1]]
+            hit = np.isin(top[row], rel)
+            recall += np.isin(rel, top[row]).sum() / len(rel)
+            ndcg += float(hit @ disc) / disc[:min(len(rel), k)].sum()
+    return recall / len(users), ndcg / len(users), len(users)
+
+
+def phase_pipeline(seed: int, workdir: Path, card: str,
+                   device: str = "cuda"):
+    """Phase 8: the journey a user runs before and after training, through
+    the CLIs' ``main``s at ML-20M scale.  Returns the K0a and K0b launches
+    of its ``mf`` and ``evaluate`` runs and what it measured."""
+    from cu2rec_torch.cli import (
+        convert_to_np, evaluate, map_items, mf, split, synth,
+    )
+    from cu2rec_torch.data import native
+    from cu2rec_torch.data.csr import build_csr
+    from cu2rec_torch.data.ratings import read_ratings_csv
+    from cu2rec_torch.ops import cuda_loss, cuda_sgd
+
+    t_phase = time.perf_counter()
+    steps = {}
+    raw = workdir / "raw.csv"
+    _timed(steps, "synth", synth.main, [str(raw), "--preset", PIPE_PRESET,
+                                        "--seed", str(seed)])
+    meta = json.loads(Path(f"{raw}.meta.json").read_text())
+    _timed(steps, "map_items", map_items.main, [str(raw)])
+    mapped = workdir / "raw_mapped.csv"
+    require(mapped.stat().st_size > split.FAST_BYTES
+            or PIPE_PRESET != "ml20m",
+            f"{mapped} is {mapped.stat().st_size} bytes: split would not "
+            f"take its fast path")
+    _timed(steps, "split", split.main, [str(mapped), str(PIPE_TEST_RATIO),
+                                        "-s", str(seed)])
+    train = str(workdir / "raw_mapped_train.csv")
+    test = str(workdir / "raw_mapped_test.csv")
+
+    cfg = workdir / "pipeline.cfg"
+    # cur total F lr seed P_reg Q_reg ub_reg ib_reg n_threads check_error
+    # patience lr_decay
+    cfg.write_text(f"0 {PIPE_ITERATIONS} {F} 0.05 {seed} 0.02 0.02 0.02 "
+                   f"0.02 32 {PIPE_CHECK} 2 0.2\n")
+    out = workdir / "out"
+    ck, jsonl = workdir / "model.npz", workdir / "pipeline.jsonl"
+    native.CALLS = cuda_sgd.LAUNCHES = cuda_loss.LAUNCHES = 0
+    t_start = time.time()
+    text = _timed(steps, "mf", mf.main, [
+        "-c", str(cfg), train, test, "--outdir", str(out), "--checkpoint",
+        str(ck), "--jsonl", str(jsonl), "--device", device])
+    t_end = time.time()
+    native_calls = native.CALLS
+    launches = {"sgd_step": cuda_sgd.LAUNCHES,
+                "eval_error": cuda_loss.LAUNCHES}
+    require(native_calls > 0, "mf made no call into the native library")
+    require(device == "cpu" or all(launches.values()),
+            f"mf did not launch both kernels: {launches}")
+    metrics = [METRIC_LINE.match(ln) for ln in text.splitlines()
+               if ln.startswith(("TRAIN:", "TEST:"))]
+    require(metrics and all(metrics), "a TRAIN/TEST line does not parse")
+    tests = [(int(m[2]), float(m[3]), float(m[4])) for m in metrics
+             if m[1] == "TEST"]
+    require([it for it, _, _ in tests] == [1, PIPE_CHECK, PIPE_ITERATIONS],
+            f"eval points {tests}")
+    require(tests[-1][2] < tests[0][2],
+            f"test RMSE {tests[-1][2]} is not below iteration 1's "
+            f"{tests[0][2]}")
+    recs = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    t_eval1 = next(r["ts"] for r in recs if r["event"] == "eval")
+    t_loop = next(r["ts"] for r in recs if r["event"] == "time")
+    base = out / f"raw_mapped_train_f{F}_"
+    csv_s, ckpt_s = _export_split(t_loop, out, base.name, ck)
+    split_s = {"set-up and first eval": t_eval1 - t_start,
+               "iterations": t_loop - t_eval1, "export": t_end - t_loop,
+               "export CSVs": csv_s, "export checkpoint": ckpt_s}
+
+    # evaluate: from the checkpoint, from the five CSVs, with --ranking.
+    parts = ["-p", f"{base}p.csv", "-q", f"{base}q.csv", "-u",
+             f"{base}user_bias.csv", "-i", f"{base}item_bias.csv", "-g",
+             f"{base}global_bias.csv"]
+    cuda_loss.LAUNCHES = 0
+    (mae, rmse), s_ck = _eval_summary(_timed(
+        steps, "evaluate", evaluate.main,
+        ["--checkpoint", str(ck), test, "--device", device]))
+    want_mae, want_rmse = tests[-1][1], tests[-1][2]
+    ck_err = max(abs(s_ck["test_rmse"] - want_rmse),
+                 abs(s_ck["test_mae"] - want_mae))
+    require(ck_err <= PIPE_CKPT_TOL,
+            f"evaluate --checkpoint gives RMSE {s_ck['test_rmse']}, MAE "
+            f"{s_ck['test_mae']}; mf's final TEST line {want_rmse}, "
+            f"{want_mae}")
+    _, s_csv = _eval_summary(_timed(steps, "evaluate (CSVs)", evaluate.main,
+                                    parts + [test, "--device", device]))
+    csv_err = max(abs(s_csv["test_rmse"] - s_ck["test_rmse"]),
+                  abs(s_csv["test_mae"] - s_ck["test_mae"]))
+    require(csv_err <= PIPE_CSV_TOL,
+            f"evaluate on the CSVs is {csv_err} from the checkpoint's")
+    _, s_rank = _eval_summary(_timed(
+        steps, "evaluate --ranking", evaluate.main,
+        ["--checkpoint", str(ck), test, "--ranking", "--train", train,
+         "--max-users", str(PIPE_RANKING_USERS), "-k", str(PIPE_TOP_K),
+         "--device", device]))
+    csrs = [build_csr(read_ratings_csv(p), n_users=meta["users"],
+                      n_items=meta["items"]) for p in (train, test)]
+    t0 = time.perf_counter()
+    ref_recall, ref_ndcg, n_ranked = _ranking_reference(
+        ck, *csrs, PIPE_RANKING_USERS, PIPE_TOP_K)
+    steps["ranking reference"] = time.perf_counter() - t0
+    rank_err = max(abs(s_rank["recall_at_k"] - ref_recall),
+                   abs(s_rank["ndcg_at_k"] - ref_ndcg))
+    require(rank_err <= 1.0 / n_ranked,
+            f"evaluate --ranking gives recall@{PIPE_TOP_K} "
+            f"{s_rank['recall_at_k']}, NDCG {s_rank['ndcg_at_k']}; the "
+            f"float64 reference {ref_recall}, {ref_ndcg}")
+    random_recall = PIPE_TOP_K / meta["items"]
+    eval_launches = cuda_loss.LAUNCHES
+    require(device == "cpu" or eval_launches >= 3,
+            f"evaluate launched K0b {eval_launches} times in 3 runs")
+    launches["eval_error"] += eval_launches
+
+    # convert_to_np on the exported Q, against the checkpoint's.
+    _timed(steps, "convert_to_np", convert_to_np.main, [f"{base}q.csv"])
+    with np.load(ck) as z:
+        q = z["q"]
+    npy = np.load(f"{base}q.npy")
+    q_err = float(np.abs(npy - q).max())
+    half_ulp = float(np.spacing(np.abs(q).max())) / 2
+    require(npy.shape == q.shape and q_err <= PIPE_Q_TOL + half_ulp,
+            f"the .npy of the exported Q is {q_err} from the checkpoint's")
+
+    # The native reader against its plain version on the test split.
+    t0 = time.perf_counter()
+    fast = read_ratings_csv(test)
+    native_s = time.perf_counter() - t0
+    plain = read_ratings_csv(test, use_native=False)
+    plain_s = time.perf_counter() - t0 - native_s
+    require(_same_ratings(fast, plain),
+            "the native reader and its plain version read the test split "
+            "differently")
+    steps["phase"] = time.perf_counter() - t_phase
+    log(f"[pipeline] synth {meta['users']} x {meta['items']} x "
+        f"{meta['ratings']} (rank {meta['planted_factors']}); split "
+        f"{fast.nnz} test ratings; mf on {card}: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in split_s.items())
+        + f"; test RMSE {tests[0][2]:.6f} -> {tests[-1][2]:.6f} (floor "
+        f"{meta['noise_floor']}); native calls {native_calls}; launches "
+        f"{launches}")
+    log(f"[pipeline] evaluate: checkpoint RMSE {s_ck['test_rmse']:.7f} MAE "
+        f"{s_ck['test_mae']:.7f} ({ck_err:.2e} from mf's line), CSVs "
+        f"{csv_err:.2e} from it, recall@10 {s_rank['recall_at_k']:.6f} "
+        f"ndcg@10 {s_rank['ndcg_at_k']:.6f} over {n_ranked} users, "
+        f"{rank_err:.2e} from the float64 reference (a random 10 items: "
+        f"recall {random_recall:.2e}); Q .npy max err {q_err:.2e}; "
+        f"read_ratings_csv of the test split native {native_s:.3f} s, "
+        f"plain {plain_s:.3f} s, the same arrays")
+    log("[pipeline] seconds: " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in steps.items())
+        + f" on {card}")
+    return launches, {"steps_s": steps, "mf_s": split_s,
+                      "native_calls": native_calls,
+                      "read_s": {"native": native_s, "plain": plain_s},
+                      "test_rmse": s_ck["test_rmse"],
+                      "recall_at_k": s_rank["recall_at_k"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1645,10 +1915,13 @@ def main(argv=None) -> int:
     probed = phase_probes()
     served = phase_serve(torch, args.seed, smi)
     families, measured = phase_families(torch, dev, args.seed, smi)
+    with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
+        piped, pipeline = phase_pipeline(args.seed, Path(tmp), smi)
     by_name["sgd_step"]["launches"] = trained["sgd_step"] + \
-        predicted["explicit"]
+        predicted["explicit"] + piped["sgd_step"]
+    by_name["sgd_step"]["pipeline"] = pipeline
     by_name["eval_error"]["launches"] = trained["eval_error"] + \
-        families["eval_error"]
+        families["eval_error"] + piped["eval_error"]
     by_name["ridge_cholesky"]["launches"] = served + predicted["implicit"] \
         + families["ridge_cholesky"]
     by_name["ridge_cholesky"]["families"] = measured

@@ -1,11 +1,16 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` and its host library with
+``g++``, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on its
 own, into ``build/cu2rec_torch/<hash>/lib<name>.so`` at the repository
 root, where ``<hash>`` covers the source, the shared ``*.cuh`` headers and
 the flags — so an edited source builds anew and an unchanged one loads at
-once.  ``build()`` starts one ``nvcc`` per source, all together.  Nothing
-here runs at import time.
+once.  ``build()`` starts one ``nvcc`` per source, all together.  The host
+library ``csrc/ingest.cpp`` (CSV ingest and export, no device code) builds
+the same way with ``g++`` (``build_host``); it is not in ``KERNELS``.  A
+build writes a temporary file and renames it into place, so processes that
+build the same library at once each load a whole one.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ridge_cholesky", "sgd_step", "eval_error", "row_gather",
            "smem_gather")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -36,11 +42,22 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def _paths(name: str) -> tuple[Path, Path, Path]:
-    src = CSRC / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+def gxx() -> str | None:
+    """The host C++ compiler, ``g++`` on the path, or None where there is
+    none."""
+    return shutil.which("g++")
+
+
+def _paths(name: str, ext: str = ".cu") -> tuple[Path, Path, Path]:
+    src = CSRC / f"{name}{ext}"
+    if ext == ".cu":
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC.glob("*.cuh")))
+        flags = NVCC_FLAGS
+    else:
+        headers, flags = b"", GXX_FLAGS
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     out_dir = BUILD_ROOT / digest
     return src, out_dir / f"lib{name}.so", out_dir / f"{name}.log"
@@ -74,6 +91,29 @@ def build(names=KERNELS) -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
+
+
+def build_host(name: str = "ingest") -> Path:
+    """Compile ``csrc/<name>.cpp`` with the host compiler if it is not
+    built yet; returns the library's path.  Raises with the compiler's
+    output if the build fails, and where there is no compiler."""
+    src, so, _log = _paths(name, ".cpp")
+    if so.exists():
+        return so
+    compiler = gxx()
+    if compiler is None:
+        raise RuntimeError(f"no host C++ compiler found to build {src.name}")
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.tmp.{os.getpid()}")
+    proc = subprocess.run(
+        [compiler, *GXX_FLAGS, "-o", str(tmp), str(src), "-lpthread"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0 or not tmp.exists():
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{compiler} failed for {src.name} "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)
+    return so
 
 
 def build_log(name: str) -> str:

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cu2rec_torch.data import native
 from cu2rec_torch.data.ratings import RatingsData
 from cu2rec_torch.utils.device import resolve_device
 
@@ -89,8 +90,19 @@ def normalize_csr_dims(csr: CSRRatings, n_users: int,
 
 
 def csr_from_arrays(users: np.ndarray, items: np.ndarray, data: np.ndarray,
-                    n_users: int, n_items: int) -> CSRRatings:
-    """CSR from (possibly unsorted) triplets — sorts by (user, item)."""
+                    n_users: int, n_items: int,
+                    use_native: bool = True) -> CSRRatings:
+    """CSR from (possibly unsorted) triplets — sorts by (user, item).
+
+    The native parallel counting sort builds it (``np.lexsort`` takes ~9 s
+    for 20M ratings, the counting sort well under 1 s) unless
+    ``use_native`` is False or the native path is off (``data/native.py``);
+    then NumPy does."""
+    if use_native and len(users) > 0 and native.available():
+        indptr, s_items, s_data = native.native_csr_build(
+            np.asarray(users), np.asarray(items), np.asarray(data), n_users)
+        return CSRRatings(indptr=indptr, indices=s_items, data=s_data,
+                          n_users=n_users, n_items=n_items)
     order = np.lexsort((items, users))
     rd = RatingsData(users=users[order].astype(np.int32),
                      items=items[order].astype(np.int32),

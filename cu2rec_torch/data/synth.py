@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from cu2rec_torch.data import native
+
 
 @dataclass
 class PlantedData:
@@ -171,7 +173,13 @@ def generate_planted_implicit(n_users: int, n_items: int, n_ratings: int,
 
 def write_planted_csv(data: PlantedData, path: str) -> None:
     """Write the triplets as a standard ratings CSV (1-based ids, header,
-    ratings to three decimals)."""
+    ratings to three decimals), through the native parallel writer unless
+    the native path is off (``data/native.py``; the loop below writes the
+    same bytes)."""
+    if native.available():
+        native.native_write_ratings(path, data.users, data.items,
+                                    data.ratings)
+        return
     with open(path, "w") as f:
         f.write("userId,itemId,rating\n")
         for u, i, r in zip(data.users, data.items, data.ratings):

@@ -23,7 +23,7 @@ from cu2rec_torch.ops.als import (
 )
 from cu2rec_torch.ops.loss import evaluate_packed
 from cu2rec_torch.ops.packed import PackedModel, pack, unpack
-from cu2rec_torch.train.trainer import _subsample_dev
+from cu2rec_torch.train.trainer import _subsample_dev, check_dtype
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
@@ -70,6 +70,7 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     sweeps done) runs only the remaining sweeps.  ``mesh`` (row-sharded
     solves over several devices) is not ported yet."""
     check_single_device("mesh", mesh)
+    check_dtype(cfg.dtype)
     dev = resolve_device(device)
     logger = logger or MetricsLogger()
     F = cfg.n_factors

@@ -21,6 +21,7 @@ from cu2rec_torch.ops.bpr import auc_eval, bpr_run_steps
 from cu2rec_torch.ops.packed import pack, unpack
 from cu2rec_torch.ops.sgd import Hyper, prng_key
 from cu2rec_torch.serve.recommend import ranking_eval
+from cu2rec_torch.train.trainer import check_dtype
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
@@ -44,6 +45,7 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     are not ported yet.
     """
     check_single_device("mesh", mesh)
+    check_dtype(cfg.dtype)
     if n_devices and n_devices > 1:
         check_single_device("n_devices > 1", n_devices)
     dev = resolve_device(device)

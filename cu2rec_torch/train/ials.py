@@ -21,6 +21,7 @@ from cu2rec_torch.ops.bpr import auc_eval
 from cu2rec_torch.ops.ials import ials_half_sweep
 from cu2rec_torch.serve.recommend import ranking_eval
 from cu2rec_torch.train.als import sweep_chunks
+from cu2rec_torch.train.trainer import check_dtype
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
@@ -45,6 +46,7 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     positive.  ``mesh`` is not ported yet.
     """
     check_single_device("mesh", mesh)
+    check_dtype(cfg.dtype)
     dev = resolve_device(device)
     logger = logger or MetricsLogger()
     F = cfg.n_factors

@@ -56,6 +56,15 @@ def _subsample_dev(csr: CSRRatings, n_sample: int, seed: int,
         n_users=csr.n_users, n_items=csr.n_items)
 
 
+def check_dtype(dtype: str) -> None:
+    """Every trainer keeps float32 tables: other table dtypes raise until
+    they are ported."""
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"dtype {dtype!r} is not ported yet (ROADMAP Queue 1 item 4: "
+            "bf16 tables); use float32")
+
+
 class SingleChipEngine:
     """One device: the packed tables, the step and the eval.
 
@@ -70,10 +79,7 @@ class SingleChipEngine:
             raise NotImplementedError(
                 "the unpacked step is not ported yet (ROADMAP Queue 1 item "
                 "12: it comes with the sharded multi-GPU engine)")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {cfg.dtype!r} is not ported yet (ROADMAP Queue 1 "
-                "item 4: bf16 tables); use float32")
+        check_dtype(cfg.dtype)
         if cfg.is_train:
             check_collision(cfg.collision_policy)
         self.device = resolve_device(device)

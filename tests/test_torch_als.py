@@ -335,3 +335,12 @@ def test_train_als_resume_equals_straight_run():
                                            resumed.item_bias)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert rest[4] == losses[4]
+
+
+def test_train_als_refuses_bf16_tables():
+    """A bfloat16 config raises (item 4 ports bf16 tables) instead of
+    training float32 tables, as the SGD trainer does."""
+    csr, _ = _both_csrs()
+    cfg = Config(total_iterations=1, n_factors=4, dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        t_train(csr, csr, cfg, 3.5, device="cpu")

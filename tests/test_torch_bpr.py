@@ -183,3 +183,12 @@ def test_train_bpr_matches():
     with pytest.raises(NotImplementedError, match="item 12"):
         t_train(*[t_csr(*s, 160, 50) for s in (tr, te)], Config(),
                 n_devices=2, device="cpu")
+
+
+def test_train_bpr_refuses_bf16_tables():
+    """A bfloat16 config raises (item 4 ports bf16 tables) instead of
+    training float32 tables, as the SGD trainer does."""
+    csr, _, _, _ = _data()
+    cfg = Config(total_iterations=1, n_factors=4, dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        t_train(csr, csr, cfg, device="cpu")

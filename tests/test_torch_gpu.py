@@ -639,3 +639,88 @@ def test_family_trainers_on_card_launch_their_kernels(cuda_device):
     for name in ("als", "ials"):
         np.testing.assert_allclose(hist[("cuda", name)], hist[("cpu", name)],
                                    atol=1e-4)
+
+
+def _cli(main, args, capsys):
+    capsys.readouterr()
+    assert main(args) == 0
+    return capsys.readouterr().out
+
+
+def _planted_csvs(tmp_path):
+    """A small planted set written, mapped and split by the preprocessing
+    CLIs (the native path): the train and test CSVs."""
+    from cu2rec_torch.cli import map_items, split, synth
+
+    raw = tmp_path / "raw.csv"
+    assert synth.main([str(raw), "--users", "500", "--items", "200",
+                       "--ratings", "30000", "--seed", "3"]) == 0
+    assert map_items.main([str(raw)]) == 0
+    assert split.main([str(tmp_path / "raw_mapped.csv"), "0.1"]) == 0
+    return (str(tmp_path / "raw_mapped_train.csv"),
+            str(tmp_path / "raw_mapped_test.csv"))
+
+
+@pytest.mark.gpu
+def test_native_reader_feeds_mf_on_the_card(cuda_device, tmp_path, capsys):
+    """mf on the card reads its CSVs and writes its components through the
+    native library (``native.CALLS`` rises) and launches K0a and K0b; its
+    metric lines agree with the CPU run's within 1e-4."""
+    from cu2rec_torch.cli import mf
+    from cu2rec_torch.data import native
+    from cu2rec_torch.ops import cuda_loss, cuda_sgd
+
+    train, test = _planted_csvs(tmp_path)
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text("0 40 8 0.05 7 0.02 0.02 0.02 0.02 32 20 2 0.2\n")
+    lines = {}
+    for device in ("cuda", "cpu"):
+        n0 = (native.CALLS, cuda_sgd.LAUNCHES, cuda_loss.LAUNCHES)
+        out = _cli(mf.main, ["-c", str(cfg), train, test, "--outdir",
+                             str(tmp_path / device), "--device", device],
+                   capsys)
+        assert native.CALLS >= n0[0] + 7      # 2 reads, 5 component CSVs
+        if device == "cuda":
+            assert cuda_sgd.LAUNCHES > n0[1] and cuda_loss.LAUNCHES > n0[2]
+        lines[device] = [[float(ln.split("MAE:")[1].split()[0]),
+                          float(ln.split("RMSE:")[1])]
+                         for ln in out.splitlines()
+                         if ln.startswith(("TRAIN:", "TEST:"))]
+    assert len(lines["cuda"]) == 6
+    np.testing.assert_allclose(lines["cuda"], lines["cpu"], atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_evaluate_on_the_card_matches_the_cpu(cuda_device, tmp_path, capsys):
+    """evaluate on the card (K0b) against --device cpu: RMSE and MAE within
+    1e-6, recall@k and NDCG@k equal, from a checkpoint and from the five
+    component CSVs."""
+    import json
+
+    from cu2rec_torch.cli import evaluate, mf
+    from cu2rec_torch.ops import cuda_loss
+
+    train, test = _planted_csvs(tmp_path)
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text("0 30 8 0.05 7 0.02 0.02 0.02 0.02\n")
+    ck = str(tmp_path / "ck.npz")
+    _cli(mf.main, ["-c", str(cfg), train, test, "--outdir", str(tmp_path),
+                   "--checkpoint", ck, "--device", "cpu"], capsys)
+    base = str(tmp_path / "raw_mapped_train_f8_")
+    parts = ["-p", base + "p.csv", "-q", base + "q.csv", "-u",
+             base + "user_bias.csv", "-i", base + "item_bias.csv", "-g",
+             base + "global_bias.csv"]
+    for form in (["--checkpoint", ck], parts):
+        got = {}
+        for device in ("cuda", "cpu"):
+            n0 = cuda_loss.LAUNCHES
+            out = _cli(evaluate.main, form + [test, "--ranking", "--train",
+                                              train, "--device", device],
+                       capsys)
+            assert (cuda_loss.LAUNCHES > n0) == (device == "cuda")
+            got[device] = json.loads(out.splitlines()[-1])
+        for key in ("test_rmse", "test_mae"):
+            assert abs(got["cuda"][key] - got["cpu"][key]) <= 1e-6
+        for key in ("recall_at_k", "ndcg_at_k"):
+            assert got["cuda"][key] == pytest.approx(got["cpu"][key],
+                                                     abs=1e-6)

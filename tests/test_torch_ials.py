@@ -176,3 +176,15 @@ def test_train_ials_matches():
         for k in ("auc", "recall_at_k", "ndcg_at_k", "objective"):
             assert a[k] == pytest.approx(b[k], abs=1e-3), k
         assert len(a["half_sweep_ms"]) == 2
+
+
+def test_train_ials_refuses_bf16_tables():
+    """A bfloat16 config raises (item 4 ports bf16 tables) instead of
+    training float32 tables, as the SGD trainer does."""
+    from cu2rec_torch.train.ials import train_ials
+    from cu2rec_torch.utils.config import Config
+
+    csr, _ = _implicit_csrs()
+    cfg = Config(total_iterations=1, n_factors=4, dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        train_ials(csr, csr, cfg, device="cpu")

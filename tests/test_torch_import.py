@@ -47,7 +47,8 @@ def test_every_port_module_imports_with_jax_blocked():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), REPO / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cpp"),
+     REPO / "chip_smoke.py"]))
 def test_port_sources_name_neither_jax_nor_tpu_package(path):
     text = (REPO / path).read_text()
     assert not re.search(r"\bjax\b", text, re.IGNORECASE), path
@@ -74,7 +75,7 @@ def test_entry_points_default_to_cuda():
     for: without a card they raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
-    from cu2rec_torch.cli import mf, predict
+    from cu2rec_torch.cli import evaluate, mf, predict
     from cu2rec_torch.cli.serve import build_parser
     from cu2rec_torch.data.csr import csr_from_arrays
     from cu2rec_torch.models.state import init_model
@@ -87,6 +88,9 @@ def test_entry_points_default_to_cuda():
     assert predict.build_parser().parse_args(
         ["-c", "c", "-i", "i", "-g", "g", "-q", "q", "u.csv"]).device == \
         "cuda"
+    assert evaluate.build_parser().parse_args(["t.csv"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["--checkpoint", "m.npz", "t.csv"])
     model = init_model(3, 4, 2, 3.0, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model)
@@ -101,8 +105,9 @@ def test_entry_points_default_to_cuda():
 
 
 def test_port_builds_nothing_at_import():
-    """Importing the kernel modules neither runs nvcc nor creates the build
-    directory's libraries (the kernels build at first launch)."""
+    """Importing the kernel modules, the native host library's bindings and
+    the CLIs runs no compiler, nvcc or g++ (the kernels build at first
+    launch, the host library at first use)."""
     env = {k: v for k, v in os.environ.items()}
     code = (
         "import sys; sys.path.insert(0, %r)\n"
@@ -113,6 +118,12 @@ def test_port_builds_nothing_at_import():
         "import cu2rec_torch.ops.cuda_sgd, cu2rec_torch.ops.cuda_loss\n"
         "import cu2rec_torch.ops.cuda_gather, cu2rec_torch.cli.mf\n"
         "import cu2rec_torch.ops.als, cu2rec_torch.ops.ials\n"
+        "import cu2rec_torch.data.native, cu2rec_torch.data.mapping\n"
+        "from cu2rec_torch.cli import (convert_to_np, create_config,\n"
+        "    evaluate, get_data, map_items, map_netflix, mf_cpu,\n"
+        "    sort_ratings, split, synth)\n"
+        "from cu2rec_torch.data import native\n"
+        "assert native._LIB is None and native.CALLS == 0\n"
         "print('NO_BUILD_AT_IMPORT')\n" % str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)

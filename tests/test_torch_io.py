@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from cu2rec_torch.data import native as t_native
 from cu2rec_torch.data.csr import build_csr as t_build_csr
 from cu2rec_torch.data.csr import csr_from_arrays as t_csr_from_arrays
 from cu2rec_torch.data.csr import normalize_csr_dims as t_normalize
@@ -78,15 +79,43 @@ def test_ratings_csr_and_padded_lists_match(name):
         np.testing.assert_array_equal(jm, tm)
 
 
+def test_ids_longer_than_24_characters_read_exactly(tmp_path):
+    """Id tokens of 25 characters (leading zeros) and ids near 2^63 read
+    exactly on both of the port's paths, as the TPU package's native
+    reader reads them (its NumPy path cut such tokens to 24 characters)."""
+    path = tmp_path / "long_ids.csv"
+    path.write_text("userId,itemId,rating\n"
+                    f"{'0' * 22}123,{'0' * 23}45,4.0\n1,1,3.0\n")
+    want = j_read(str(path))
+    assert (want.n_users, want.n_items) == (123, 45)
+    for native in (True, False):
+        got = t_read(str(path), use_native=native)
+        assert (got.n_users, got.n_items) == (123, 45)
+        for f in ("users", "items", "ratings"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    big = tmp_path / "big_ids.csv"
+    big.write_text("userId,itemId,rating\n"
+                   f"{2**63 - 1},{'0' * 30}{2**62},1.5\n")
+    from cu2rec_torch.data.ratings import _read_numpy
+    for native in (True, False):
+        u, i, _r = (t_native.native_read_ratings(str(big), ord(","), 1)
+                    if native else _read_numpy(str(big)))
+        assert (int(u[0]), int(i[0])) == (2**63 - 1, 2**62)
+
+
 def test_csr_from_arrays_matches():
     rng = np.random.default_rng(0)
     users = rng.integers(0, 30, 500).astype(np.int32)
     items = rng.integers(0, 70, 500).astype(np.int32)
     vals = rng.random(500).astype(np.float32)
-    j = j_csr_from_arrays(users, items, vals, 30, 70, use_native=False)
-    t = t_csr_from_arrays(users, items, vals, 30, 70)
-    for f in ("indptr", "indices", "data"):
-        np.testing.assert_array_equal(getattr(j, f), getattr(t, f))
+    # Each path against the TPU package's same path: duplicate (user, item)
+    # pairs keep their ratings in the lexsort's stable order on the NumPy
+    # path and in the counting sort's order on the native one.
+    for native in (True, False):
+        j = j_csr_from_arrays(users, items, vals, 30, 70, use_native=native)
+        t = t_csr_from_arrays(users, items, vals, 30, 70, use_native=native)
+        for f in ("indptr", "indices", "data"):
+            np.testing.assert_array_equal(getattr(j, f), getattr(t, f))
     with pytest.raises(ValueError):
         t_normalize(t, 29, 70)
 

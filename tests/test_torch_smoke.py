@@ -185,3 +185,37 @@ def test_explicit_family_data_at_a_small_shape(monkeypatch):
     assert tr.n_users == te.n_users == 300 and tr.n_items == 80
     assert (np.diff(tr.indptr) >= 0).all() and tr.indptr[-1] == tr.nnz
     assert abs(mu - float(np.mean(tr.data))) < 1e-9 and 0.3 < mean_rmse < 2
+
+
+def test_phase8_pipeline_on_cpu(tmp_path, monkeypatch):
+    """Phase 8 as the smoke runs it, on the CPU at ML-100K's preset and
+    F=8: synth, map_items, split, mf, the three evaluate runs, convert_to_np
+    and the reader comparison pass their gates, and mf went through the
+    native library."""
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "F", 8)
+    monkeypatch.setattr(smoke, "PIPE_PRESET", "ml100k")
+    launches, measured = smoke.phase_pipeline(0, tmp_path, "cpu",
+                                              device="cpu")
+    assert launches == {"sgd_step": 0, "eval_error": 0}
+    assert measured["native_calls"] >= 7
+    assert {"synth", "map_items", "split", "mf", "evaluate",
+            "convert_to_np"} <= measured["steps_s"].keys()
+    assert (tmp_path / "out" / "raw_mapped_train_f8_q.npy").exists()
+
+
+def test_phase5_train_on_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 5's ``mf`` run as the smoke drives it, on the CPU at a small
+    shape: its gates hold and its line splits the export into the CSVs and
+    the checkpoint."""
+    smoke = _smoke()
+    for name, value in (("U", 500), ("I", 200), ("F", 8),
+                        ("TRAIN_RATINGS", 20_000), ("TEST_RATINGS", 2_000)):
+        monkeypatch.setattr(smoke, name, value)
+    launches, out = smoke.phase_train(torch, 0, tmp_path, "cpu",
+                                      device="cpu")
+    assert launches == {"sgd_step": 0, "eval_error": 0}
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[train] mf on cpu")][0]
+    assert "CSVs" in line and "checkpoint" in line
+    assert (out / "train_f8_q.csv").exists()
