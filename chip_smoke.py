@@ -70,7 +70,23 @@ fatal on failure:
    NumPy top-10 from the checkpoint), ``convert_to_np`` of the
    exported Q (within 5e-7 and the float32 rounding of the checkpoint's),
    and the native ratings reader against its plain version on the test
-   split (the same arrays, both times printed).
+   split (the same arrays, both times printed);
+9. variants: K0a on bf16 tables (first_wins, twin) and under the mean and
+   sum collision policies (float32 and bf16) at the headline shape, two
+   steps each against the plain version (float32 within 1e-5, bf16 within
+   one bf16 ulp of each entry's operand scale, two on the item side of
+   mean and sum, whose adds each round; mean and sum the same bits in two
+   calls), each timed with the stream held (the card's time) and as
+   the trainer's loop runs it, beside its bound; K0b on bf16 tables over
+   the 20,000,000 ratings (rtol 1e-6, the same bits twice).  Then, on
+   phase 5's CSVs (so it runs right after phase 5): ``mf --dtype
+   bfloat16`` and ``mf --collision mean`` (test RMSE below iteration 1's
+   and the global mean's, printed beside the float32 run's), the trainer
+   for the other variants, ``predict`` with a bf16 config, ``mf --algo als``
+   in float32 and bf16 on ML-100K-shaped CSVs, ``foldin_ranking_eval``
+   explicit and implicit (recall@10 above a random 10/I), and
+   ``ServeClient`` against the daemon over a unix socket: 10,000
+   single-user recommends, each the engine's own top-10, and a fold-in.
 
 It prints the kernels' JSON line, then the nvidia-smi name/power line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -159,6 +175,20 @@ def phase_device(torch):
 
 # -- phase 2: build ----------------------------------------------------------
 
+def _kernel_name(mangled: str) -> str:
+    """``kernel<template args>`` from a mangled entry name: integers and
+    booleans as numbers, a row layout's element type as float32 or
+    bfloat16 (``sgd_user_kernel<128,float32,0>``)."""
+    k = re.search(r"([a-z_]+_kernel)(I.*)?", mangled)
+    if not k:
+        return mangled
+    args = (k[2] or "").split("Ev")[0]
+    names = {"13__nv_bfloat16": "bfloat16", "f": "float32"}
+    found = [t[1] or names[t[0]] for t in re.finditer(
+        r"L[ib](\d+)E|13__nv_bfloat16|(?<=E)f(?=E)", args)]
+    return k[1] + (f"<{','.join(found)}>" if found else "")
+
+
 def _ptxas_report(text: str):
     """[(function, registers, spilled bytes, shared bytes)] for each entry
     function of an ``-Xptxas -v`` build log, the name shortened from its
@@ -167,10 +197,7 @@ def _ptxas_report(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m[1])
-            name = k[1] if k else m[1]
-            if k and k[2]:
-                name += f"<{','.join(re.findall(r'L[ib](\d+)E', k[2]))}>"
+            name = _kernel_name(m[1])
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -340,13 +367,13 @@ def _bound(n_bytes: float, n_ops: float):
 
 
 def _entry(name, site, err, ms, plain_ms, n_bytes, n_ops, library_ms,
-           shape, semantics=None):
+           shape, semantics=None, source=None):
     """One kernel's record of the ``{"kernels": [...]}`` line.  A kernel
     with no TPU kernel behind it has ``replaces`` null and names the TPU
     code whose semantics it takes in ``semantics``."""
     bound_ms, bound_by = _bound(n_bytes, n_ops)
     e = {"name": name, "route": "cuda",
-         "source": f"cu2rec_torch/csrc/{name}.cu",
+         "source": f"cu2rec_torch/csrc/{source or name}.cu",
          "replaces": None if semantics else site, "launches": None,
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by,
@@ -374,18 +401,25 @@ def _packed_tables(torch, n_users, n_items, n_factors, seed, dev):
         "global_bias": [3.5]}, dev))
 
 
-def _headline_csr(seed: int):
+def _headline_csr(seed: int, item_power: float | None = None):
     """bench.py's headline ratings shape, 20,000,000 ratings over U users
-    and I items, built in memory from the seed (no CSV)."""
+    and I items, built in memory from the seed (no CSV).  Items are drawn
+    uniformly, or with ``item_power`` from the power law of
+    ``data/synth.py::generate_planted`` (item 0 the most popular)."""
     from cu2rec_torch.data.csr import CSRRatings
 
     rng = np.random.default_rng(seed)
     counts = np.bincount(rng.integers(0, U, N_HEADLINE), minlength=U)
     indptr = np.zeros(U + 1, np.int32)
     np.cumsum(counts, out=indptr[1:])
+    if item_power is None:
+        items = rng.integers(0, I, N_HEADLINE, dtype=np.int32)
+    else:
+        items = np.minimum((I * rng.power(item_power, N_HEADLINE)).astype(
+            np.int32), I - 1)
     return CSRRatings(
         indptr=indptr,
-        indices=rng.integers(0, I, N_HEADLINE, dtype=np.int32),
+        indices=items,
         data=(rng.integers(1, 11, N_HEADLINE) / 2.0).astype(np.float32),
         n_users=U, n_items=I)
 
@@ -402,19 +436,23 @@ def _small_csr(seed: int):
                            3000, 800)
 
 
-def _step_bytes(csr, n_factors, collision, lean, train_items):
+def _step_bytes(csr, n_factors, collision, lean, train_items, elem=4):
     """Bytes one step must move: each table read and written once, the
     user indptr, and one sampled (item, rating) per user with ratings;
     under twin, the item indptr and one sampled (user, rating) per item
-    with ratings (through the permutation when lean).  The election buffer
-    is scratch, not input or output."""
+    with ratings (through the permutation when lean).  Under every policy
+    an item row is read and written once: mean and sum add an item's
+    deltas to it in order, and the pre-step user rows the deltas read are
+    the user table's, read once already.  ``elem`` is the tables' bytes an
+    entry.  The election buffer and the collision sort's arrays are
+    scratch, not input or output."""
     from cu2rec_torch.ops.packed import packed_width
 
     W = packed_width(n_factors)
     u_has = int(np.count_nonzero(np.diff(csr.indptr)))
-    n = 2 * csr.n_users * W * 4 + 4 * (csr.n_users + 1) + 8 * u_has
+    n = 2 * csr.n_users * W * elem + 4 * (csr.n_users + 1) + 8 * u_has
     if train_items:
-        n += 2 * csr.n_items * W * 4
+        n += 2 * csr.n_items * W * elem
     if train_items and collision == "twin":
         i_has = int(np.count_nonzero(np.bincount(csr.indices,
                                                  minlength=csr.n_items)))
@@ -747,15 +785,16 @@ def phase_train(torch, seed: int, workdir: Path, card: str,
                    f"0.02 32 100 2 0.2\n")
     out = workdir / "out"
     jsonl = workdir / "metrics.jsonl"
-    cuda_sgd.LAUNCHES = cuda_loss.LAUNCHES = 0
+    cuda_sgd.LAUNCHES.clear()
+    cuda_loss.LAUNCHES.clear()
     t0, t_start = time.perf_counter(), time.time()
     text = _capture(mf.main, ["-c", str(cfg), train, test, "--outdir",
                               str(out), "--checkpoint",
                               str(workdir / "model.npz"), "--jsonl",
                               str(jsonl), "--device", device])
     wall, t_end = time.perf_counter() - t0, time.time()
-    launches = {"sgd_step": cuda_sgd.LAUNCHES,
-                "eval_error": cuda_loss.LAUNCHES}
+    launches = {"sgd_step": cuda_sgd.LAUNCHES.total(),
+                "eval_error": cuda_loss.LAUNCHES.total()}
     for line in text.splitlines():
         log(f"[train] {line}")
     metrics = [METRIC_LINE.match(ln) for ln in text.splitlines()
@@ -793,7 +832,7 @@ def phase_train(torch, seed: int, workdir: Path, card: str,
         f"{final:.6f} at {TRAIN_ITERATIONS} (global mean {mean_rmse:.6f}); "
         f"launches {launches}; user updates/s per segment (host clock, the "
         f"segment's train eval included): {rates}")
-    return launches, out
+    return launches, out, final
 
 
 def _predictions(text: str):
@@ -824,15 +863,16 @@ def phase_predict(seed: int, workdir: Path, out: Path, card: str,
             "-q", str(out / f"train_f{F}_q.csv"), str(user),
             "--device", device]
     launches = {}
-    for mode, extra, counter in (
-            ("explicit", [], cuda_sgd),
-            ("implicit", ["--implicit", "--alpha", "40", "--reg", "0.1"],
-             cuda_linalg)):
-        counter.LAUNCHES = 0
+    for mode, extra in (
+            ("explicit", []),
+            ("implicit", ["--implicit", "--alpha", "40", "--reg", "0.1"])):
+        cuda_sgd.LAUNCHES.clear()
+        cuda_linalg.LAUNCHES = 0
         t0 = time.perf_counter()
         text = _capture(predict.main, args + extra)
         wall = time.perf_counter() - t0
-        launches[mode] = counter.LAUNCHES
+        launches[mode] = (cuda_sgd.LAUNCHES.total() if mode == "explicit"
+                          else cuda_linalg.LAUNCHES)
         scores, ranks = _predictions(text)
         require(len(scores) == I and np.all(np.isfinite(scores)),
                 f"{mode} predict: {len(scores)} predictions, want {I}")
@@ -1407,13 +1447,14 @@ def _als_run(torch, dev, seed: int, card: str):
         f"test RMSE {mean_rmse:.6f}")
     require(heavy >= MIN_HEAVY, f"{heavy} heavy items, want >= {MIN_HEAVY}")
     logger = MetricsLogger(verbose=False)
-    cuda_linalg.LAUNCHES = cuda_loss.LAUNCHES = 0
+    cuda_linalg.LAUNCHES = 0
+    cuda_loss.LAUNCHES.clear()
     t0 = time.perf_counter()
     model, _losses = train_als(train_csr, test_csr, _family_cfg(seed), mu,
                                logger=logger, device=dev)
     wall = time.perf_counter() - t0
     launches = {"ridge_cholesky": cuda_linalg.LAUNCHES,
-                "eval_error": cuda_loss.LAUNCHES}
+                "eval_error": cuda_loss.LAUNCHES.total()}
     require(all(launches.values()), f"train_als launched {launches}")
     recs = [r for r in logger.history if r["event"] == "eval"]
     _gate_als([r["test_rmse"] for r in recs], mean_rmse)
@@ -1594,14 +1635,15 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
         cfg = workdir / f"{algo}.cfg"
         cfg.write_text(cfg_text)
         out = workdir / f"out_{algo}"
-        cuda_linalg.LAUNCHES = cuda_loss.LAUNCHES = 0
+        cuda_linalg.LAUNCHES = 0
+        cuda_loss.LAUNCHES.clear()
         t0 = time.perf_counter()
         text = _capture(mf.main, ["-c", str(cfg), paths[kind, "train"],
                                   paths[kind, "test"], "--algo", algo,
                                   "--outdir", str(out), "--device", device])
         wall = time.perf_counter() - t0
         launches[algo] = {"ridge_cholesky": cuda_linalg.LAUNCHES,
-                          "eval_error": cuda_loss.LAUNCHES}
+                          "eval_error": cuda_loss.LAUNCHES.total()}
         if algo == "als":
             metrics = [METRIC_LINE.match(ln) for ln in text.splitlines()
                        if ln.startswith(("TRAIN:", "TEST:"))]
@@ -1759,15 +1801,17 @@ def phase_pipeline(seed: int, workdir: Path, card: str,
                    f"0.02 32 {PIPE_CHECK} 2 0.2\n")
     out = workdir / "out"
     ck, jsonl = workdir / "model.npz", workdir / "pipeline.jsonl"
-    native.CALLS = cuda_sgd.LAUNCHES = cuda_loss.LAUNCHES = 0
+    native.CALLS = 0
+    cuda_sgd.LAUNCHES.clear()
+    cuda_loss.LAUNCHES.clear()
     t_start = time.time()
     text = _timed(steps, "mf", mf.main, [
         "-c", str(cfg), train, test, "--outdir", str(out), "--checkpoint",
         str(ck), "--jsonl", str(jsonl), "--device", device])
     t_end = time.time()
     native_calls = native.CALLS
-    launches = {"sgd_step": cuda_sgd.LAUNCHES,
-                "eval_error": cuda_loss.LAUNCHES}
+    launches = {"sgd_step": cuda_sgd.LAUNCHES.total(),
+                "eval_error": cuda_loss.LAUNCHES.total()}
     require(native_calls > 0, "mf made no call into the native library")
     require(device == "cpu" or all(launches.values()),
             f"mf did not launch both kernels: {launches}")
@@ -1794,7 +1838,7 @@ def phase_pipeline(seed: int, workdir: Path, card: str,
     parts = ["-p", f"{base}p.csv", "-q", f"{base}q.csv", "-u",
              f"{base}user_bias.csv", "-i", f"{base}item_bias.csv", "-g",
              f"{base}global_bias.csv"]
-    cuda_loss.LAUNCHES = 0
+    cuda_loss.LAUNCHES.clear()
     (mae, rmse), s_ck = _eval_summary(_timed(
         steps, "evaluate", evaluate.main,
         ["--checkpoint", str(ck), test, "--device", device]))
@@ -1829,7 +1873,7 @@ def phase_pipeline(seed: int, workdir: Path, card: str,
             f"{s_rank['recall_at_k']}, NDCG {s_rank['ndcg_at_k']}; the "
             f"float64 reference {ref_recall}, {ref_ndcg}")
     random_recall = PIPE_TOP_K / meta["items"]
-    eval_launches = cuda_loss.LAUNCHES
+    eval_launches = cuda_loss.LAUNCHES.total()
     require(device == "cpu" or eval_launches >= 3,
             f"evaluate launched K0b {eval_launches} times in 3 runs")
     launches["eval_error"] += eval_launches
@@ -1879,6 +1923,568 @@ def phase_pipeline(seed: int, workdir: Path, card: str,
                       "recall_at_k": s_rank["recall_at_k"]}
 
 
+# -- phase 9: bf16 tables, mean/sum and the client --------------------------
+
+# K0a's variants beyond phase 4's float32 first_wins and twin: (table dtype,
+# collision policy).
+VARIANTS = (("bfloat16", "first_wins"), ("bfloat16", "twin"),
+            ("float32", "mean"), ("bfloat16", "mean"),
+            ("float32", "sum"), ("bfloat16", "sum"))
+# Under mean and sum an item's bf16 entry is a chain of adds, each rounded
+# to bf16: a rounding that the float32 error of one pair's delta flips
+# moves the sum by one ulp of the largest magnitude the chain reached, and
+# a long chain may meet two such flips.
+BF16_CHAIN_ULPS = 2.0
+# The power law of the skewed ratings: its top item draws 1/27,000 ** 0.3,
+# ML-20M's 4.7% of the ratings.
+SKEW_POWER = 0.3
+# The trainer runs of the variants that no mf run of this phase drives.
+VARIANT_ITERATIONS = 20
+CLIENT_CALLS = 10_000
+
+
+def _bf16_error(torch, got, want, pre, peak=None):
+    """(scaled, above, raw): the largest |got − want| over the entries of
+    two bf16 tables in bf16 ulps of the entry's operand scale max(|pre|,
+    |want|, peak), the number of entries more than one such ulp apart, and
+    the largest distance in raw bf16 ulps.  Where an update cancels most
+    of the entry, the float32 rounding of its operands is many raw ulps of
+    the small result, and one ulp of the operands' scale; ``peak`` is the
+    largest magnitude a chain of adds reached on the way."""
+    g, w, p = (t.to(torch.float32) for t in (got, want, pre))
+    scale = torch.maximum(p.abs(), w.abs())
+    if peak is not None:
+        scale = torch.maximum(scale, peak)
+    scale = scale.clamp(min=2.0 ** -126)
+    _, e = torch.frexp(scale)
+    ulp = torch.ldexp(torch.ones_like(scale), e - 8)
+    err = (g - w).abs() / ulp
+    scaled, above = float(err.max()), int((err > 1.0).sum())
+
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(b >= 0x8000, 0x8000 - b, b)
+
+    raw = int((ordered(got) - ordered(want)).abs().max())
+    return scaled, above, raw
+
+
+def _planted_scatter(torch, fault: str):
+    """``ops/packed.py::scatter_add_in_order`` with one fault planted in
+    the longest run of a step's pairs: "drop" leaves its last pair out,
+    "reverse" adds the run in reverse user order.  What the bf16 gate reads
+    for a kernel that went wrong so."""
+    from cu2rec_torch.ops.packed import scatter_add_in_order
+
+    def scatter(T, idx, src, peak=None):
+        at = torch.nonzero(idx == torch.bincount(idx).argmax())[:, 0]
+        if fault == "drop":
+            keep = torch.ones_like(idx, dtype=torch.bool)
+            keep[at[-1]] = False
+            return scatter_add_in_order(T, idx[keep], src[keep], peak)
+        order = torch.arange(idx.numel(), device=idx.device)
+        order[at] = at.flip(0)
+        return scatter_add_in_order(T, idx[order], src[order], peak)
+
+    return scatter
+
+
+def _planted_readings(torch, pm, dr, collision, seed, got, peak):
+    """{fault: the bf16 gate's reading of ``got``'s item table against the
+    plain version with that fault planted}."""
+    from cu2rec_torch.ops import packed
+    from cu2rec_torch.ops.sgd import prng_key
+
+    real = packed.scatter_add_in_order
+    readings = {}
+    for fault in ("drop", "reverse"):
+        packed.scatter_add_in_order = _planted_scatter(torch, fault)
+        try:
+            bad = packed.packed_step_reference(pm, dr, _hp(), prng_key(seed),
+                                               0, collision=collision)
+        finally:
+            packed.scatter_add_in_order = real
+        readings[fault] = _bf16_error(torch, got.T_i, bad.T_i, pm.T_i,
+                                      peak)[0]
+    return readings
+
+
+def _dtype_name(dtype) -> str:
+    """"float32" for torch.float32 and so on."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _short(kernel: str) -> str:
+    """A profiler's kernel name without its return type and namespace."""
+    return re.sub(r"^void \(anonymous namespace\)::", "", kernel)[:48]
+
+
+def _check_variant(torch, pm, dr, dtype: str, collision: str, seed: int):
+    """Two steps of one variant, kernel against plain version from the same
+    tables: float32 within STEP_ATOL; bf16 within one bf16 ulp of the
+    operands' scale, the item side of mean and sum within BF16_CHAIN_ULPS;
+    mean/sum the same bits in two calls.  For bf16 mean/sum it also reads
+    the gate against the plain version with a fault planted at step 0,
+    and requires that the gate rejects a dropped pair under sum (under
+    mean the pair's delta is divided by its run's count, and a long run's
+    may fall below a bf16 ulp).  Returns the largest absolute
+    difference."""
+    from cu2rec_torch.ops.packed import packed_step, packed_step_reference
+    from cu2rec_torch.ops.sgd import prng_key
+
+    label = f"sgd_step {dtype}/{collision}"
+    worst = 0.0
+    for it in (0, 3):
+        kw = dict(collision=collision)
+        got = packed_step(pm, dr, _hp(), prng_key(seed), it, **kw)
+        again = packed_step(pm, dr, _hp(), prng_key(seed), it, **kw)
+        peak = None
+        if dtype == "bfloat16" and collision in ("mean", "sum"):
+            peak = torch.zeros(pm.T_i.shape, device=pm.T_i.device)
+        want = packed_step_reference(pm, dr, _hp(), prng_key(seed), it,
+                                     peak=peak, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(got, s), getattr(again, s))
+                   for s in ("T_u", "T_i"))
+        require(same or collision not in ("mean", "sum"),
+                f"{label} step {it}: two calls give other bits")
+        for side in ("T_u", "T_i"):
+            g, w, p = (getattr(x, side) for x in (got, want, pm))
+            require(g.dtype == p.dtype, f"{label}: {side} is {g.dtype}")
+            err = float((g.float() - w.float()).abs().max())
+            worst = max(worst, err)
+            if dtype == "float32":
+                require(err <= STEP_ATOL, f"{label} step {it}: {side} "
+                        f"differs by {err}")
+                log(f"[variants] {label} step {it} {side}: max_abs_err "
+                    f"{err:.3e}, the same bits twice: {same}")
+                continue
+            scaled, above, raw = _bf16_error(
+                torch, g, w, p, peak if side == "T_i" else None)
+            chain = side == "T_i" and peak is not None
+            gate = BF16_CHAIN_ULPS if chain else 1.0
+            require(scaled <= gate, f"{label} step {it}: {side} differs by "
+                    f"{scaled:.3f} bf16 ulps of the operands' scale (gate "
+                    f"{gate}; {above} of {g.numel()} entries above 1)")
+            planted = ""
+            if chain and it == 0:
+                faults = _planted_readings(torch, pm, dr, collision, seed,
+                                           got, peak)
+                require(collision == "mean" or faults["drop"] > gate,
+                        f"{label}: the gate passes a dropped pair "
+                        f"({faults['drop']:.3f} ulps)")
+                planted = ("; a planted fault reads " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in faults.items()))
+            log(f"[variants] {label} step {it} {side}: {scaled:.3f} bf16 "
+                f"ulps of the operands' scale (gate {gate}; {above} of "
+                f"{g.numel()} entries above 1; {raw} raw ulps), max_abs_err "
+                f"{err:.3e}, the same bits twice: {same}{planted}")
+    return worst
+
+
+def phase_variant_kernels(torch, dev, seed: int):
+    """Phase 9's kernels: K0a's bf16 and mean/sum variants and K0b on bf16
+    tables at the headline shape, each held against its plain version and
+    timed beside its bound.  Returns their ``{"kernels"}`` entries."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.ops import cuda_loss
+    from cu2rec_torch.ops.loss import packed_error_sums_reference
+    from cu2rec_torch.ops.packed import (PackedModel, packed_step,
+                                         packed_step_reference)
+    from cu2rec_torch.ops.sgd import INT32_MAX, prng_key, sample_items
+
+    csr = _headline_csr(seed)
+    pm32 = _packed_tables(torch, U, I, F, seed, dev)
+    pm16 = PackedModel(T_u=pm32.T_u.bfloat16(), T_i=pm32.T_i.bfloat16(),
+                       global_bias=pm32.global_bias, n_factors=F)
+    site = _tpu_kernel_site("ops/packed.py", "def packed_step(")
+    entries = []
+    for dtype, collision in VARIANTS:
+        pm = pm16 if dtype == "bfloat16" else pm32
+        elem = pm.T_u.element_size()
+        dr = to_device(csr, dev, item_major=collision == "twin")
+        torch.cuda.synchronize()
+        err = _check_variant(torch, pm, dr, dtype, collision, seed)
+        loop_ms, _host, enqueue_ms = _time_steps(torch, pm, dr, collision)
+        best = torch.full((I,), INT32_MAX, dtype=torch.int32, device=dev)
+        mu = float(pm.global_bias)
+
+        def step(it=7):
+            packed_step(pm, dr, _hp(), prng_key(1), it, collision=collision,
+                        best=best if collision == "first_wins" else None,
+                        mu=mu)
+
+        ms = time_ms(step, [()], reps=50, hold=True)
+        plain_ms = time_ms(lambda: packed_step_reference(
+            pm, dr, _hp(), prng_key(1), 7, collision=collision), [()],
+            reps=3)
+        items, _r, has = sample_items(prng_key(1), 7, dr.indptr, dr.indices,
+                                      dr.data)
+        hit = int(torch.unique(items[has]).numel())
+        n_bytes = _step_bytes(csr, F, collision, False, True, elem)
+        n_pairs = int(has.sum())
+        n_ops = 5 * 128 * (U + I) + (6 * 128 * n_pairs
+                                     if collision in ("mean", "sum") else 0)
+        library_ms = None
+        if collision in ("mean", "sum"):
+            # The item side's scatter-add as one PyTorch call over the
+            # step's pairs (its order is not fixed on the card).
+            T = pm.T_i.clone()
+            idx = items[has]
+            src = torch.randn((n_pairs, pm.width), device=dev).to(
+                pm.T_i.dtype)
+            library_ms = time_ms(lambda: T.index_add_(0, idx, src), [()],
+                                 reps=20)
+        entry = _entry(f"sgd_step/{dtype}/{collision}", site, err, ms,
+                       plain_ms, n_bytes, n_ops, library_ms,
+                       {"U": U, "I": I, "F": F, "W": 128, "nnz": N_HEADLINE,
+                        "dtype": dtype, "collision": collision,
+                        "pairs": n_pairs, "items_hit": hit},
+                       semantics="packed_step", source="sgd_step")
+        entry.update(loop_ms=loop_ms, enqueue_ms=enqueue_ms)
+        if collision in ("mean", "sum") and dtype == "float32":
+            # Where a collision step's time goes, kernel by kernel.
+            busy_ms, _host_ms, top = _profile_steps(torch, pm, dr,
+                                                    collision)
+            entry["kernel_ms"] = busy_ms
+            log(f"[variants] sgd_step {dtype}/{collision} under the "
+                f"profiler: {busy_ms:.4f} ms of kernel time a step; "
+                + "; ".join(f"{_short(k)} {t / n * 1e3:.2f} us x{n}"
+                            for k, t, n in top))
+        if library_ms is not None:
+            entry["library_call"] = "Tensor.index_add_ of the step's pairs"
+        log(f"[variants] sgd_step {dtype}/{collision}: {ms:.4f} ms a step "
+            f"on the card (the stream held while 50 steps are enqueued), "
+            f"{loop_ms:.4f} ms a step as the trainer's loop runs them "
+            f"(host enqueue {enqueue_ms:.4f} ms a step)")
+        entries.append(entry)
+        del dr
+
+    # Skewed items: the top item holds ML-20M's 4.7% of the ratings, so
+    # about 6,500 users draw it in a step, a run for the long-run kernel.
+    skew = _headline_csr(seed, item_power=SKEW_POWER)
+    for dtype, collision in (("float32", "mean"), ("bfloat16", "sum")):
+        pm = pm16 if dtype == "bfloat16" else pm32
+        dr = to_device(skew, dev)
+        torch.cuda.synchronize()
+        _check_variant(torch, pm, dr, dtype, collision, seed)
+        items, _r, has = sample_items(prng_key(1), 7, dr.indptr, dr.indices,
+                                      dr.data)
+        top = int(torch.bincount(items[has]).max())
+        ms = time_ms(lambda: packed_step(pm, dr, _hp(), prng_key(1), 7,
+                                         collision=collision, mu=3.5),
+                     [()], reps=20, hold=True)
+        name = f"sgd_step/{dtype}/{collision}"
+        next(e for e in entries if e["name"] == name).update(
+            skewed_ms=ms, skewed_top_run=top)
+        log(f"[variants] {name} with skewed items (the longest run "
+            f"{top} pairs): {ms:.4f} ms a step on the card")
+        del dr
+    del skew
+
+    # K0b over bf16 tables: all 20,000,000 ratings.
+    dr = to_device(csr, dev)
+    args = (pm16.T_u, pm16.T_i, 3.5, dr.row_ids, dr.indices, dr.data, F)
+    got = cuda_loss.packed_error_sums_cuda(*args)
+    again = cuda_loss.packed_error_sums_cuda(*args)
+    want = packed_error_sums_reference(pm16.T_u, pm16.T_i,
+                                       pm16.global_bias, *args[3:])
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "eval_error on bf16 tables is not "
+            "deterministic")
+    rel = float(((got - want).abs() / want.abs()).max())
+    require(rel <= EVAL_RTOL, f"eval_error on bf16 tables differs from its "
+            f"plain version by {rel:.3e} (relative)")
+    ms = time_ms(cuda_loss.packed_error_sums_cuda, [args], reps=20)
+    plain_ms = time_ms(packed_error_sums_reference,
+                       [(pm16.T_u, pm16.T_i, pm16.global_bias) + args[3:]],
+                       reps=3)
+    entry = _entry(
+        "eval_error/bfloat16", _tpu_kernel_site("ops/loss.py",
+                                                "def _eval_packed_jit"),
+        float((got - want).abs().max()), ms, plain_ms,
+        12 * N_HEADLINE + 2 * (F + 1) * (U + I) + 16,
+        (2 * (F + 1) + 4) * N_HEADLINE, None,
+        {"U": U, "I": I, "F": F, "W": 128, "nnz": N_HEADLINE,
+         "dtype": "bfloat16"}, semantics="_eval_packed_jit",
+        source="eval_error")
+    entry["l2_gather_tb_s"] = N_HEADLINE * 2 * (F + 1) / (ms * 1e-3) / 1e12
+    log(f"[variants] eval_error on bf16 tables: sums {got.tolist()}, "
+        f"relative difference from the plain version {rel:.3e}, the same "
+        f"bits twice; item-row gather through L2 "
+        f"{N_HEADLINE * 2 * (F + 1) / 1e9:.2f} GB at "
+        f"{entry['l2_gather_tb_s']:.3f} TB/s")
+    entries.append(entry)
+    del dr, csr
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _test_rmse(text: str):
+    """[(iteration, test RMSE)] of mf's TEST lines."""
+    rows = [METRIC_LINE.match(ln) for ln in text.splitlines()
+            if ln.startswith(("TRAIN:", "TEST:"))]
+    require(rows and all(rows), "a TRAIN/TEST line does not parse")
+    return [(int(m[2]), float(m[4])) for m in rows if m[1] == "TEST"]
+
+
+def _gate_rmse(what: str, test_rmse, mean_rmse: float) -> float:
+    first, final = test_rmse[0][1], test_rmse[-1][1]
+    require(np.isfinite(final) and final < first and final < mean_rmse,
+            f"{what}: test RMSE {final} is not below iteration 1's {first} "
+            f"and the global mean's {mean_rmse}")
+    return final
+
+
+def _mean_rmse(train: str, test: str) -> float:
+    """Test RMSE of the train split's global mean."""
+    from cu2rec_torch.data.ratings import read_ratings_csv
+
+    mu = read_ratings_csv(train).global_bias
+    r = read_ratings_csv(test).ratings.astype(np.float64)
+    return float(np.sqrt(np.mean((r - mu) ** 2)))
+
+
+def _model_from_components(out: Path, base: str, device):
+    from cu2rec_torch.data.ratings import load_matrix
+    from cu2rec_torch.models.state import model_from_numpy
+
+    comps = {c: load_matrix(str(out / f"{base}{c}.csv"))
+             for c in ("p", "q", "user_bias", "item_bias", "global_bias")}
+    for c in ("user_bias", "item_bias", "global_bias"):
+        comps[c] = comps[c].reshape(-1)
+    return model_from_numpy(comps, device)
+
+
+def _client_run(engine, train_csr, cfg, workdir: Path, card: str):
+    """``ServeClient`` against the serving daemon over a unix socket:
+    CLIENT_CALLS single-user recommends (auto-batched), each the engine's
+    own top-10 for that user, and one fold-in passed through.  Returns
+    requests/s."""
+    import socket
+
+    from cu2rec_torch.serve.client import ServeClient
+    from cu2rec_torch.serve.daemon import ServingDaemon, run_stdio_connection
+
+    daemon = ServingDaemon(engine, train_csr=train_csr, cfg=cfg,
+                           window_ms=1.0)
+    path = str(workdir / "serve.sock")
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(path)
+    srv.listen(1)
+    daemon.start()
+
+    def serve_one():
+        conn, _ = srv.accept()
+        try:
+            run_stdio_connection(daemon, conn.makefile("r", encoding="utf-8"),
+                                 conn.makefile("w", encoding="utf-8"))
+        finally:
+            conn.close()
+
+    server = threading.Thread(target=serve_one, daemon=True)
+    server.start()
+    users = np.arange(CLIENT_CALLS) % train_csr.n_users
+    try:
+        with ServeClient(path, batch_size=256, flush_after_ms=2.0) as c:
+            c.recommend(0, k=10).result(timeout=60)      # warm the path
+            t0 = time.perf_counter()
+            futs = [c.recommend(int(u), k=10) for u in users]
+            results = [f.result(timeout=120) for f in futs]
+            wall = time.perf_counter() - t0
+            rated = [int(i) for i in train_csr.indices[
+                train_csr.indptr[0]:train_csr.indptr[1]]][:20]
+            fold = c.fold_in(rated, [5.0] * len(rated), k=10,
+                             iterations=50).result(timeout=60)
+            stats = c.stats().result(timeout=60)
+    finally:
+        server.join(timeout=60)
+        daemon.close()
+        srv.close()
+    require(not server.is_alive(), "the daemon's connection did not end")
+    n_users = train_csr.n_users
+    vals, idx = engine.recommend_known(np.arange(n_users), train_csr, k=10)
+    for u, r in zip(users, results):
+        require("error" not in r, f"recommend {u}: {r}")
+        s = np.asarray(vals[u])
+        ties = np.abs(s[:, None] - s[None, :]) <= 1e-5
+        same = [a == b or ties[n].sum() > 1 for n, (a, b) in
+                enumerate(zip(r["items"], idx[u].tolist()))]
+        require(len(r["items"]) == len(idx[u]) and all(same)
+                and np.allclose(r["scores"], s, rtol=1e-5, atol=1e-5),
+                f"recommend {u}: not the engine's own top-10")
+    require(len(fold["items"]) == 10 and not set(fold["items"]) & set(rated),
+            f"fold_in through the client: {fold}")
+    rps = CLIENT_CALLS / wall
+    log(f"[client] {CLIENT_CALLS} single-user recommends through "
+        f"ServeClient in {wall:.3f} s, {rps:.1f} requests/s, each the "
+        f"engine's own top-10; {stats['requests']} requests and "
+        f"{stats['batches']} batches at the daemon; one fold-in passed "
+        f"through; on {card}")
+    return rps
+
+
+def phase_variants(torch, seed: int, workdir: Path, card: str,
+                   f32_rmse: float, device: str = "cuda"):
+    """Phase 9's entry points, with the launch counts set to 0 before them
+    and read after: ``mf --dtype bfloat16`` and ``mf --collision mean`` on
+    phase 5's planted CSVs, the trainer for the other variants, ``predict``
+    with a bf16 config, ``mf --algo als`` in float32 and bf16 on the
+    ML-100K-shaped CSVs, ``foldin_ranking_eval`` explicit and implicit,
+    and ``ServeClient`` against the daemon.  Returns the launch counts by
+    variant."""
+    from cu2rec_torch.cli import mf, predict
+    from cu2rec_torch.data import build_csr, read_ratings_csv
+    from cu2rec_torch.ops import cuda_linalg, cuda_loss, cuda_sgd
+    from cu2rec_torch.serve.engine import ServingEngine
+    from cu2rec_torch.serve.recommend import foldin_ranking_eval
+    from cu2rec_torch.train.ials import train_ials
+    from cu2rec_torch.train.trainer import train
+    from cu2rec_torch.utils.config import Config
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    train_csv, test_csv = (str(workdir / f"{n}.csv")
+                           for n in ("train", "test"))
+    mean_rmse = _mean_rmse(train_csv, test_csv)
+    cuda_sgd.LAUNCHES.clear()
+    cuda_loss.LAUNCHES.clear()
+    cuda_linalg.LAUNCHES = 0
+    t_phase = time.perf_counter()
+    for what, opts in (("--dtype bfloat16", ["--dtype", "bfloat16"]),
+                       ("--collision mean", ["--collision", "mean"])):
+        out = workdir / f"out_{opts[1]}"
+        t0 = time.perf_counter()
+        text = _capture(mf.main, ["-c", str(workdir / "train.cfg"),
+                                  train_csv, test_csv, "--outdir", str(out),
+                                  "--device", device] + opts)
+        final = _gate_rmse(f"mf {what}", _test_rmse(text), mean_rmse)
+        log(f"[variants] mf {what}: test RMSE {final:.6f} (float32 "
+            f"first_wins {f32_rmse:.6f}, global mean {mean_rmse:.6f}), "
+            f"{time.perf_counter() - t0:.1f} s wall on {card}")
+
+    # The variants no mf run drives, through the trainer.
+    rd_tr, rd_te = read_ratings_csv(train_csv), read_ratings_csv(test_csv)
+    n_users = max(rd_tr.n_users, rd_te.n_users)
+    n_items = max(rd_tr.n_items, rd_te.n_items)
+    tr = build_csr(rd_tr, n_users=n_users, n_items=n_items)
+    te = build_csr(rd_te, n_users=n_users, n_items=n_items)
+    done = {("bfloat16", "first_wins"), ("float32", "mean")}
+    for dtype, collision in VARIANTS:
+        if (dtype, collision) in done:
+            continue
+        cfg = Config(total_iterations=VARIANT_ITERATIONS, n_factors=F,
+                     learning_rate=0.05, seed=seed, check_error=10,
+                     collision_policy=collision, dtype=dtype)
+        _model, losses = train(tr, te, cfg, rd_tr.global_bias,
+                               logger=MetricsLogger(verbose=False),
+                               device=device)
+        first, final = losses[1], losses[VARIANT_ITERATIONS]
+        require(np.isfinite(final) and final < first,
+                f"train {dtype}/{collision}: test RMSE {final} is not below "
+                f"iteration 1's {first}")
+        log(f"[variants] train {dtype}/{collision}: test RMSE {first:.6f} "
+            f"at iteration 1 -> {final:.6f} at {VARIANT_ITERATIONS}")
+
+    # predict with a bf16 config, from the bf16 run's components.
+    out = workdir / "out_bfloat16"
+    cfg16 = workdir / "bf16.json"
+    cfg16.write_text(json.dumps({"total_iterations": 100, "n_factors": F,
+                                 "learning_rate": 0.05, "seed": seed,
+                                 "dtype": "bfloat16"}))
+    rng = np.random.default_rng(seed + 4)
+    rated = sorted(rng.choice(I, 20, replace=False).tolist())
+    user = workdir / "user16.csv"
+    user.write_text("userId,itemId,rating\n" + "".join(
+        f"1,{i + 1},{r}\n" for i, r in
+        zip(rated, rng.integers(1, 11, 20) / 2.0)))
+    scores, ranks = _predictions(_capture(predict.main, [
+        "-c", str(cfg16), "-i", str(out / f"train_f{F}_item_bias.csv"),
+        "-g", str(out / f"train_f{F}_global_bias.csv"),
+        "-q", str(out / f"train_f{F}_q.csv"), str(user),
+        "--device", device]))
+    require(len(scores) == I and np.all(np.isfinite(scores))
+            and sorted(i for i, _ in ranks)
+            == sorted(set(range(I)) - set(rated)),
+            "predict with a bf16 config: wrong predictions or ranking")
+    log(f"[variants] predict with a bf16 config: {len(scores)} finite "
+        f"predictions, the {len(ranks)} unrated items ranked")
+
+    # ALS in float32 and bf16 on the ML-100K-shaped CSVs.
+    paths = _family_csvs(seed, workdir)
+    fam_mean = _mean_rmse(paths["explicit", "train"],
+                          paths["explicit", "test"])
+    als_cfg = workdir / "als.cfg"
+    als_cfg.write_text(f"0 {SWEEPS} {F} 0.05 {seed} {FAMILY_REG} "
+                       f"{FAMILY_REG} {FAMILY_REG} {FAMILY_REG} 32 1 2 0.2\n")
+    als_rmse = {}
+    for dtype in ("float32", "bfloat16"):
+        out = workdir / f"als_{dtype}"
+        text = _capture(mf.main, ["-c", str(als_cfg),
+                                  paths["explicit", "train"],
+                                  paths["explicit", "test"], "--algo", "als",
+                                  "--dtype", dtype, "--outdir", str(out),
+                                  "--device", device])
+        als_rmse[dtype] = _gate_rmse(f"mf --algo als --dtype {dtype}",
+                                     _test_rmse(text), fam_mean)
+    log(f"[variants] mf --algo als --dtype bfloat16: test RMSE "
+        f"{als_rmse['bfloat16']:.6f} (float32 {als_rmse['float32']:.6f}, "
+        f"global mean {fam_mean:.6f})")
+
+    # foldin_ranking_eval on the bf16 ALS model (explicit, liked held-out
+    # items) and on an iALS model of the implicit CSVs.
+    ex_tr = build_csr(read_ratings_csv(paths["explicit", "train"]),
+                      n_users=ML100K[0], n_items=ML100K[1])
+    rd = read_ratings_csv(paths["explicit", "test"])
+    liked = rd.ratings >= 4.0
+    from cu2rec_torch.data.csr import csr_from_arrays
+    ex_te = csr_from_arrays(rd.users[liked], rd.items[liked],
+                            rd.ratings[liked], ML100K[0], ML100K[1])
+    engine = ServingEngine(_model_from_components(
+        workdir / "als_bfloat16", f"explicit_train_f{F}_", device),
+        device=device)
+    fold_cfg = Config(total_iterations=100, n_factors=F, learning_rate=0.05,
+                      P_reg=FAMILY_REG, user_bias_reg=FAMILY_REG, seed=seed,
+                      is_train=False)
+    random_recall = 10 / ML100K[1]
+    explicit = foldin_ranking_eval(engine, ex_tr, ex_te, cfg=fold_cfg, k=10,
+                                   max_users=512)
+    im_tr, im_te = (build_csr(read_ratings_csv(paths["implicit", s]),
+                              n_users=ML100K[0], n_items=ML100K[1])
+                    for s in ("train", "test"))
+    ials_model, _ = train_ials(im_tr, im_te, Config(
+        total_iterations=SWEEPS, n_factors=F, P_reg=FAMILY_REG,
+        Q_reg=FAMILY_REG, seed=seed), alpha=ALPHA,
+        logger=MetricsLogger(verbose=False), device=device)
+    implicit = foldin_ranking_eval(ServingEngine(ials_model, device=device),
+                                   im_tr, im_te, k=10, max_users=512,
+                                   mode="implicit", alpha=ALPHA,
+                                   reg=FAMILY_REG)
+    for mode, res in (("explicit", explicit), ("implicit", implicit)):
+        require(res["n_users"] > 0 and res["recall"] > random_recall,
+                f"foldin_ranking_eval {mode}: recall@10 {res['recall']} is "
+                f"not above a random 10/I = {random_recall:.5f}")
+        log(f"[variants] foldin_ranking_eval {mode} over {res['n_users']} "
+            f"users: recall@10 {res['recall']:.4f} (a random 10/I "
+            f"{random_recall:.4f}), ndcg@10 {res['ndcg']:.4f}")
+
+    rps = _client_run(engine, ex_tr, fold_cfg, workdir, card)
+    launches = {f"{_dtype_name(d)}/{policy}": n
+                for (d, policy), n in cuda_sgd.LAUNCHES.items()}
+    launches.update({f"eval_error/{_dtype_name(d)}": n
+                     for d, n in cuda_loss.LAUNCHES.items()})
+    launches["ridge_cholesky"] = cuda_linalg.LAUNCHES
+    want = [f"{d}/{c}" for d, c in VARIANTS] + ["eval_error/bfloat16"]
+    require(device == "cpu" or all(launches.get(k) for k in want),
+            f"phase 9 did not launch every variant: {launches}")
+    log(f"[variants] launches {launches}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, {"client_requests_s": rps,
+                      "foldin_recall": {"explicit": explicit["recall"],
+                                        "implicit": implicit["recall"]},
+                      "als_test_rmse": als_rmse}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1904,14 +2510,19 @@ def main(argv=None) -> int:
     registers = phase_build()
     kernels = phase_kernels(torch, dev)
     kernels += phase_train_kernels(torch, dev, args.seed)
+    kernels += phase_variant_kernels(torch, dev, args.seed)
     by_name = {k["name"]: k for k in kernels}
     for k in kernels:
-        k["registers"] = registers[k["name"]]
+        k["registers"] = registers[Path(k["source"]).stem]
     # The main paths, each with the launch counts set to 0 just before it
     # and read just after it.
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
-        trained, out = phase_train(torch, args.seed, Path(tmp), smi)
+        trained, out, f32_rmse = phase_train(torch, args.seed, Path(tmp),
+                                             smi)
         predicted = phase_predict(args.seed, Path(tmp), out, smi)
+        # Phase 9's entry points, on phase 5's CSVs.
+        variants, extras = phase_variants(torch, args.seed, Path(tmp), smi,
+                                          f32_rmse)
     probed = phase_probes()
     served = phase_serve(torch, args.seed, smi)
     families, measured = phase_families(torch, dev, args.seed, smi)
@@ -1925,6 +2536,13 @@ def main(argv=None) -> int:
     by_name["ridge_cholesky"]["launches"] = served + predicted["implicit"] \
         + families["ridge_cholesky"]
     by_name["ridge_cholesky"]["families"] = measured
+    for key, n in variants.items():
+        if f"sgd_step/{key}" in by_name:
+            by_name[f"sgd_step/{key}"]["launches"] = n
+    by_name["eval_error/bfloat16"]["launches"] = \
+        variants["eval_error/bfloat16"]
+    by_name["ridge_cholesky"]["launches"] += variants["ridge_cholesky"]
+    by_name["sgd_step"]["variants"] = extras
     by_name["row_gather"]["launches"] = probed["row_gather"]
     by_name["smem_gather"]["launches"] = probed["smem_gather"]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

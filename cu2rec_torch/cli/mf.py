@@ -8,8 +8,10 @@ plus the TPU package's extensions: ``--jsonl`` metrics stream,
 ``--checkpoint`` / ``--resume`` (mid-run resume), ``--collision`` policy,
 and the other training families, ``--algo als|ials|bpr`` (``--solver``,
 ``--alpha``).  It trains on the CUDA device unless ``--device cpu`` is
-given.  ``--devices N > 1``, ``--collision mean`` and ``--dtype bfloat16``
-raise and name the ROADMAP item that ports them.
+given.  ``--dtype bfloat16`` trains bf16 tables (float32 arithmetic);
+``--collision mean`` (and ``sum`` through a JSON config) adds colliding
+item updates together, in a fixed order.  ``--devices N > 1`` raises and
+names the ROADMAP item that ports it.
 
 Output contract preserved: the five component CSVs are written next to the
 train file as ``{base}_f{factors}_{p,q,user_bias,item_bias,global_bias}.csv``
@@ -35,8 +37,6 @@ from cu2rec_torch.utils.metrics import MetricsLogger
 # What each option not yet ported waits for (ROADMAP.md, Queue 1).
 _NOT_PORTED = {
     "devices": "ROADMAP Queue 1 item 12 (multi-GPU)",
-    "mean": "ROADMAP Queue 1 item 4 (mean/sum collision policies)",
-    "bfloat16": "ROADMAP Queue 1 item 4 (bf16 tables)",
 }
 
 
@@ -60,7 +60,8 @@ def build_parser():
     p.add_argument("--collision", choices=["first_wins", "mean", "twin"],
                    default=None,
                    help="item-update policy: first_wins = deterministic "
-                        "Hogwild parity; twin = per-item sampling")
+                        "Hogwild parity; mean = average colliding updates; "
+                        "twin = per-item sampling")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None)
     p.add_argument("--algo", choices=["sgd", "als", "ials", "bpr"],
                    default=None,
@@ -122,10 +123,6 @@ def main(argv=None) -> int:
         cfg.dtype = args.dtype
     if args.algo:
         cfg.algo = args.algo
-    if cfg.collision_policy == "mean":
-        _refuse("mean")
-    if cfg.dtype == "bfloat16":
-        _refuse("bfloat16")
     cfg.print_config()
 
     logger = MetricsLogger(jsonl_path=args.jsonl,

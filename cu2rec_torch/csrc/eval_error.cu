@@ -1,7 +1,8 @@
 // K0b — Σerr² and Σ|err| over a set of ratings, on Hopper.
 //
 // Semantics: the TPU package's ops/loss.py::_eval_packed_jit (no Pallas
-// kernel there: XLA fuses the gathers, the error and the reductions).  For
+// kernel there: XLA fuses the gathers, the error and the reductions), over
+// float32 or bf16 tables, whose rows are upcast as they load.  For
 // rating r of user u and item i, with packed rows T_u[u], T_i[i],
 //   pred = mu + Σ_c T_u[u][c] · î[c] + T_i[i][F],   î = [T_i[i][:F], 1, 0…]
 //   err  = rating − pred   (float32)
@@ -11,11 +12,13 @@
 // the chunk's rows, cols and vals coalesced into shared memory (the next
 // chunk's are fetched into registers while this one is worked on), and
 // each group of G lanes (packed_rows.cuh) takes a run of kChunk · G / 32
-// consecutive ratings of it, two at a time.  So a warp has 2 · 32 / G item
-// rows in flight, eight at W = 128, each lane reading its float4s of the
-// F + 1 used columns.  A group keeps the user row in registers while the
-// ratings of one user follow each other (the ratings come user-sorted),
-// and reads it again only when the user changes; any order of the ratings
+// consecutive ratings of it, two at a time (four from bf16 rows, which a
+// lane holds as loaded, in half the registers, until it reaches them).  So
+// a warp has 2 · 32 / G item rows in flight, eight at W = 128 (sixteen in
+// bf16), each lane reading its words of the F + 1 used columns.  A group
+// keeps the user row in registers while the ratings of one user follow
+// each other (the ratings come user-sorted), and reads it again only when
+// the user changes; any order of the ratings
 // gives the same sums, only slower.
 //
 // Deterministic: the chunks a warp takes and the order it sums them depend
@@ -31,8 +34,9 @@
 // F = 100, ~0.09 ms at 3.35 TB/s), are not its practical floor: each
 // rating gathers its item row, 4·(F + 1) bytes, through L2 (the item table,
 // 14 MB at ML-20M scale, stays in the 50 MB L2), about 8 GB at 20,000,000
-// ratings.  That L2 gather traffic is the floor of a per-rating design; the
-// design keeps enough of it in flight to stream at L2's rate.
+// ratings (half of that from bf16 rows).  That L2 gather traffic is the
+// floor of a per-rating design; the design keeps enough of it in flight to
+// stream at L2's rate.
 
 #include <cuda_runtime.h>
 
@@ -47,16 +51,17 @@ constexpr int kPerLane = kChunk / 32;      // of them, loaded by each lane
 // 132 SMs × 8: whole waves on an H100 at 1, 2, 4 or 8 blocks an SM.
 constexpr int kMaxBlocks = 132 * 8;
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-eval_partials_kernel(const float* __restrict__ T_u,
-                     const float* __restrict__ T_i,
-                     const int* __restrict__ rows,
-                     const int* __restrict__ cols,
-                     const float* __restrict__ vals, long long n, int F,
-                     float mu, double* __restrict__ partials) {
-  using L = RowLayout<W>;
-  constexpr int G = L::G, V = L::V;
+// A block's partial sums, the body of the two kernels below: they differ
+// only in their register budgets.  (One template with its minimum blocks
+// taken from L does not do: a minimum of one block an SM, stated, raises
+// the float32 instances' registers, 88 -> 96 at W = 128, against none.)
+template <class L>
+__device__ __forceinline__ void eval_partials(
+    const typename L::Elem* __restrict__ T_u,
+    const typename L::Elem* __restrict__ T_i, const int* __restrict__ rows,
+    const int* __restrict__ cols, const float* __restrict__ vals,
+    long long n, int F, float mu, double* __restrict__ partials) {
+  constexpr int G = L::G, V = L::V, W = L::kWidth;
   constexpr int kRun = kChunk / L::kRowsPerWarp;  // a group's ratings
   static_assert(kRun % 2 == 0, "ratings are taken two at a time");
   __shared__ int s_row[kWarps][kChunk];
@@ -102,29 +107,76 @@ eval_partials_kernel(const float* __restrict__ T_u,
     }
     __syncwarp();
     fetch(chunk + stride);
+    if constexpr (L::kBf16) {
+      // bf16: four item rows in flight, held as loaded (half the
+      // registers of an unpacked row) and unpacked one at a time.
+      static_assert(kRun % 4 == 0, "bf16 ratings are taken four at a time");
+      for (int t = first; t < first + kRun; t += 4) {
+        int r[4];
+        uint4 w[4][L::V16];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          r[j] = s_row[warp][t + j];
+          load_words<L, Read::kReadOnly>(
+              T_i + static_cast<size_t>(s_col[warp][t + j]) * W, gl,
+              r[j] >= 0 ? F : -1, w[j]);
+        }
+        // Each lane's share of the four dots first, then the four group
+        // sums side by side, so that their shuffles overlap.
+        float d[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (r[j] >= 0 && r[j] != cur) {
+            load_row<L, Read::kStream>(T_u + static_cast<size_t>(r[j]) * W,
+                                       gl, F, u);
+            cur = r[j];
+          }
+          float4 it[V];
+          unpack_words<L>(w[j], it);
+          d[j] = row_dot<L>(u, it, gl, F);
+        }
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            d[j] += __shfl_xor_sync(mask, d[j], off);
+        }
+        if (gl == 0) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (r[j] < 0) continue;
+            const double e =
+                static_cast<double>(s_val[warp][t + j] - (mu + d[j]));
+            sse += e * e;
+            sae += fabs(e);
+          }
+        }
+      }
+      continue;
+    }
     for (int t = first; t < first + kRun; t += 2) {
       const int ra = s_row[warp][t], rb = s_row[warp][t + 1];
       const float va = s_val[warp][t], vb = s_val[warp][t + 1];
       // Both item rows are in flight before the user row is needed.
       float4 ia[V], ib[V];
-      load_row<W, Read::kReadOnly>(
+      load_row<L, Read::kReadOnly>(
           T_i + static_cast<size_t>(s_col[warp][t]) * W, gl,
           ra >= 0 ? F : -1, ia);
-      load_row<W, Read::kReadOnly>(
+      load_row<L, Read::kReadOnly>(
           T_i + static_cast<size_t>(s_col[warp][t + 1]) * W, gl,
           rb >= 0 ? F : -1, ib);
       if (ra >= 0 && ra != cur) {
-        load_row<W, Read::kStream>(T_u + static_cast<size_t>(ra) * W, gl, F,
-                                   u);
+        load_row<L, Read::kStream>(T_u + static_cast<size_t>(ra) * W, gl,
+                                   F, u);
         cur = ra;
       }
-      const float da = group_sum<G>(row_dot<W>(u, ia, gl, F), mask);
+      const float da = group_sum<G>(row_dot<L>(u, ia, gl, F), mask);
       if (rb >= 0 && rb != cur) {
-        load_row<W, Read::kStream>(T_u + static_cast<size_t>(rb) * W, gl, F,
-                                   u);
+        load_row<L, Read::kStream>(T_u + static_cast<size_t>(rb) * W, gl,
+                                   F, u);
         cur = rb;
       }
-      const float db = group_sum<G>(row_dot<W>(u, ib, gl, F), mask);
+      const float db = group_sum<G>(row_dot<L>(u, ib, gl, F), mask);
       if (gl == 0) {
         if (ra >= 0) {
           const double e = static_cast<double>(va - (mu + da));
@@ -159,6 +211,31 @@ eval_partials_kernel(const float* __restrict__ T_u,
     partials[2 * blockIdx.x] = a;
     partials[2 * blockIdx.x + 1] = b;
   }
+}
+
+template <class L>
+__global__ void __launch_bounds__(kThreads)
+eval_partials_kernel(const typename L::Elem* __restrict__ T_u,
+                     const typename L::Elem* __restrict__ T_i,
+                     const int* __restrict__ rows,
+                     const int* __restrict__ cols,
+                     const float* __restrict__ vals, long long n, int F,
+                     float mu, double* __restrict__ partials) {
+  eval_partials<L>(T_u, T_i, rows, cols, vals, n, F, mu, partials);
+}
+
+// bf16 rows, held packed, leave room for a third block of warps an SM up
+// to W = 256 (at most 85 registers a thread).
+template <class L>
+__global__ void __launch_bounds__(kThreads, L::kWidth <= 256 ? 3 : 2)
+eval_packed_partials_kernel(const typename L::Elem* __restrict__ T_u,
+                            const typename L::Elem* __restrict__ T_i,
+                            const int* __restrict__ rows,
+                            const int* __restrict__ cols,
+                            const float* __restrict__ vals, long long n,
+                            int F, float mu,
+                            double* __restrict__ partials) {
+  eval_partials<L>(T_u, T_i, rows, cols, vals, n, F, mu, partials);
 }
 
 // One block: thread t adds partials t, t + kThreads, … in order, then the
@@ -201,21 +278,29 @@ extern "C" {
 // Doubles of scratch the launch for n ratings needs.
 int eval_error_partials(long long n) { return 2 * blocks_for(n); }
 
-// T_u (·, W) and T_i (·, W) float32, 16-byte aligned, W one of 64, 128,
-// 256, 384, 512; rows, cols int32 and vals float32, each of n entries;
-// partials of eval_error_partials(n) doubles; out of 2 doubles (Σerr²,
-// Σ|err|).  Launches on `stream`; returns the cudaError_t.
-int eval_error_launch(const float* T_u, const float* T_i, const int* rows,
+// T_u (·, W) and T_i (·, W) of one element type (elem: 0 float32, 1 bf16),
+// 16-byte aligned, W one of 64, 128, 256, 384, 512; rows, cols int32 and
+// vals float32, each of n entries; partials of eval_error_partials(n)
+// doubles; out of 2 doubles (Σerr², Σ|err|).  Launches on `stream`;
+// returns the cudaError_t.
+int eval_error_launch(const void* T_u, const void* T_i, const int* rows,
                       const int* cols, const float* vals, long long n, int W,
                       int F, float mu, double* partials, double* out,
-                      void* stream) {
+                      int elem, void* stream) {
   if (n < 0 || W <= F || F < 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = blocks_for(n);
-  const int rc = dispatch_width(W, [&](auto layout) {
-    eval_partials_kernel<decltype(layout)::kWidth>
-        <<<blocks, kThreads, 0, s>>>(T_u, T_i, rows, cols, vals, n, F, mu,
-                                     partials);
+  const int rc = dispatch_row(W, elem, [&](auto layout) {
+    using L = decltype(layout);
+    using T = typename L::Elem;
+    const T* tu = static_cast<const T*>(T_u);
+    const T* ti = static_cast<const T*>(T_i);
+    if constexpr (L::kBf16)
+      eval_packed_partials_kernel<L><<<blocks, kThreads, 0, s>>>(
+          tu, ti, rows, cols, vals, n, F, mu, partials);
+    else
+      eval_partials_kernel<L><<<blocks, kThreads, 0, s>>>(
+          tu, ti, rows, cols, vals, n, F, mu, partials);
     return static_cast<int>(cudaGetLastError());
   });
   if (rc != cudaSuccess) return rc;

@@ -1,0 +1,112 @@
+"""The float32 SGD step and eval of two checkouts of this repository on one
+card, run in turn in the order A B B A: the step as the trainer's loop
+runs it (``packed_run_steps``: CUDA events, the host's enqueue time), the
+step with the stream held (the card's time alone), and kernel K0b over
+all ratings, at ``bench.py``'s headline shape (U=138,000, I=27,000,
+F=100, 20,000,000 ratings).
+
+    python -m cu2rec_torch.experiments.step_ab A_DIR B_DIR [--reps 5]
+        [--out FILE]
+
+Each run is a process of its own that imports the ``cu2rec_torch`` and
+the ``chip_smoke.py`` helpers of its checkout and builds that checkout's
+kernels.  A run prints one JSON record; the script prints each run's and,
+last, the median of each time over the runs of each checkout.  The loop
+is host-paced where the enqueue time reaches the event time, so its
+times spread more than the held ones: each run repeats it ``--reps``
+times and keeps the median.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# What each run executes, from the root of its checkout.
+RUN = r"""
+import importlib.util, json, statistics, sys
+import torch
+sys.path.insert(0, ".")
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+from cu2rec_torch.csrc.build import build
+from cu2rec_torch.data.csr import to_device
+from cu2rec_torch.experiments.common import time_ms
+from cu2rec_torch.ops import cuda_loss
+from cu2rec_torch.ops.packed import packed_step
+from cu2rec_torch.ops.sgd import INT32_MAX, prng_key
+
+reps = int(sys.argv[1])
+build(("sgd_step", "eval_error"))
+dev = torch.device("cuda")
+csr = smoke._headline_csr(0)
+pm = smoke._packed_tables(torch, smoke.U, smoke.I, smoke.F, 0, dev)
+rec = {}
+for collision in ("first_wins", "twin"):
+    dr = to_device(csr, dev, item_major=collision == "twin")
+    torch.cuda.synchronize()
+    runs = [smoke._time_steps(torch, pm, dr, collision) for _ in range(reps)]
+    best = torch.full((smoke.I,), INT32_MAX, dtype=torch.int32, device=dev)
+    mu = float(pm.global_bias)
+    held = time_ms(lambda: packed_step(
+        pm, dr, smoke._hp(), prng_key(1), 7, collision=collision,
+        best=best if collision == "first_wins" else None, mu=mu), [()],
+        reps=50, hold=True)
+    rec[collision] = {
+        "loop_ms": statistics.median(r[0] for r in runs),
+        "enqueue_ms": statistics.median(r[2] for r in runs),
+        "held_ms": held}
+    del dr
+dr = to_device(csr, dev)
+args = (pm.T_u, pm.T_i, 3.5, dr.row_ids, dr.indices, dr.data, smoke.F)
+rec["eval_error"] = {"held_ms": time_ms(cuda_loss.packed_error_sums_cuda,
+                                        [args], reps=20)}
+print(json.dumps(rec), flush=True)
+"""
+
+
+def _run(root: Path, reps: int) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUN, str(reps)], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"step_ab: the run in {root} failed "
+                         f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("a", type=Path)
+    ap.add_argument("b", type=Path)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    runs = []
+    for label, root in (("a", args.a), ("b", args.b), ("b", args.b),
+                        ("a", args.a)):
+        rec = {"checkout": label, "root": str(root.resolve()),
+               **_run(root.resolve(), args.reps)}
+        print(json.dumps(rec), flush=True)
+        runs.append(rec)
+    summary = {}
+    for label in ("a", "b"):
+        mine = [r for r in runs if r["checkout"] == label]
+        summary[label] = {
+            what: {key: statistics.median(r[what][key] for r in mine)
+                   for key in mine[0][what]}
+            for what in ("first_wins", "twin", "eval_error")}
+    print(json.dumps({"median": summary}), flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"runs": runs, "median": summary},
+                                       indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -21,6 +21,19 @@ from cu2rec_torch.utils.device import resolve_device
 
 # Table names, in the component-export order of reference mf.cu:83-87.
 COMPONENTS = ("p", "q", "user_bias", "item_bias", "global_bias")
+# The table dtypes a config's ``dtype`` names.
+TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def table_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` ("float32" or "bfloat16"),
+    or of a torch dtype among them."""
+    if isinstance(dtype, torch.dtype) and dtype in TABLE_DTYPES.values():
+        return dtype
+    if dtype in TABLE_DTYPES:
+        return TABLE_DTYPES[dtype]
+    raise ValueError(f"unknown table dtype {dtype!r}: one of "
+                     f"{sorted(TABLE_DTYPES)}")
 
 
 class MFModel(nn.Module):
@@ -65,12 +78,15 @@ def init_model(n_users: int, n_items: int, n_factors: int,
                device=None) -> MFModel:
     """A freshly initialized model: Normal(0, 1/F) tables drawn on the CPU
     from ``torch.Generator().manual_seed(seed)`` (so the draw is the same
-    whatever the device), then moved to ``device``.
+    whatever the device), then moved to ``device``.  The tables are drawn
+    in float32 and then cast to ``dtype`` (a torch dtype or a config's
+    name), as the TPU package does; the global bias stays float32.
 
     Pass pre-trained ``Q``/``item_bias`` for the fold-in path (reference
     training.cu:206-217, predict.cu:126).
     """
     dev = resolve_device(device)
+    dtype = table_dtype(dtype)
     gen = torch.Generator().manual_seed(seed)
     P = _normal(gen, (n_users, n_factors), n_factors, dtype)
     Q = (_normal(gen, (n_items, n_factors), n_factors, dtype) if Q is None
@@ -82,6 +98,20 @@ def init_model(n_users: int, n_items: int, n_factors: int,
           .reshape(n_items))
     return MFModel(P, Q, ub, ib,
                    torch.tensor(global_bias, dtype=torch.float32)).to(dev)
+
+
+def with_dtype(model: MFModel, dtype) -> MFModel:
+    """The model with its four tables in ``dtype`` (rounded to nearest
+    even where it narrows); the global bias stays float32.  The model
+    itself where its tables are in ``dtype`` already."""
+    dtype = table_dtype(dtype)
+    if all(t.dtype == dtype for t in (model.P, model.Q, model.user_bias,
+                                      model.item_bias)):
+        return model
+    return MFModel(P=model.P.to(dtype), Q=model.Q.to(dtype),
+                   user_bias=model.user_bias.to(dtype),
+                   item_bias=model.item_bias.to(dtype),
+                   global_bias=model.global_bias)
 
 
 def model_to_numpy(model: MFModel) -> dict[str, np.ndarray]:

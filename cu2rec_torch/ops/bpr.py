@@ -100,11 +100,10 @@ def bpr_step(pm: PackedModel, dev, hp: Hyper, key,
              iteration: int) -> PackedModel:
     """One BPR iteration: the dense user pass and the dense (positive and
     negative) item pass, every read of the pre-step tables."""
-    T_u, T_i = pm.T_u, pm.T_i
-    if T_u.dtype != torch.float32 or T_i.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{T_u.dtype} tables are not ported yet (ROADMAP Queue 1 item "
-            "4: bf16 tables); use float32")
+    # Float32 arithmetic on float32 or bf16 tables, stored back in the
+    # table dtype (bpr.py:74-82, 99, 136 there).
+    dt = pm.T_u.dtype
+    T_u, T_i = pm.T_u.to(torch.float32), pm.T_i.to(torch.float32)
     W = T_u.shape[1]
     F = pm.n_factors
     lr = hp.learning_rate
@@ -123,7 +122,7 @@ def bpr_step(pm: PackedModel, dev, hp: Hyper, key,
     x_u = torch.sum(T_u * diff, dim=-1) + t_i[:, F] - t_j[:, F]
     e_u = torch.where(s.has_u, torch.sigmoid(-x_u), 0.0)
     du = lr * (e_u[:, None] * diff - reg_u * T_u)
-    T_u_new = torch.where(s.has_u[:, None], T_u + du, T_u)
+    T_u_new = torch.where(s.has_u[:, None], T_u + du, T_u).to(dt)
 
     # ---- item-positive pass: y updates from (u ~ raters(y), j⁻) --------
     w_rows = T_u[s.u_of_y]                                  # (I, W)
@@ -143,7 +142,7 @@ def bpr_step(pm: PackedModel, dev, hp: Hyper, key,
     di_neg = (-lr) * e_neg[:, None] * ihat(v_rows)   # reg applied in pos
 
     T_i_new = (T_i + torch.where(s.has_y[:, None], di_pos, 0.0)
-               + torch.where(s.has_v[:, None], di_neg, 0.0))
+               + torch.where(s.has_v[:, None], di_neg, 0.0)).to(dt)
     return PackedModel(T_u=T_u_new, T_i=T_i_new,
                        global_bias=pm.global_bias, n_factors=F)
 

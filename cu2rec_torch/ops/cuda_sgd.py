@@ -5,7 +5,10 @@ fuses it.  Here it is ``csrc/sgd_step.cu``, bound with ctypes: a user
 kernel and an item kernel, each row held in float4 registers by a group of
 lanes (four rows a warp at W = 128), each kernel launched so that its
 sampling chain runs while the kernel before it ends (programmatic
-dependent launch).  Its header says what bounds it and how the
+dependent launch).  Tables are float32 or bf16 (float32 arithmetic).
+Under ``mean`` and ``sum`` the item side is a stable sort of the step's
+pairs by item and an in-order add of each item's deltas, so the result is
+deterministic.  The kernel's header says what bounds it and how the
 read-before-write hazard is handled.  Its plain version is
 ``ops/packed.py::packed_step_reference``; ``packed_step`` takes that on CPU
 tensors and this wrapper on CUDA tensors.  The kernel takes the widths in
@@ -13,22 +16,26 @@ tensors and this wrapper on CUDA tensors.  The kernel takes the widths in
 
 ``sgd_step_cuda`` launches the kernel or raises: it takes CUDA tensors only
 and never falls back.  ``LAUNCHES`` counts its calls, one per step (one
-launch of the user kernel, plus one of the item kernel when items train).
+launch of the user kernel, plus the item side's launches when items
+train), by variant.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
-from cu2rec_torch.ops.packed import check_kernel_tables
+from cu2rec_torch.ops.packed import TABLE_ELEMS, check_kernel_tables
 from cu2rec_torch.ops.sgd import INT32_MAX, Hyper, _key_words, start_user_of
 
 KERNEL = "sgd_step"
-MODES = {"first_wins": 0, "twin": 1}
-# Step launches in this process (incremented where the kernel launches).
-LAUNCHES = 0
+MODES = {"first_wins": 0, "twin": 1, "mean": 3, "sum": 4}
+# Step launches in this process (incremented where the kernel launches),
+# by (table dtype, policy), the policy "users" for a step with the items
+# frozen; ``LAUNCHES.total()`` counts them all.
+LAUNCHES: Counter = Counter()
 
 _lib = None
 
@@ -41,8 +48,10 @@ def _load():
         P, I, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
         lib.sgd_step_launch.argtypes = (
-            [P] * 14 + [I] * 4 + [F] * 6 + [U] * 3 + [I, I, P])
+            [P] * 15 + [I] * 4 + [F] * 6 + [U] * 3 + [I, I, I, P])
         lib.sgd_step_launch.restype = ctypes.c_int
+        lib.sgd_step_workspace.argtypes = [I]
+        lib.sgd_step_workspace.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -71,10 +80,10 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
     """New ``(T_u, T_i)`` after one step; the inputs are left as they were
     (with ``train_items=False`` the returned ``T_i`` is the input).
 
-    ``T_u`` (U, W) and ``T_i`` (I, W) float32 on one CUDA device; ``dev`` a
-    ``DeviceRatings`` there (item-major for twin).  ``best`` is the
-    election buffer (I,) int32, all ``INT32_MAX``, which the kernel leaves
-    so; without it a fresh one is made.
+    ``T_u`` (U, W) and ``T_i`` (I, W), both float32 or both bf16, on one
+    CUDA device; ``dev`` a ``DeviceRatings`` there (item-major for twin).
+    ``best`` is the election buffer (I,) int32, all ``INT32_MAX``, which
+    the kernel leaves so; without it a fresh one is made.
 
     The user kernel reads ``dev.indptr``, ``dev.indices`` and ``dev.data``
     before it waits on the kernel ahead of it on the stream (programmatic
@@ -82,15 +91,17 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
     still queued or running when the step is called: upload them
     (``data/csr.py::to_device``), or finish the kernel that builds them
     with ``torch.cuda.synchronize()`` first."""
-    global LAUNCHES
     device = T_u.device
     if device.type != "cuda":
         raise ValueError(f"sgd_step_cuda takes CUDA tensors, got {device}")
     U, W = T_u.shape
     I = T_i.shape[0]
     F = int(n_factors)
-    _check("T_u", T_u, torch.float32, device)
-    _check("T_i", T_i, torch.float32, device, (I, W))
+    elem = TABLE_ELEMS.get(T_u.dtype)
+    if elem is None:
+        raise TypeError(f"T_u must be float32 or bfloat16, got {T_u.dtype}")
+    _check("T_u", T_u, T_u.dtype, device)
+    _check("T_i", T_i, T_u.dtype, device, (I, W))
     if not 0 <= F < W:
         raise ValueError(f"n_factors {F} does not fit rows of width {W}")
     check_kernel_tables("K0a", T_u, T_i)
@@ -118,7 +129,10 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
     lib = _load()
     T_u_out = torch.empty_like(T_u)
     T_i_out = torch.empty_like(T_i) if mode >= 0 else T_i
-    w_rating = None
+    w_rating = ws = None
+    if mode >= 3:
+        ws = torch.empty(lib.sgd_step_workspace(U), dtype=torch.int32,
+                         device=device)
     if mode == 0:
         if best is None:
             best = torch.full((I,), INT32_MAX, dtype=torch.int32,
@@ -134,11 +148,11 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
             dev.indices.data_ptr(), dev.data.data_ptr(),
             _ptr(dev.row_ids), _ptr(dev.it_indptr), _ptr(dev.it_users),
             _ptr(dev.it_vals), _ptr(dev.it_order), _ptr(best),
-            _ptr(w_rating), U, I, W, F, mu, hp.learning_rate, hp.P_reg,
-            hp.Q_reg, hp.user_bias_reg, hp.item_bias_reg, k0, k1,
+            _ptr(w_rating), _ptr(ws), U, I, W, F, mu, hp.learning_rate,
+            hp.P_reg, hp.Q_reg, hp.user_bias_reg, hp.item_bias_reg, k0, k1,
             int(iteration) & 0xFFFFFFFF,
-            start_user_of(iteration, U, rotation), mode, stream)
+            start_user_of(iteration, U, rotation), mode, elem, stream)
     if rc != 0:
         raise RuntimeError(f"sgd_step launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    LAUNCHES[T_u.dtype, collision if mode >= 0 else "users"] += 1
     return T_u_out, T_i_out

@@ -46,7 +46,8 @@ def packed_error_sums_reference(T_u, T_i, mu, rows, cols, vals,
                                 n_factors: int,
                                 chunk_size: int = EVAL_CHUNK) -> torch.Tensor:
     """The plain version of K0b: (Σerr², Σ|err|) as a float64 (2,) tensor,
-    on any device, in chunks of ``chunk_size`` ratings."""
+    on any device, in chunks of ``chunk_size`` ratings; float32 or bf16
+    tables, their rows upcast to float32."""
     F = n_factors
     W = T_u.shape[1]
     col = torch.arange(W, device=T_u.device)
@@ -56,8 +57,8 @@ def packed_error_sums_reference(T_u, T_i, mu, rows, cols, vals,
     out = torch.zeros(2, dtype=torch.float64, device=T_u.device)
     for s in range(0, rows.shape[0], chunk_size):
         sl = slice(s, s + chunk_size)
-        ru = T_u[rows[sl]]
-        ri = T_i[cols[sl]]
+        ru = T_u[rows[sl]].to(torch.float32)
+        ri = T_i[cols[sl]].to(torch.float32)
         ihat = ri * factor + biascol
         pred = mu + torch.sum(ru * ihat, dim=-1) + ri[:, F]
         a, b = _sums(vals[sl] - pred)

@@ -17,6 +17,21 @@ tensors it launches kernel K0a (``ops/cuda_sgd.py``); on CPU tensors it
 runs ``packed_step_reference``, the same step in plain torch, line for
 line after the TPU package's ``packed_step``.  Both are functional: they
 return new tables and leave the inputs as they were.
+
+Tables are float32 or bf16.  As in the TPU package, a bf16 table is
+loaded, upcast to float32, updated in float32 and stored back rounded to
+nearest even (``.to(torch.bfloat16)``, the TPU package's ``astype``).
+
+Under ``collision="mean"`` and ``"sum"`` every sampled (user, item) pair
+adds its item delta, cast to the table dtype first (``di.astype(dt)``).
+The rule for colliding adds is the one XLA's scatter-add follows on the
+CPU, which the tests confirm: the pairs are added in ascending user order,
+and the sum is rounded to the table dtype after each add
+(``scatter_add_in_order``).  In float32 that is a sequential float32 sum.
+In bf16 a delta below half an ulp of the row entry is lost, as in the TPU
+package.  torch's ``index_add_`` follows neither rule in bf16 on the CPU
+(it rounds once), nor any fixed order on the card, so the plain version
+does not call it.
 """
 
 from __future__ import annotations
@@ -31,7 +46,10 @@ from cu2rec_torch.ops.sgd import (
     sample_positions, start_user_of,
 )
 
-COLLISIONS = ("first_wins", "twin")
+COLLISIONS = ("first_wins", "twin", "mean", "sum")
+# The table dtypes the step and kernels K0a, K0b take, with the kernels'
+# code for each (their ``elem`` argument).
+TABLE_ELEMS = {torch.float32: 0, torch.bfloat16: 1}
 # The row widths kernels K0a and K0b take: packed_width(F) for F < 512.
 KERNEL_WIDTHS = (64, 128, 256, 384, 512)
 
@@ -110,23 +128,18 @@ def _reg_vectors(hp: Hyper, F: int, W: int, device=None):
 
 
 def check_collision(collision: str) -> None:
-    if collision in ("mean", "sum"):
-        raise NotImplementedError(
-            f"collision={collision!r} is not ported yet (ROADMAP Queue 1 "
-            "item 4: needs a deterministic segmented reduction)")
     if collision not in COLLISIONS:
         raise ValueError(f"unknown collision policy: {collision}")
 
 
 def check_step_args(pm: PackedModel, dev, train_items: bool,
                     collision: str) -> None:
-    """Raise for what the step does not take (yet)."""
+    """Raise for what the step does not take."""
     if train_items:
         check_collision(collision)
-    if pm.T_u.dtype != torch.float32 or pm.T_i.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{pm.T_u.dtype} tables are not ported yet (ROADMAP Queue 1 "
-            "item 4: bf16 tables); use float32")
+    if pm.T_u.dtype not in TABLE_ELEMS or pm.T_i.dtype != pm.T_u.dtype:
+        raise TypeError(f"tables must both be float32 or both bfloat16, got "
+                        f"{pm.T_u.dtype} and {pm.T_i.dtype}")
     if train_items and collision == "twin" and dev.it_indptr is None:
         raise ValueError("collision='twin' needs item-major arrays: "
                          "build DeviceRatings with item_major=True")
@@ -146,23 +159,62 @@ def _item_update(T_i32, w_rows, w_rat, has_w, pm: PackedModel, hp: Hyper,
     return torch.where(has_w[:, None], T_i32 + di, T_i32)
 
 
+def scatter_add_in_order(T: torch.Tensor, idx: torch.Tensor,
+                         src: torch.Tensor,
+                         peak: torch.Tensor | None = None) -> torch.Tensor:
+    """``T`` with ``src[k]`` added to row ``idx[k]`` one pair after another
+    in the order of k, the sum rounded to ``T``'s dtype after each add (the
+    rule of XLA's scatter-add on the CPU).  Pairs are taken by their rank
+    among the pairs of their row, so each round adds to distinct rows.
+
+    ``peak``, a float32 tensor of ``T``'s shape, is raised to the largest
+    magnitude each entry reaches along its adds: the scale at which another
+    implementation's roundings of the same chain may differ."""
+    out = T.clone()
+    if idx.numel() == 0:
+        return out
+    order = torch.sort(idx, stable=True).indices
+    sidx = idx[order]
+    first = torch.ones_like(sidx, dtype=torch.bool)
+    first[1:] = sidx[1:] != sidx[:-1]
+    starts = torch.nonzero(first)[:, 0]
+    pos = torch.arange(sidx.numel(), device=idx.device)
+    rank = pos - starts[torch.cumsum(first.to(torch.int64), 0) - 1]
+    by_rank = order[torch.sort(rank, stable=True).indices]
+    counts = torch.bincount(rank).tolist()
+    lo = 0
+    for n in counts:
+        sel = by_rank[lo:lo + n]
+        rows = idx[sel]
+        out[rows] = (out[rows].to(torch.float32)
+                     + src[sel].to(torch.float32)).to(T.dtype)
+        if peak is not None:
+            peak[rows] = torch.maximum(peak[rows], out[rows].abs().float())
+        lo += n
+    return out
+
+
 def packed_step_reference(pm: PackedModel, dev, hp: Hyper, key,
                           iteration: int, *, train_items: bool = True,
                           collision: str = "first_wins",
-                          rotation: int = 250) -> PackedModel:
+                          rotation: int = 250,
+                          peak: torch.Tensor | None = None) -> PackedModel:
     """The plain version of K0a: one SGD iteration in plain torch, on any
-    device.  Every read is of the pre-step tables."""
+    device.  Every read is of the pre-step tables, upcast to float32.
+    ``peak`` (mean and sum) is ``scatter_add_in_order``'s."""
     check_step_args(pm, dev, train_items, collision)
     T_u, T_i = pm.T_u, pm.T_i
     U, W = T_u.shape
     I = T_i.shape[0]
     F = pm.n_factors
+    dt = T_u.dtype
     lr = hp.learning_rate
 
     items, ratings, has = sample_items(key, iteration, dev.indptr,
                                        dev.indices, dev.data)
-    row_i = T_i[torch.where(has, items, 0)]              # (U, W) pre-step
-    row_u32 = T_u
+    items = torch.where(has, items, 0)
+    row_i = T_i[items].to(torch.float32)                 # (U, W) pre-step
+    row_u32 = T_u.to(torch.float32)
 
     factor, biascol, reg_u, reg_i = _reg_vectors(hp, F, W, T_u.device)
     ihat = row_i * factor + biascol
@@ -170,10 +222,23 @@ def packed_step_reference(pm: PackedModel, dev, hp: Hyper, key,
             + row_i[:, F])
     err = torch.where(has, ratings - pred, 0.0)
     du = lr * (err[:, None] * ihat - reg_u * row_u32)
-    T_u_new = torch.where(has[:, None], row_u32 + du, row_u32)
+    T_u_new = torch.where(has[:, None], row_u32 + du, row_u32).to(dt)
     if not train_items:
         return PackedModel(T_u=T_u_new, T_i=T_i, global_bias=pm.global_bias,
                            n_factors=F)
+
+    if collision in ("mean", "sum"):
+        # Every pair adds its delta: packed.py:214-228 there.
+        uhat = row_u32 * factor + biascol
+        di = lr * (err[:, None] * uhat - reg_i * row_i)
+        if collision == "mean":
+            counts = torch.zeros(I, dtype=torch.float32, device=T_u.device)
+            counts.index_add_(0, items, has.to(torch.float32))
+            di = di / torch.clamp(counts, min=1.0)[items][:, None]
+        T_i_new = scatter_add_in_order(T_i, items[has], di[has].to(dt),
+                                       peak)
+        return PackedModel(T_u=T_u_new, T_i=T_i_new,
+                           global_bias=pm.global_bias, n_factors=F)
 
     if collision == "first_wins":
         # Election inversion: uid = (prio + start_user) mod U, so the item
@@ -197,8 +262,8 @@ def packed_step_reference(pm: PackedModel, dev, hp: Hyper, key,
         else:
             s_uid, w_rat = _take(dev.it_users, pos), _take(dev.it_vals, pos)
         w_rows = row_u32[torch.where(has_w, s_uid.to(torch.int64), 0)]
-    T_i_new = _item_update(T_i, w_rows, w_rat, has_w, pm, hp, factor,
-                           biascol, reg_i)
+    T_i_new = _item_update(T_i.to(torch.float32), w_rows, w_rat, has_w, pm,
+                           hp, factor, biascol, reg_i).to(dt)
     return PackedModel(T_u=T_u_new, T_i=T_i_new, global_bias=pm.global_bias,
                        n_factors=F)
 

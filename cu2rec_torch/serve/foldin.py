@@ -4,7 +4,8 @@ Reference behavior (predict.cu:103-126): set ``is_train=false`` (freezing
 Q/item_bias, sgd.cu:61,70), remap the new user's ratings to user id 0, build
 a 1×n_items CSR, and run the normal training loop so only the single P row
 and user bias learn.  Same here, through ``SingleChipEngine``: on the card
-each iteration is K0a's user kernel alone (``train_items=False``).
+each iteration is K0a's user kernel alone (``train_items=False``), on
+tables of the config's dtype (bf16 included).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def fold_in_user(Q, item_bias, global_bias: float,
         n_users=1, n_items=n_items)
     engine = SingleChipEngine(csr, csr, cfg, device=device)
     model = init_model(1, n_items, cfg.n_factors, global_bias,
-                       seed=cfg.seed, Q=Q, item_bias=item_bias,
-                       device=engine.device)
+                       seed=cfg.seed, dtype=cfg.dtype, Q=Q,
+                       item_bias=item_bias, device=engine.device)
     logger = MetricsLogger(verbose=verbose)
     return train_with_engine(engine, cfg, engine.prepare(model), logger)

@@ -4,7 +4,8 @@ ranking eval (recall@k, NDCG@k).
 Replaces the reference's CPU scoring + ``std::sort`` serving path
 (predict.cu:17-29, 49-70): scoring a block of users against the whole
 catalog is one ``P_u @ Q.T``, and rated items are masked by a scatter-min
-before ``torch.topk``.  ``ranking_eval`` is the implicit trainers' metric.
+before ``torch.topk``.  ``ranking_eval`` is the implicit trainers' metric;
+``foldin_ranking_eval`` scores the serving engine's fold-in the same way.
 """
 
 from __future__ import annotations
@@ -107,3 +108,60 @@ def recall_at_k_eval(model: MFModel, train_csr, test_csr, k: int = 10,
     """Mean recall@k over test users (see :func:`ranking_eval`)."""
     return ranking_eval(model, train_csr, test_csr, k, batch_size,
                         max_users, metrics=("recall",))["recall"]
+
+
+def foldin_ranking_eval(engine, input_csr, holdout_csr, cfg=None,
+                        k: int = 10, batch_size: int = 256,
+                        max_users: int | None = None,
+                        metrics: tuple = ("recall", "ndcg"),
+                        mode: str = "sgd", alpha: float = 40.0,
+                        reg: float = 0.1) -> dict:
+    """Fold-in quality: for each user with ratings in BOTH splits, learn a
+    fresh (p_row, user_bias) from the ``input_csr`` ratings alone through
+    the engine's batched fold-in (frozen catalog, predict.cu:126-132
+    semantics), recommend k items with only the INPUT items masked, and
+    score recall@k / ndcg@k against the user's ``holdout_csr`` items.
+
+    ``engine`` is a ``ServingEngine``; ``cfg`` configures the fold-in
+    partial fit (iterations, lr).  ``mode="implicit"`` takes the one-shot
+    exact iALS ridge fold-in (``fold_in_implicit`` with ``alpha``/``reg``,
+    kernel K1 on the card) instead of the explicit SGD partial fit; the
+    input values then act as confidence strengths, not ratings.  Returns
+    ``{metric: mean, "n_users": count}``.
+    """
+    fns = {"recall": recall_at_k, "ndcg": ndcg_at_k}
+    unknown = set(metrics) - fns.keys()
+    if unknown:
+        raise ValueError(f"unknown ranking metric(s): {sorted(unknown)}")
+    if mode not in ("sgd", "implicit"):
+        raise ValueError(f"unknown fold-in mode: {mode!r}")
+    n_in = np.diff(input_csr.indptr)
+    n_out = np.diff(holdout_csr.indptr)
+    users = np.nonzero((n_in > 0) & (n_out > 0))[0]
+    if max_users:
+        users = users[:max_users]
+    if len(users) == 0:
+        return {**{m: 0.0 for m in metrics}, "n_users": 0}
+    dev = engine.device
+    totals = {m: 0.0 for m in metrics}
+    for b0 in range(0, len(users), batch_size):
+        batch = users[b0:b0 + batch_size]
+        rated, rmask = padded_user_lists(input_csr, batch)
+        vals = np.zeros_like(rated, dtype=np.float32)
+        for b, u in enumerate(batch):
+            lo, hi = input_csr.indptr[u], input_csr.indptr[u + 1]
+            vals[b, :hi - lo] = input_csr.data[lo:hi]
+        if mode == "implicit":
+            p_rows, ub = engine.fold_in_implicit(rated, vals, rmask,
+                                                 alpha=alpha, reg=reg)
+        else:
+            p_rows, ub = engine.fold_in(rated, vals, rmask, cfg=cfg)
+        _, rec = engine.recommend(p_rows, ub, rated, rmask, k=k)
+        rel, relmask = padded_user_lists(holdout_csr, batch)
+        rec = torch.from_numpy(np.asarray(rec)).to(dev, torch.int64)
+        rel = torch.from_numpy(rel).to(dev, torch.int64)
+        relmask = torch.from_numpy(relmask).to(dev)
+        for m in metrics:
+            totals[m] += float(torch.sum(fns[m](rec, rel, relmask)))
+    return {**{m: totals[m] / len(users) for m in metrics},
+            "n_users": int(len(users))}

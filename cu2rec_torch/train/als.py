@@ -16,14 +16,16 @@ import time
 import torch
 
 from cu2rec_torch.data.csr import CSRRatings, to_device, transpose_csr
-from cu2rec_torch.models.state import MFModel, init_model
+from cu2rec_torch.models.state import (
+    MFModel, init_model, table_dtype, with_dtype,
+)
 from cu2rec_torch.ops.als import (
     als_half_sweep, bucket_csr, check_single_device, prepare_chunks,
     prepare_chunks_device,
 )
 from cu2rec_torch.ops.loss import evaluate_packed
 from cu2rec_torch.ops.packed import PackedModel, pack, unpack
-from cu2rec_torch.train.trainer import _subsample_dev, check_dtype
+from cu2rec_torch.train.trainer import _subsample_dev
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
@@ -70,14 +72,15 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     sweeps done) runs only the remaining sweeps.  ``mesh`` (row-sharded
     solves over several devices) is not ported yet."""
     check_single_device("mesh", mesh)
-    check_dtype(cfg.dtype)
+    dtype = table_dtype(cfg.dtype)
     dev = resolve_device(device)
     logger = logger or MetricsLogger()
     F = cfg.n_factors
     if model is None:
         model = init_model(train_csr.n_users, train_csr.n_items, F,
-                           global_bias, seed=cfg.seed, device=dev)
-    pm = pack(model.to(dev))
+                           global_bias, seed=cfg.seed, dtype=dtype,
+                           device=dev)
+    pm = pack(with_dtype(model.to(dev), dtype))
     mu = float(global_bias)
 
     train_dev = to_device(train_csr, dev)

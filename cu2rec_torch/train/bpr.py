@@ -15,13 +15,14 @@ import time
 import torch
 
 from cu2rec_torch.data.csr import CSRRatings, to_device
-from cu2rec_torch.models.state import MFModel, init_model
+from cu2rec_torch.models.state import (
+    MFModel, init_model, table_dtype, with_dtype,
+)
 from cu2rec_torch.ops.als import check_single_device
 from cu2rec_torch.ops.bpr import auc_eval, bpr_run_steps
 from cu2rec_torch.ops.packed import pack, unpack
 from cu2rec_torch.ops.sgd import Hyper, prng_key
 from cu2rec_torch.serve.recommend import ranking_eval
-from cu2rec_torch.train.trainer import check_dtype
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
@@ -45,7 +46,7 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     are not ported yet.
     """
     check_single_device("mesh", mesh)
-    check_dtype(cfg.dtype)
+    dtype = table_dtype(cfg.dtype)
     if n_devices and n_devices > 1:
         check_single_device("n_devices > 1", n_devices)
     dev = resolve_device(device)
@@ -54,7 +55,7 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     recall_k = min(recall_k, train_csr.n_items)
     if model is None:
         model = init_model(train_csr.n_users, train_csr.n_items, F, 0.0,
-                           seed=cfg.seed, device=dev)
+                           seed=cfg.seed, dtype=dtype, device=dev)
         # BPR has no user or global bias in its score.
         model = MFModel(P=model.P, Q=model.Q,
                         user_bias=torch.zeros_like(model.user_bias),
@@ -63,7 +64,7 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     hp = Hyper.from_config(cfg)
     key = prng_key(cfg.seed)
     train_dev = to_device(train_csr, dev, item_major=True)
-    pm = pack(model.to(dev))
+    pm = pack(with_dtype(model.to(dev), dtype))
 
     check = max(1, cfg.check_error)
     start_at = min(cfg.cur_iterations, cfg.total_iterations)

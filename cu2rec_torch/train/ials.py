@@ -21,7 +21,6 @@ from cu2rec_torch.ops.bpr import auc_eval
 from cu2rec_torch.ops.ials import ials_half_sweep
 from cu2rec_torch.serve.recommend import ranking_eval
 from cu2rec_torch.train.als import sweep_chunks
-from cu2rec_torch.train.trainer import check_dtype
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
@@ -46,14 +45,15 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     positive.  ``mesh`` is not ported yet.
     """
     check_single_device("mesh", mesh)
-    check_dtype(cfg.dtype)
     dev = resolve_device(device)
     logger = logger or MetricsLogger()
     F = cfg.n_factors
     recall_k = min(recall_k, train_csr.n_items)
     if model is None:
+        # Drawn in the config's table dtype; the sweeps then keep float32
+        # tables, as the TPU package's do.
         model = init_model(train_csr.n_users, train_csr.n_items, F, 0.0,
-                           seed=cfg.seed, device=dev)
+                           seed=cfg.seed, dtype=cfg.dtype, device=dev)
     X = model.P.to(dev, torch.float32)
     Y = model.Q.to(dev, torch.float32)
     user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,

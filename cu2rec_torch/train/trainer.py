@@ -24,7 +24,9 @@ import torch
 from cu2rec_torch.data.csr import (
     CSRRatings, DeviceRatings, normalize_csr_dims, to_device,
 )
-from cu2rec_torch.models.state import MFModel, init_model
+from cu2rec_torch.models.state import (
+    MFModel, init_model, table_dtype, with_dtype,
+)
 from cu2rec_torch.ops.loss import evaluate_packed
 from cu2rec_torch.ops.packed import (
     PackedModel, check_collision, pack, packed_run_steps, packed_width,
@@ -56,15 +58,6 @@ def _subsample_dev(csr: CSRRatings, n_sample: int, seed: int,
         n_users=csr.n_users, n_items=csr.n_items)
 
 
-def check_dtype(dtype: str) -> None:
-    """Every trainer keeps float32 tables: other table dtypes raise until
-    they are ported."""
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {dtype!r} is not ported yet (ROADMAP Queue 1 item 4: "
-            "bf16 tables); use float32")
-
-
 class SingleChipEngine:
     """One device: the packed tables, the step and the eval.
 
@@ -79,7 +72,7 @@ class SingleChipEngine:
             raise NotImplementedError(
                 "the unpacked step is not ported yet (ROADMAP Queue 1 item "
                 "12: it comes with the sharded multi-GPU engine)")
-        check_dtype(cfg.dtype)
+        self.dtype = table_dtype(cfg.dtype)
         if cfg.is_train:
             check_collision(cfg.collision_policy)
         self.device = resolve_device(device)
@@ -116,14 +109,15 @@ class SingleChipEngine:
                    Q=None, item_bias=None) -> PackedModel:
         return self.prepare(init_model(
             n_users, n_items, self.cfg.n_factors, global_bias,
-            seed=self.cfg.seed, Q=Q, item_bias=item_bias,
+            seed=self.cfg.seed, dtype=self.dtype, Q=Q, item_bias=item_bias,
             device=self.device))
 
     def prepare(self, model: MFModel) -> PackedModel:
-        """Pack a model on the engine's device, grown to the engine's
-        normalized dimensions (a model built from the train split alone may
-        have fewer users or items than max(train, test))."""
-        model = model.to(self.device)
+        """Pack a model on the engine's device, in the config's table dtype
+        (a resumed float32 checkpoint is cast back to it), grown to the
+        engine's normalized dimensions (a model built from the train split
+        alone may have fewer users or items than max(train, test))."""
+        model = with_dtype(model.to(self.device), self.dtype)
         du = max(self.n_users - model.n_users, 0)
         di = max(self.n_items - model.n_items, 0)
         if du or di:

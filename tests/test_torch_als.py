@@ -337,10 +337,50 @@ def test_train_als_resume_equals_straight_run():
     assert rest[4] == losses[4]
 
 
-def test_train_als_refuses_bf16_tables():
-    """A bfloat16 config raises (item 4 ports bf16 tables) instead of
-    training float32 tables, as the SGD trainer does."""
+@pytest.mark.parametrize("device_buckets", [False, True])
+def test_als_sweep_in_bf16_matches(device_buckets):
+    """One sweep on bf16 tables from the TPU package's bf16 draw: the
+    solved rows are written rounded to bf16 in both packages, and every
+    entry lands within 4 bf16 ulps of the TPU package's."""
+    from test_torch_bf16 import to_torch, ulp_distance
+
+    u, i, r, U, I = _ratings(U=80, I=40, n=1500, seed=6)
+    t_tr, j_tr = t_csr(u, i, r, U, I), j_csr(u, i, r, U, I, use_native=False)
+    gb = float(np.mean(r))
+    jm = j_init_model(U, I, 8, gb, seed=5, dtype=jnp.bfloat16)
+    from cu2rec_torch.models.state import MFModel
+    tm = MFModel(P=to_torch(jm.P), Q=to_torch(jm.Q),
+                 user_bias=to_torch(jm.user_bias),
+                 item_bias=to_torch(jm.item_bias),
+                 global_bias=torch.tensor(np.float32(gb)))
+    runs = {}
+    for name in ("port", "jax"):
+        cfg = Config(total_iterations=1, n_factors=8, seed=5, P_reg=0.05,
+                     Q_reg=0.05, user_bias_reg=0.02, item_bias_reg=0.02,
+                     dtype="bfloat16")
+        logger = MetricsLogger(verbose=False)
+        if name == "port":
+            runs[name] = t_train(t_tr, t_tr, cfg, gb, model=tm,
+                                 logger=logger,
+                                 device_buckets=device_buckets,
+                                 device="cpu")[0]
+        else:
+            runs[name] = j_train(j_tr, j_tr, cfg, gb, model=jm,
+                                 logger=logger,
+                                 device_buckets=device_buckets)[0]
+    t_out, j_out = runs["port"], runs["jax"]
+    for name in ("P", "Q", "user_bias", "item_bias"):
+        got = getattr(t_out, name)
+        assert got.dtype == torch.bfloat16, name
+        assert ulp_distance(got.contiguous(), getattr(j_out, name)) <= 4
+    assert not torch.equal(t_out.P, tm.P)
+
+
+def test_train_als_in_bf16_draws_and_keeps_bf16_tables():
     csr, _ = _both_csrs()
-    cfg = Config(total_iterations=1, n_factors=4, dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_train(csr, csr, cfg, 3.5, device="cpu")
+    cfg = Config(total_iterations=2, n_factors=4, dtype="bfloat16")
+    model, losses = t_train(csr, csr, cfg, 3.5, device="cpu",
+                            logger=MetricsLogger(verbose=False))
+    assert model.P.dtype == model.Q.dtype == torch.bfloat16
+    assert sorted(losses) == [1, 2]
+    assert all(np.isfinite(v) for v in losses.values())

@@ -185,10 +185,40 @@ def test_train_bpr_matches():
                 n_devices=2, device="cpu")
 
 
-def test_train_bpr_refuses_bf16_tables():
-    """A bfloat16 config raises (item 4 ports bf16 tables) instead of
-    training float32 tables, as the SGD trainer does."""
+def test_twenty_bpr_steps_in_bf16_match():
+    """bf16 tables, float32 arithmetic, stored back in bf16 as in the TPU
+    package: each step draws bit-identical ids (the table dtype does not
+    enter the sampling), and after 20 steps every entry is within 4 bf16
+    ulps of the TPU package's."""
+    from test_torch_bf16 import to_torch, ulp_distance
+
+    from cu2rec_torch.ops.packed import PackedModel
+
+    t, j, U, I = _data(seed=3)
+    t_dev = t_to_device(t, "cpu", item_major=True)
+    j_dev = j_to_device(j, item_major=True)
+    j_pm = j_pack(j_init(U, I, 8, 0.0, seed=2, dtype=jnp.bfloat16))
+    t_pm = PackedModel(T_u=to_torch(j_pm.T_u), T_i=to_torch(j_pm.T_i),
+                       global_bias=torch.tensor(0.0), n_factors=8)
+    hp = _hyper()
+    j_hp = j_bpr.Hyper(*(jnp.float32(x) for x in hp))
+    for it in range(20):
+        _same_draws(t_bpr.bpr_draws(t_dev, prng_key(42), it),
+                    _jax_draws(j_dev, jax.random.PRNGKey(42),
+                               jnp.int32(it), U, I))
+        t_pm = t_bpr.bpr_step(t_pm, t_dev, hp, prng_key(42), it)
+        j_pm = j_bpr.bpr_step(j_pm, j_dev, j_hp, jax.random.PRNGKey(42),
+                              jnp.int32(it))
+    assert t_pm.T_u.dtype == t_pm.T_i.dtype == torch.bfloat16
+    assert ulp_distance(t_pm.T_u, j_pm.T_u) <= 4
+    assert ulp_distance(t_pm.T_i, j_pm.T_i) <= 4
+
+
+def test_train_bpr_in_bf16_keeps_bf16_tables():
     csr, _, _, _ = _data()
-    cfg = Config(total_iterations=1, n_factors=4, dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_train(csr, csr, cfg, device="cpu")
+    cfg = Config(total_iterations=3, check_error=3, n_factors=4,
+                 dtype="bfloat16")
+    model, losses = t_train(csr, csr, cfg, device="cpu",
+                            logger=MetricsLogger(verbose=False))
+    assert model.P.dtype == model.Q.dtype == torch.bfloat16
+    assert sorted(losses) == [1, 3]

@@ -218,11 +218,11 @@ def _check_kernel_steps(device, U, I, F, collision, train_items, dev):
     pm = _packed(U, I, F, seed=1, device=device)
     hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
     for it in (0, 1, 4095):
-        n0 = cuda_sgd.LAUNCHES
+        n0 = cuda_sgd.LAUNCHES.total()
         got = packed_step(pm, dev, hp, prng_key(42), it,
                           train_items=train_items, collision=collision)
         torch.cuda.synchronize()
-        assert cuda_sgd.LAUNCHES == n0 + 1
+        assert cuda_sgd.LAUNCHES.total() == n0 + 1
         want = packed_step_reference(pm, dev, hp, prng_key(42), it,
                                      train_items=train_items,
                                      collision=collision)
@@ -371,13 +371,13 @@ def test_eval_kernel_matches_plain(cuda_device, F, n, order):
         cuda_device)
     vals = torch.from_numpy((rng.integers(1, 11, n) / 2.0).astype(
         np.float32)).to(cuda_device)
-    n0 = cuda_loss.LAUNCHES
+    n0 = cuda_loss.LAUNCHES.total()
     got = cuda_loss.packed_error_sums_cuda(pm.T_u, pm.T_i, 3.5, rows, cols,
                                            vals, F)
     again = cuda_loss.packed_error_sums_cuda(pm.T_u, pm.T_i, 3.5, rows,
                                              cols, vals, F)
     torch.cuda.synchronize()
-    assert cuda_loss.LAUNCHES == n0 + 2
+    assert cuda_loss.LAUNCHES.total() == n0 + 2
     assert torch.equal(got, again)  # deterministic reduction
     want = packed_error_sums_reference(pm.T_u, pm.T_i, pm.global_bias, rows,
                                        cols, vals, F)
@@ -484,12 +484,12 @@ def test_train_on_card_matches_cpu(cuda_device):
             cfg = Config(total_iterations=60, n_factors=8, check_error=20,
                          learning_rate=0.05, collision_policy=collision)
             logger = MetricsLogger(verbose=False)
-            n0 = (cuda_sgd.LAUNCHES, cuda_loss.LAUNCHES)
+            n0 = (cuda_sgd.LAUNCHES.total(), cuda_loss.LAUNCHES.total())
             train(csr, csr, cfg, 2.75, model=model_from_numpy(d, device),
                   logger=logger, device=device)
             if device != "cpu":
-                assert cuda_sgd.LAUNCHES > n0[0]
-                assert cuda_loss.LAUNCHES > n0[1]
+                assert cuda_sgd.LAUNCHES.total() > n0[0]
+                assert cuda_loss.LAUNCHES.total() > n0[1]
             runs[(str(device), collision)] = [
                 (r["train_rmse"], r["test_mae"]) for r in logger.history
                 if r["event"] == "eval"]
@@ -625,13 +625,14 @@ def test_family_trainers_on_card_launch_their_kernels(cuda_device):
             cfg = Config(total_iterations=2, n_factors=16, P_reg=0.5,
                          Q_reg=0.5)
             logger = MetricsLogger(verbose=False)
-            n0 = (cuda_linalg.LAUNCHES, cuda_loss.LAUNCHES)
+            n0 = (cuda_linalg.LAUNCHES, cuda_loss.LAUNCHES.total())
             kw = {"global_bias": 3.0} if name == "als" else {"alpha": 2.0}
             train(csr, csr, cfg, model=model_from_numpy(d, device),
                   logger=logger, device=device, **kw)
             if device != "cpu":
                 assert cuda_linalg.LAUNCHES > n0[0]
-                assert (cuda_loss.LAUNCHES > n0[1]) == (name == "als")
+                assert (cuda_loss.LAUNCHES.total() > n0[1]) == \
+                    (name == "als")
             hist[(str(device), name)] = [
                 [r[k] for k in ("train_rmse", "test_mae", "auc",
                                 "recall_at_k") if k in r]
@@ -675,13 +676,15 @@ def test_native_reader_feeds_mf_on_the_card(cuda_device, tmp_path, capsys):
     cfg.write_text("0 40 8 0.05 7 0.02 0.02 0.02 0.02 32 20 2 0.2\n")
     lines = {}
     for device in ("cuda", "cpu"):
-        n0 = (native.CALLS, cuda_sgd.LAUNCHES, cuda_loss.LAUNCHES)
+        n0 = (native.CALLS, cuda_sgd.LAUNCHES.total(),
+              cuda_loss.LAUNCHES.total())
         out = _cli(mf.main, ["-c", str(cfg), train, test, "--outdir",
                              str(tmp_path / device), "--device", device],
                    capsys)
         assert native.CALLS >= n0[0] + 7      # 2 reads, 5 component CSVs
         if device == "cuda":
-            assert cuda_sgd.LAUNCHES > n0[1] and cuda_loss.LAUNCHES > n0[2]
+            assert cuda_sgd.LAUNCHES.total() > n0[1]
+            assert cuda_loss.LAUNCHES.total() > n0[2]
         lines[device] = [[float(ln.split("MAE:")[1].split()[0]),
                           float(ln.split("RMSE:")[1])]
                          for ln in out.splitlines()
@@ -713,14 +716,231 @@ def test_evaluate_on_the_card_matches_the_cpu(cuda_device, tmp_path, capsys):
     for form in (["--checkpoint", ck], parts):
         got = {}
         for device in ("cuda", "cpu"):
-            n0 = cuda_loss.LAUNCHES
+            n0 = cuda_loss.LAUNCHES.total()
             out = _cli(evaluate.main, form + [test, "--ranking", "--train",
                                               train, "--device", device],
                        capsys)
-            assert (cuda_loss.LAUNCHES > n0) == (device == "cuda")
+            assert (cuda_loss.LAUNCHES.total() > n0) == (device == "cuda")
             got[device] = json.loads(out.splitlines()[-1])
         for key in ("test_rmse", "test_mae"):
             assert abs(got["cuda"][key] - got["cpu"][key]) <= 1e-6
         for key in ("recall_at_k", "ndcg_at_k"):
             assert got["cuda"][key] == pytest.approx(got["cpu"][key],
                                                      abs=1e-6)
+
+
+# ---- bf16 tables and the mean/sum collision policies ----------------------
+
+VARIANTS = [("bfloat16", "first_wins"), ("bfloat16", "twin"),
+            ("bfloat16", "mean"), ("bfloat16", "sum"),
+            ("float32", "mean"), ("float32", "sum")]
+# The gate on the item side of bf16 mean and sum, in bf16 ulps of the
+# chain's largest magnitude: a chain of rounded adds may flip twice.
+BF16_CHAIN_ULPS = 2.0
+
+
+def _bf16_scaled_error(got, want, pre, peak=None):
+    """The largest |got − want| in bf16 ulps of each entry's operand scale
+    max(|pre|, |want|, peak): an update that cancels most of an entry
+    leaves the float32 rounding of its operands, one ulp of their scale, in
+    a small result; ``peak`` is the largest magnitude a chain of adds
+    reached."""
+    g, w, p = (t.to(torch.float32) for t in (got, want, pre))
+    scale = torch.maximum(p.abs(), w.abs())
+    if peak is not None:
+        scale = torch.maximum(scale, peak)
+    scale = scale.clamp(min=2.0 ** -126)
+    _, e = torch.frexp(scale)
+    return float(((g - w).abs() / torch.ldexp(torch.ones_like(scale),
+                                              e - 8)).max())
+
+
+def _hot_ratings(U, I, seed):
+    """Ratings where item 0 is every user's only item for a third of the
+    users: its run of sampled pairs is far longer than the item kernel's
+    32, so the long-run kernel adds it."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+
+    csr = _ratings(U, I, seed)
+    users = np.repeat(np.arange(U), np.diff(csr.indptr))
+    items = csr.indices.copy()
+    hot = users % 3 == 0
+    items[hot] = 0
+    keys = np.unique(users.astype(np.int64) * I + items)
+    return csr_from_arrays((keys // I).astype(np.int32),
+                           (keys % I).astype(np.int32),
+                           np.full(len(keys), 4.0, np.float32), U, I)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("dtype,collision", VARIANTS)
+@pytest.mark.parametrize("hot", [False, True])
+def test_sgd_step_kernel_variants_match_plain(cuda_device, F, dtype,
+                                              collision, hot):
+    """K0a on bf16 tables and under mean/sum against its plain version,
+    step by step from the same tables: float32 within 1e-5, bf16 within one
+    bf16 ulp of the operands' scale (two of the chain's largest magnitude
+    on the item side of mean and sum, where each add rounds); mean and sum
+    give the same bits in two calls (a fixed order of adds, no float
+    atomics)."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops import cuda_sgd
+    from cu2rec_torch.ops.packed import (PackedModel, packed_step,
+                                         packed_step_reference)
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    U, I = 301, 97
+    csr = _hot_ratings(U, I, seed=F) if hot else _ratings(U, I, seed=F)
+    dev = to_device(csr, cuda_device, item_major=collision == "twin")
+    pm = _packed(U, I, F, seed=1, device=cuda_device)
+    if dtype == "bfloat16":
+        pm = PackedModel(T_u=pm.T_u.bfloat16(), T_i=pm.T_i.bfloat16(),
+                         global_bias=pm.global_bias, n_factors=F)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    for it in (0, 1, 4095):
+        n0 = cuda_sgd.LAUNCHES[pm.T_u.dtype, collision]
+        got = packed_step(pm, dev, hp, prng_key(42), it,
+                          collision=collision)
+        again = packed_step(pm, dev, hp, prng_key(42), it,
+                            collision=collision)
+        torch.cuda.synchronize()
+        assert cuda_sgd.LAUNCHES[pm.T_u.dtype, collision] == n0 + 2
+        chain = collision in ("mean", "sum")
+        peak = torch.zeros(pm.T_i.shape, device=cuda_device)
+        want = packed_step_reference(pm, dev, hp, prng_key(42), it,
+                                     collision=collision,
+                                     peak=peak if chain else None)
+        if chain:
+            assert torch.equal(got.T_u, again.T_u)
+            assert torch.equal(got.T_i, again.T_i)
+        for side in ("T_u", "T_i"):
+            g, w, p = (getattr(x, side) for x in (got, want, pm))
+            assert g.dtype == p.dtype
+            if dtype == "float32":
+                torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+            elif side == "T_i" and chain:
+                assert _bf16_scaled_error(g, w, p, peak) <= BF16_CHAIN_ULPS, \
+                    side
+            else:
+                assert _bf16_scaled_error(g, w, p) <= 1.0, side
+        pm = got
+
+
+def _drop_last_of_longest_run(idx, src):
+    """The pairs of a step without the last pair of its longest run."""
+    at = torch.nonzero(idx == torch.bincount(idx).argmax())[:, 0]
+    keep = torch.ones_like(idx, dtype=torch.bool)
+    keep[at[-1]] = False
+    return idx[keep], src[keep]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("collision,hot", [("sum", False), ("sum", True),
+                                           ("mean", False)])
+def test_bf16_chain_gate_rejects_a_dropped_pair(cuda_device, monkeypatch, F,
+                                                collision, hot):
+    """The gate of the item side of bf16 mean and sum fails a kernel that
+    drops a pair: K0a held against a plain version that leaves out the
+    last pair of the step's longest run reads above BF16_CHAIN_ULPS at one
+    of three steps.  (Under mean on a long run the dropped delta, divided
+    by the run's count, may fall below a bf16 ulp: no bf16 comparison can
+    see it there.)"""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops import packed
+    from cu2rec_torch.ops.packed import PackedModel, packed_step
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    U, I = 301, 97
+    csr = _hot_ratings(U, I, seed=F) if hot else _ratings(U, I, seed=F)
+    dev = to_device(csr, cuda_device)
+    pm = _packed(U, I, F, seed=1, device=cuda_device)
+    pm = PackedModel(T_u=pm.T_u.bfloat16(), T_i=pm.T_i.bfloat16(),
+                     global_bias=pm.global_bias, n_factors=F)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    real = packed.scatter_add_in_order
+    monkeypatch.setattr(packed, "scatter_add_in_order",
+                        lambda T, idx, src, peak=None: real(
+                            T, *_drop_last_of_longest_run(idx, src), peak))
+    readings = []
+    for it in (0, 1, 4095):
+        got = packed_step(pm, dev, hp, prng_key(42), it, collision=collision)
+        peak = torch.zeros(pm.T_i.shape, device=cuda_device)
+        bad = packed.packed_step_reference(pm, dev, hp, prng_key(42), it,
+                                           collision=collision, peak=peak)
+        readings.append(_bf16_scaled_error(got.T_i, bad.T_i, pm.T_i, peak))
+    assert max(readings) > BF16_CHAIN_ULPS, readings
+
+
+@pytest.mark.gpu
+def test_sgd_step_kernel_rejects_tables_of_two_dtypes(cuda_device):
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.cuda_sgd import sgd_step_cuda
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    pm = _packed(30, 20, 16, seed=1, device=cuda_device)
+    dev = to_device(_ratings(30, 20, seed=1), cuda_device)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    with pytest.raises(TypeError, match="T_i must be torch.bfloat16"):
+        sgd_step_cuda(pm.T_u.bfloat16(), pm.T_i, 3.5, dev, hp, prng_key(1),
+                      0, n_factors=16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sgd_step_cuda(pm.T_u.half(), pm.T_i.half(), 3.5, dev, hp,
+                      prng_key(1), 0, n_factors=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("n,order", [(4999, "sorted"), (70_001, "random"),
+                                     (3001, "long run")])
+def test_eval_kernel_on_bf16_tables_matches_plain(cuda_device, F, n, order):
+    """K0b over bf16 tables (rows upcast as they load) against its plain
+    version over the same bf16 values: rtol 1e-6, the same bits twice."""
+    from cu2rec_torch.ops import cuda_loss
+    from cu2rec_torch.ops.loss import packed_error_sums_reference
+
+    rng = np.random.default_rng(n)
+    U, I = 500, 300
+    pm = _packed(U, I, F, seed=3, device=cuda_device)
+    T_u, T_i = pm.T_u.bfloat16(), pm.T_i.bfloat16()
+    rows = torch.from_numpy(_eval_rows(rng, U, n, order).astype(
+        np.int32)).to(cuda_device)
+    cols = torch.from_numpy(rng.integers(0, I, n).astype(np.int32)).to(
+        cuda_device)
+    vals = torch.from_numpy((rng.integers(1, 11, n) / 2.0).astype(
+        np.float32)).to(cuda_device)
+    n0 = cuda_loss.LAUNCHES[torch.bfloat16]
+    got = cuda_loss.packed_error_sums_cuda(T_u, T_i, 3.5, rows, cols, vals,
+                                           F)
+    again = cuda_loss.packed_error_sums_cuda(T_u, T_i, 3.5, rows, cols,
+                                             vals, F)
+    torch.cuda.synchronize()
+    assert cuda_loss.LAUNCHES[torch.bfloat16] == n0 + 2
+    assert torch.equal(got, again)
+    want = packed_error_sums_reference(T_u, T_i, pm.global_bias, rows, cols,
+                                       vals, F)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_train_bf16_and_mean_on_card_track_cpu(cuda_device):
+    """The SGD trainer with bf16 tables and with mean collisions on the
+    card against the same run on the CPU: the losses within 2e-3."""
+    from cu2rec_torch.train.trainer import train
+    from cu2rec_torch.utils.config import Config
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    csr = _ratings(400, 150, seed=9)
+    for kw in ({"dtype": "bfloat16"}, {"collision_policy": "mean"},
+               {"collision_policy": "sum", "dtype": "bfloat16"}):
+        losses = {}
+        for device in ("cpu", "cuda"):
+            cfg = Config(total_iterations=30, n_factors=16, check_error=10,
+                         learning_rate=0.05, **kw)
+            model, losses[device] = train(
+                csr, csr, cfg, 3.0, logger=MetricsLogger(verbose=False),
+                device=device)
+        assert losses["cpu"].keys() == losses["cuda"].keys()
+        for k in losses["cpu"]:
+            assert abs(losses["cpu"][k] - losses["cuda"][k]) <= 2e-3, kw

@@ -178,13 +178,69 @@ def test_train_ials_matches():
         assert len(a["half_sweep_ms"]) == 2
 
 
-def test_train_ials_refuses_bf16_tables():
-    """A bfloat16 config raises (item 4 ports bf16 tables) instead of
-    training float32 tables, as the SGD trainer does."""
-    from cu2rec_torch.train.ials import train_ials
+def test_ials_sweep_from_bf16_tables_matches():
+    """A bfloat16 config: the TPU package draws the initial tables in bf16
+    and sweeps on float32 copies of them, and so does the port.  One sweep
+    from the same bf16 draw: the tables within 4 bf16 ulps (in fact within
+    the float32 tolerance of the other iALS tests)."""
+    from test_torch_bf16 import to_torch
+
+    from cu2rec_torch.models.state import MFModel
+    from cu2rec_torch.train.ials import train_ials as t_train
     from cu2rec_torch.utils.config import Config
+    from cu2rec_torch.utils.metrics import MetricsLogger
+    from cu2rec_tpu.models.state import init_model as j_init
+    from cu2rec_tpu.train.ials import train_ials as j_train
+
+    t, j = _implicit_csrs(seed=3)
+    jm = j_init(t.n_users, t.n_items, 8, 0.0, seed=3, dtype=jnp.bfloat16)
+    tm = MFModel(P=to_torch(jm.P), Q=to_torch(jm.Q),
+                 user_bias=to_torch(jm.user_bias),
+                 item_bias=to_torch(jm.item_bias),
+                 global_bias=torch.tensor(0.0))
+    out = {}
+    for name, train, csr, model, kw in (
+            ("port", t_train, t, tm, {"device": "cpu"}),
+            ("jax", j_train, j, jm, {})):
+        cfg = Config(total_iterations=1, n_factors=8, seed=3, P_reg=0.1,
+                     Q_reg=0.1, dtype="bfloat16")
+        out[name] = train(csr, csr, cfg, alpha=10.0, model=model,
+                          logger=MetricsLogger(verbose=False), **kw)[0]
+    for name in ("P", "Q"):
+        got = getattr(out["port"], name)
+        want = np.asarray(getattr(out["jax"], name))
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+        # 4 bf16 ulps at the entries' scale.
+        assert np.all(np.abs(got.numpy() - want)
+                      <= 4 * 2.0 ** -8 * np.abs(want) + ATOL)
+
+
+def test_train_ials_draws_its_bf16_tables_in_bf16():
+    """The initial tables of a bfloat16 config are the float32 draw
+    rounded to bf16: the first sweep starts from them."""
+    from cu2rec_torch.train import ials as t_ials_train
+    from cu2rec_torch.utils.config import Config
+    from cu2rec_torch.utils.metrics import MetricsLogger
 
     csr, _ = _implicit_csrs()
-    cfg = Config(total_iterations=1, n_factors=4, dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train_ials(csr, csr, cfg, device="cpu")
+    seen = []
+    sweep = t_ials_train.ials_half_sweep
+
+    def spy(T_self, T_other, *a, **kw):
+        seen.append((T_self.clone(), T_other.clone()))
+        return sweep(T_self, T_other, *a, **kw)
+
+    for dtype in ("float32", "bfloat16"):
+        t_ials_train.ials_half_sweep = spy
+        try:
+            t_ials_train.train_ials(csr, csr, Config(
+                total_iterations=1, n_factors=4, dtype=dtype),
+                device="cpu", logger=MetricsLogger(verbose=False))
+        finally:
+            t_ials_train.ials_half_sweep = sweep
+    (X32, Y32), _, (Xbf, Ybf), _ = seen
+    assert Xbf.dtype == torch.float32
+    assert torch.equal(Xbf, X32.to(torch.bfloat16).to(torch.float32))
+    assert torch.equal(Ybf, Y32.to(torch.bfloat16).to(torch.float32))
+    assert not torch.equal(Xbf, X32)

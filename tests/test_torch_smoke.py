@@ -212,10 +212,100 @@ def test_phase5_train_on_cpu(tmp_path, monkeypatch, capsys):
     for name, value in (("U", 500), ("I", 200), ("F", 8),
                         ("TRAIN_RATINGS", 20_000), ("TEST_RATINGS", 2_000)):
         monkeypatch.setattr(smoke, name, value)
-    launches, out = smoke.phase_train(torch, 0, tmp_path, "cpu",
-                                      device="cpu")
+    launches, out, final = smoke.phase_train(torch, 0, tmp_path, "cpu",
+                                             device="cpu")
     assert launches == {"sgd_step": 0, "eval_error": 0}
+    assert np.isfinite(final)
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith("[train] mf on cpu")][0]
     assert "CSVs" in line and "checkpoint" in line
     assert (out / "train_f8_q.csv").exists()
+
+
+def test_phase9_entry_points_on_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 9's entry points as the smoke drives them, on the CPU at small
+    shapes: mf in bf16 and with mean collisions, the trainer for the other
+    variants, predict with a bf16 config, ALS in both dtypes, both fold-in
+    ranking evals and the client pass their gates."""
+    smoke = _smoke()
+    for name, value in (("U", 500), ("I", 200), ("F", 8),
+                        ("TRAIN_RATINGS", 20_000), ("TEST_RATINGS", 2_000),
+                        ("CLIENT_CALLS", 600)):
+        monkeypatch.setattr(smoke, name, value)
+    _launches, _out, final = smoke.phase_train(torch, 0, tmp_path, "cpu",
+                                               device="cpu")
+    launches, extras = smoke.phase_variants(torch, 0, tmp_path, "cpu", final,
+                                            device="cpu")
+    assert launches["ridge_cholesky"] == 0
+    out = capsys.readouterr().out
+    for what in ("mf --dtype bfloat16", "mf --collision mean",
+                 "train bfloat16/twin", "train float32/sum",
+                 "predict with a bf16 config", "--algo als --dtype bfloat16",
+                 "foldin_ranking_eval explicit",
+                 "foldin_ranking_eval implicit", "[client] 600"):
+        assert what in out, what
+    assert extras["client_requests_s"] > 0
+    assert extras["foldin_recall"]["implicit"] > 10 / 1682
+
+
+@pytest.mark.parametrize("collision", ["sum", "mean"])
+@pytest.mark.parametrize("skewed", [False, True])
+def test_phase9_bf16_gate_reads_a_planted_fault(monkeypatch, collision,
+                                                skewed):
+    """Phase 9's gate on the item side of bf16 mean and sum, on the CPU at
+    a small shape: the plain version reads 0 against itself, and a plain
+    version that drops the last pair of the step's longest run reads above
+    BF16_CHAIN_ULPS under sum, and under mean where runs are short (on a
+    skewed run the dropped delta over the run's count is below an ulp)."""
+    smoke = _smoke()
+    for name, value in (("U", 3000), ("I", 800), ("N_HEADLINE", 30_000)):
+        monkeypatch.setattr(smoke, name, value)
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.packed import (PackedModel, packed_step,
+                                         packed_step_reference)
+    from cu2rec_torch.ops.sgd import prng_key
+
+    csr = smoke._headline_csr(0, smoke.SKEW_POWER if skewed else None)
+    dr = to_device(csr, "cpu")
+    pm = smoke._packed_tables(torch, 3000, 800, 16, 0, "cpu")
+    pm = PackedModel(T_u=pm.T_u.bfloat16(), T_i=pm.T_i.bfloat16(),
+                     global_bias=pm.global_bias, n_factors=16)
+    got = packed_step(pm, dr, smoke._hp(), prng_key(0), 0,
+                      collision=collision)
+    peak = torch.zeros(pm.T_i.shape)
+    want = packed_step_reference(pm, dr, smoke._hp(), prng_key(0), 0,
+                                 collision=collision, peak=peak)
+    assert smoke._bf16_error(torch, got.T_i, want.T_i, pm.T_i,
+                             peak) == (0.0, 0, 0)
+    faults = smoke._planted_readings(torch, pm, dr, collision, 0, got, peak)
+    assert set(faults) == {"drop", "reverse"}
+    if collision == "sum" or not skewed:
+        assert faults["drop"] > smoke.BF16_CHAIN_ULPS, faults
+
+
+def test_step_ab_runs_each_checkout_in_turn_and_takes_medians(
+        monkeypatch, tmp_path):
+    """``experiments/step_ab.py`` runs A B B A and reports, per checkout,
+    the median of each time over its runs."""
+    from cu2rec_torch.experiments import step_ab
+
+    calls = []
+
+    def run(root, reps):
+        calls.append((root.name, reps))
+        t = float(len(calls))
+        return {"first_wins": {"loop_ms": t, "enqueue_ms": t, "held_ms": t},
+                "twin": {"loop_ms": t, "enqueue_ms": t, "held_ms": t},
+                "eval_error": {"held_ms": 2 * t}}
+
+    monkeypatch.setattr(step_ab, "_run", run)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    out = tmp_path / "ab.json"
+    assert step_ab.main([str(tmp_path / "a"), str(tmp_path / "b"),
+                         "--reps", "3", "--out", str(out)]) == 0
+    assert calls == [("a", 3), ("b", 3), ("b", 3), ("a", 3)]
+    median = json.loads(out.read_text())["median"]
+    assert median["a"]["first_wins"]["loop_ms"] == 2.5     # runs 1 and 4
+    assert median["b"]["twin"]["held_ms"] == 2.5           # runs 2 and 3
+    assert median["b"]["eval_error"]["held_ms"] == 5.0

@@ -121,28 +121,20 @@ def test_step_leaves_its_inputs_alone(setup):
     _, hp = _hp()
     pm = _port_model(setup[2])
     T_u, T_i = pm.T_u.clone(), pm.T_i.clone()
-    for collision in ("first_wins", "twin"):
+    for collision in ("first_wins", "twin", "mean", "sum"):
         packed_step(pm, td, hp, prng_key(1), 0, collision=collision)
         assert torch.equal(pm.T_u, T_u) and torch.equal(pm.T_i, T_i)
 
 
-@pytest.mark.parametrize("collision", ["mean", "sum"])
-def test_deferred_collision_policies_raise(setup, collision):
-    _, td = _devs(setup, False)
-    _, hp = _hp()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        packed_step(_port_model(setup[2]), td, hp, prng_key(1), 0,
-                    collision=collision)
-
-
-def test_bf16_tables_raise(setup):
+def test_tables_of_two_dtypes_raise(setup):
     _, td = _devs(setup, False)
     _, hp = _hp()
     pm = _port_model(setup[2])
-    bf = PackedModel(T_u=pm.T_u.bfloat16(), T_i=pm.T_i.bfloat16(),
-                     global_bias=pm.global_bias, n_factors=pm.n_factors)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        packed_step(bf, td, hp, prng_key(1), 0)
+    mixed = PackedModel(T_u=pm.T_u.bfloat16(), T_i=pm.T_i,
+                        global_bias=pm.global_bias, n_factors=pm.n_factors)
+    with pytest.raises(TypeError,
+                       match="must both be float32 or both bfloat16"):
+        packed_step(mixed, td, hp, prng_key(1), 0)
 
 
 def test_twin_needs_item_major(setup):

@@ -149,3 +149,34 @@ def test_train_eval_subsample_is_the_tpu_packages(data):
                                       np.asarray(ja.row_ids)[:ja.nnz])
         np.testing.assert_array_equal(tb.indices.numpy(),
                                       np.asarray(ja.indices)[:ja.nnz])
+
+
+@pytest.mark.parametrize("dtype,collision", [("bfloat16", "first_wins"),
+                                             ("float32", "mean"),
+                                             ("bfloat16", "sum")])
+def test_bf16_and_collision_training_tracks_the_tpu_package(data, dtype,
+                                                            collision):
+    """The trainer with bf16 tables or the mean/sum policies, from the same
+    initial tables (in the TPU package cast to bf16, in the port cast by
+    the engine): the tables come out in the config's dtype and the test
+    RMSE stays within 2e-3 of the TPU package's at each eval point."""
+    (jtr, jte), _, gb, init = data
+    cfg = dict(CFG, total_iterations=100, check_error=25,
+               collision_policy=collision, dtype=dtype)
+    jlog = MetricsLogger(verbose=False)
+    j_init = jax.tree.map(lambda a: jnp.asarray(a).astype(
+        jnp.dtype(dtype)), init)
+    jt.train(jtr, jte, Config(**cfg), gb,
+             model=MFModel(P=j_init["p"], Q=j_init["q"],
+                           user_bias=j_init["user_bias"],
+                           item_bias=j_init["item_bias"],
+                           global_bias=jnp.asarray(
+                               init["global_bias"]).reshape(())),
+             logger=jlog)
+    out, losses, tlog = _port_train(data, TConfig(**cfg))
+    assert out.P.dtype == getattr(torch, dtype)
+    j_evals, _ = _history(jlog)
+    t_evals, _ = _history(tlog)
+    assert [e[0] for e in t_evals] == [e[0] for e in j_evals]
+    np.testing.assert_allclose(np.array(t_evals)[:, 1:],
+                               np.array(j_evals)[:, 1:], rtol=0, atol=2e-3)
