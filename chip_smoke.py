@@ -71,13 +71,21 @@ fatal on failure:
    exported Q (within 5e-7 and the float32 rounding of the checkpoint's),
    and the native ratings reader against its plain version on the test
    split (the same arrays, both times printed);
-9. variants: K0a on bf16 tables (first_wins, twin) and under the mean and
-   sum collision policies (float32 and bf16) at the headline shape, two
-   steps each against the plain version (float32 within 1e-5, bf16 within
-   one bf16 ulp of each entry's operand scale, two on the item side of
-   mean and sum, whose adds each round; mean and sum the same bits in two
-   calls), each timed with the stream held (the card's time) and as
-   the trainer's loop runs it, beside its bound; K0b on bf16 tables over
+9. variants: the runs of a mean/sum step on the card (its sampling,
+   counting sort and ordering, ``collision_runs_cuda``) bit for bit against
+   ``torch.sort(stable=True)`` and ``torch.bincount`` on uniform and on
+   power-law items, the check rejecting a planted swap of two users in a
+   run and a planted dropped pair; K0a on bf16 tables (first_wins, twin)
+   and under the mean and sum collision policies (float32 and bf16) at the
+   headline shape, two steps each against the plain version (float32
+   within 1e-5, bf16 within one bf16 ulp of each entry's operand scale,
+   two on the item side of mean and sum, whose adds each round; mean and
+   sum the same bits in two calls), each timed with the stream held (the
+   card's time) and as the trainer's loop runs it, beside its bound, and
+   each mean/sum step under the profiler (its kernels, and the item side:
+   the kernel time outside the user kernel, beside ``index_add_`` of the
+   step's pairs), on uniform items and, for float32 mean and bf16 sum, on
+   power-law items; K0b on bf16 tables over
    the 20,000,000 ratings (rtol 1e-6, the same bits twice).  Then, on
    phase 5's CSVs (so it runs right after phase 5): ``mf --dtype
    bfloat16`` and ``mf --collision mean`` (test RMSE below iteration 1's
@@ -556,7 +564,8 @@ def _profiled(torch, run, profile):
 
 def _profile_steps(torch, pm, dr, collision, n_steps: int = 20):
     """The step loop under torch.profiler: (device busy ms per step, host
-    ms per step, top kernels)."""
+    ms per step, top kernels, busy ms per step outside the user kernel: the
+    item side)."""
     from cu2rec_torch.ops.packed import packed_run_steps
     from cu2rec_torch.ops.sgd import prng_key
 
@@ -566,8 +575,10 @@ def _profile_steps(torch, pm, dr, collision, n_steps: int = 20):
         torch.cuda.synchronize()
 
     prof, host_s = _profiled(torch, run, lambda: _new_profile(torch))
-    busy_s, top = _device_breakdown(torch, prof)
-    return busy_s * 1e3 / n_steps, host_s * 1e3 / n_steps, top
+    busy_s, top = _device_breakdown(torch, prof, top=8)
+    side_s, _ = _device_breakdown(torch, prof, outside="sgd_user_kernel")
+    return (busy_s * 1e3 / n_steps, host_s * 1e3 / n_steps, top,
+            side_s * 1e3 / n_steps)
 
 
 def phase_train_kernels(torch, dev, seed: int):
@@ -594,8 +605,8 @@ def phase_train_kernels(torch, dev, seed: int):
     for collision in ("first_wins", "twin"):
         dr = to_device(csr, dev, item_major=collision == "twin")
         ms, host_ms, enqueue_ms = _time_steps(torch, pm, dr, collision)
-        busy_ms, prof_host_ms, top = _profile_steps(torch, pm, dr,
-                                                    collision)
+        busy_ms, prof_host_ms, top, _side = _profile_steps(torch, pm, dr,
+                                                           collision)
         user_ms = sum(t / n for k, t, n in top if "sgd_user_kernel" in k)
         plain_ms = time_ms(lambda: packed_step_reference(
             pm, dr, _hp(), prng_key(1), 7, collision=collision), [()],
@@ -961,22 +972,32 @@ class _WaveInput:
             self.profiles.append((prof, t0, attempt))
 
 
-def _device_breakdown(torch, prof, top: int = 6):
-    """(device busy seconds, [(kernel, ms, calls)] by device time) from one
-    wave's profile: the union of the CUDA kernel intervals."""
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        s, t = e.time_range.start, e.time_range.end
-        spans.append((s, t))
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (t - s) / 1e3, n + 1)
+def _union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
     busy_us, end = 0.0, float("-inf")
     for s, t in sorted(spans):
         if t > end:
             busy_us += t - max(s, end)
             end = t
+    return busy_us
+
+
+def _device_breakdown(torch, prof, top: int = 6, outside: str | None = None):
+    """(device busy seconds, [(kernel, ms, calls)] by device time) from one
+    wave's profile: the union of the CUDA kernel intervals.  With
+    ``outside``, the busy seconds are those outside the intervals of the
+    kernels whose name holds it."""
+    spans, by_name, inside = [], {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        spans.append((s, t))
+        if outside is not None and outside in e.name:
+            inside.append((s, t))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (t - s) / 1e3, n + 1)
+    busy_us = _union_us(spans) - _union_us(inside)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return busy_us / 1e6, [(k, ms, n) for k, (ms, n) in ranked]
 
@@ -2009,6 +2030,70 @@ def _planted_readings(torch, pm, dr, collision, seed, got, peak):
     return readings
 
 
+def _check_runs(torch, offsets, users, items, has, n_items: int,
+                label: str) -> int:
+    """Holds the runs of a mean/sum step (offsets and users, from the card
+    or planted) bit for bit against ``torch.sort(items[has], stable=True)``
+    and ``torch.bincount``: each item's run start, and the users in item
+    order and, within an item, in user order.  Returns the longest run."""
+    who = torch.nonzero(has)[:, 0]
+    keys = items[who]
+    want_users = who[torch.sort(keys, stable=True).indices]
+    counts = torch.bincount(keys, minlength=n_items)
+    want_offsets = torch.zeros(n_items + 1, dtype=torch.int64,
+                               device=keys.device)
+    want_offsets[1:] = torch.cumsum(counts, 0)
+    require(offsets.shape == want_offsets.shape
+            and torch.equal(offsets.long(), want_offsets),
+            f"{label}: the run offsets differ from the pairs' counts")
+    require(users.shape == want_users.shape
+            and torch.equal(users.long(), want_users),
+            f"{label}: the users are not in item order and, within each "
+            f"run, in user order")
+    return int(counts.max()) if counts.numel() else 0
+
+
+def _planted_runs(torch, offsets, users, fault: str):
+    """The runs with one fault planted in the longest run: "swap" swaps its
+    first two users, "drop" leaves out its last user (the offsets after it
+    moved down by one, as a sort that lost the pair would give them)."""
+    run = int(torch.argmax(offsets[1:] - offsets[:-1]))
+    s, e = int(offsets[run]), int(offsets[run + 1])
+    users, offsets = users.clone(), offsets.clone()
+    if fault == "swap":
+        users[[s, s + 1]] = users[[s + 1, s]]
+        return offsets, users
+    offsets[run + 1:] -= 1
+    return offsets, torch.cat([users[:e - 1], users[e:]])
+
+
+def _check_run_order(torch, dr, seed: int, label: str):
+    """The runs of a mean/sum step on the card (``collision_runs_cuda``:
+    the step's sampling, counting sort and ordering) against the stable
+    sort, and the check run again on each planted fault, which it must
+    reject.  Returns (pairs, longest run)."""
+    from cu2rec_torch.ops.packed import collision_runs
+    from cu2rec_torch.ops.sgd import prng_key, sample_items
+
+    offsets, users = collision_runs(dr, prng_key(seed), 7)
+    items, _r, has = sample_items(prng_key(seed), 7, dr.indptr, dr.indices,
+                                  dr.data)
+    longest = _check_runs(torch, offsets, users, items, has, dr.n_items,
+                          label)
+    for fault in ("swap", "drop"):
+        bad = _planted_runs(torch, offsets, users, fault)
+        try:
+            _check_runs(torch, *bad, items, has, dr.n_items, label)
+        except SmokeFailure:
+            continue
+        raise SmokeFailure(f"{label}: the run-order check passes a planted "
+                           f"{fault}")
+    log(f"[variants] run order {label}: {users.numel()} pairs, the longest "
+        f"run {longest}, offsets and users bit for bit the stable sort's; "
+        f"a planted swap and a planted dropped pair rejected")
+    return users.numel(), longest
+
+
 def _dtype_name(dtype) -> str:
     """"float32" for torch.float32 and so on."""
     return str(dtype).removeprefix("torch.")
@@ -2100,6 +2185,11 @@ def phase_variant_kernels(torch, dev, seed: int):
                        global_bias=pm32.global_bias, n_factors=F)
     site = _tpu_kernel_site("ops/packed.py", "def packed_step(")
     entries = []
+    # The runs of a mean/sum step (the same for every table dtype).
+    dr = to_device(csr, dev)
+    torch.cuda.synchronize()
+    _check_run_order(torch, dr, seed, "uniform items")
+    del dr
     for dtype, collision in VARIANTS:
         pm = pm16 if dtype == "bfloat16" else pm32
         elem = pm.T_u.element_size()
@@ -2108,12 +2198,14 @@ def phase_variant_kernels(torch, dev, seed: int):
         err = _check_variant(torch, pm, dr, dtype, collision, seed)
         loop_ms, _host, enqueue_ms = _time_steps(torch, pm, dr, collision)
         best = torch.full((I,), INT32_MAX, dtype=torch.int32, device=dev)
+        counts = torch.zeros(I, dtype=torch.int32, device=dev)
         mu = float(pm.global_bias)
 
         def step(it=7):
             packed_step(pm, dr, _hp(), prng_key(1), it, collision=collision,
                         best=best if collision == "first_wins" else None,
-                        mu=mu)
+                        counts=counts if collision in ("mean", "sum")
+                        else None, mu=mu)
 
         ms = time_ms(step, [()], reps=50, hold=True)
         plain_ms = time_ms(lambda: packed_step_reference(
@@ -2143,13 +2235,16 @@ def phase_variant_kernels(torch, dev, seed: int):
                         "pairs": n_pairs, "items_hit": hit},
                        semantics="packed_step", source="sgd_step")
         entry.update(loop_ms=loop_ms, enqueue_ms=enqueue_ms)
-        if collision in ("mean", "sum") and dtype == "float32":
-            # Where a collision step's time goes, kernel by kernel.
-            busy_ms, _host_ms, top = _profile_steps(torch, pm, dr,
-                                                    collision)
-            entry["kernel_ms"] = busy_ms
+        if collision in ("mean", "sum"):
+            # Where a collision step's time goes, kernel by kernel; the item
+            # side is the kernel time outside the user kernel.
+            busy_ms, _host_ms, top, side_ms = _profile_steps(torch, pm, dr,
+                                                             collision)
+            entry.update(kernel_ms=busy_ms, item_side_ms=side_ms)
             log(f"[variants] sgd_step {dtype}/{collision} under the "
-                f"profiler: {busy_ms:.4f} ms of kernel time a step; "
+                f"profiler: {busy_ms:.4f} ms of kernel time a step, the "
+                f"item side {side_ms:.4f} ms (index_add_ "
+                f"{library_ms:.4f} ms); "
                 + "; ".join(f"{_short(k)} {t / n * 1e3:.2f} us x{n}"
                             for k, t, n in top))
         if library_ms is not None:
@@ -2164,6 +2259,11 @@ def phase_variant_kernels(torch, dev, seed: int):
     # Skewed items: the top item holds ML-20M's 4.7% of the ratings, so
     # about 6,500 users draw it in a step, a run for the long-run kernel.
     skew = _headline_csr(seed, item_power=SKEW_POWER)
+    dr = to_device(skew, dev)
+    torch.cuda.synchronize()
+    _check_run_order(torch, dr, seed, "skewed items")
+    del dr
+    counts = torch.zeros(I, dtype=torch.int32, device=dev)
     for dtype, collision in (("float32", "mean"), ("bfloat16", "sum")):
         pm = pm16 if dtype == "bfloat16" else pm32
         dr = to_device(skew, dev)
@@ -2173,13 +2273,21 @@ def phase_variant_kernels(torch, dev, seed: int):
                                       dr.data)
         top = int(torch.bincount(items[has]).max())
         ms = time_ms(lambda: packed_step(pm, dr, _hp(), prng_key(1), 7,
-                                         collision=collision, mu=3.5),
+                                         collision=collision, counts=counts,
+                                         mu=3.5),
                      [()], reps=20, hold=True)
+        busy_ms, _host_ms, top_k, side_ms = _profile_steps(torch, pm, dr,
+                                                           collision)
         name = f"sgd_step/{dtype}/{collision}"
         next(e for e in entries if e["name"] == name).update(
-            skewed_ms=ms, skewed_top_run=top)
+            skewed_ms=ms, skewed_top_run=top, skewed_kernel_ms=busy_ms,
+            skewed_item_side_ms=side_ms)
         log(f"[variants] {name} with skewed items (the longest run "
-            f"{top} pairs): {ms:.4f} ms a step on the card")
+            f"{top} pairs): {ms:.4f} ms a step on the card; under the "
+            f"profiler {busy_ms:.4f} ms of kernel time a step, the item "
+            f"side {side_ms:.4f} ms; "
+            + "; ".join(f"{_short(k)} {t / n * 1e3:.2f} us x{n}"
+                        for k, t, n in top_k))
         del dr
     del skew
 

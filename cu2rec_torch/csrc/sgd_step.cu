@@ -61,23 +61,44 @@
 // T_i.at[items].add(di.astype(dt)), which XLA on the CPU applies in the
 // order of the pairs, that is in ascending user order, rounding to the
 // table type after each add.  A float atomicAdd would add in whatever order
-// the pairs arrive, so the kernels here keep that order instead:
-//   1. the user kernel writes each user's sampled item (I for none) and
-//      its error;
-//   2. a stable LSD radix sort of the users by item, 8 bits a pass
-//      (per-tile digit histograms with shared-memory integer atomics, one
-//      scan, a stable placement that ranks a tile's users in user order);
-//   3. the item kernel: each item finds its run of the sorted users by
-//      binary search and, in the row layout above, adds the deltas of its
-//      users one after the other, rounding after each add.  A run longer
-//      than kLong is left to the long-run kernel: a block for each slice
-//      of 32 columns of the item, whose warps compute a tile of deltas
-//      into shared memory side by side, after which one lane a column adds
-//      them in order (a hot item's slices on several SMs at once).
+// the pairs arrive, so the kernels here keep that order instead.  The item
+// side is latency, not bytes (about 85 MB at the headline shape, 25 us at
+// 3.35 TB/s), so it is a counting sort by item with no pass that waits on
+// one block, and runs whose loads are in flight together:
+//   1. the user kernel writes each user's sampled item (I for none), its
+//      error, and its slot in the item's run: a warp-aggregated integer
+//      atomicAdd (__match_any_sync) on counts[item], an array of I ints
+//      that the step finds zero and leaves zero;
+//   2. run_offsets_kernel: an exclusive scan of the counts across the card
+//      (one pass, decoupled look-back between its tiles), which gives each
+//      item's run start and length (mean's denominator), clears the
+//      counts, and lists the items of runs longer than kLong;
+//   3. place_runs_kernel: each user into its item's run at its slot.  The
+//      atomics order a run's users as they arrived, so each run is put in
+//      ascending user order (the only stable order: a step's users are
+//      distinct) before its adds;
+//   4. order_long_kernel, for the runs longer than kLong: a block a run
+//      marks its users in a bitmap in shared memory and writes them back
+//      in ascending order;
+//   5. collide_long_kernel, for those runs: a block a slice of 32 columns
+//      of such an item, so that a hot item's slices run on several SMs.
+//      It streams the ordered run a tile at a time: warps 1-7 compute a
+//      tile's deltas into shared memory from rows they loaded during the
+//      tile before (32 rows a warp in flight), while warp 0 adds the
+//      previous tile's, a lane a column, in order, from registers;
+//   6. collide_item_kernel, for the other runs, launched so that it starts
+//      while the long-run kernel still runs (programmatic dependent launch)
+//      and ends only after it: a lane group an item reads its run's start
+//      and length, its users in one load, ranks them by user id in shared
+//      memory, then adds their deltas in order in the row layout above,
+//      kInFlight pairs' rows and errors loaded before the first is added.
 // So the result is a pure function of the step's inputs, and matches the
 // plain version (ops/packed.py) up to the float32 rounding of the deltas.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 #include "packed_rows.cuh"
 
@@ -89,25 +110,39 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMinBlocks = 8;
 constexpr int kMaxWidth = 512;  // the widest row dispatch_row takes
 constexpr int kSentinel = 0x7fffffff;
-// Collisions: the sort's tile (kSortThreads users a round, kSortRounds
-// rounds) and digit, the longest run the item kernel adds itself, and the
-// long-run kernel's block.
-constexpr int kSortThreads = 256;
-constexpr int kSortRounds = 8;
-constexpr int kSortTile = kSortThreads * kSortRounds;
-constexpr int kDigitBits = 8;
-constexpr int kDigits = 1 << kDigitBits;
-static_assert(kDigits == kSortThreads, "a thread a digit");
-constexpr int kScanThreads = 1024;
+// Collisions: the offsets scan's tile (kScanItems counts a thread), the
+// longest run the item kernel adds itself, the pairs it has in flight a
+// lane group, the long-run kernel's block and tile (a row a producer lane),
+// the runs it takes first, and its bitmap's words at most (262,144 users;
+// more users are mapped a chunk at a time).
+constexpr int kScanThreads = 256;
 constexpr int kScanItems = 8;
+constexpr int kScanTile = kScanThreads * kScanItems;
+constexpr int kPlaceThreads = 256;
 constexpr int kLong = 32;
+// Two pairs in flight, not four: on an H100 four spilled 8-36 bytes at
+// the 128-register budget and took longer (PERF.md, PR 8).
+constexpr int kInFlight = 2;
 constexpr int kLongThreads = 256;
-constexpr int kLongBlocks = 132 * 4;  // the long-run kernel's grid at most
-constexpr int kLongTile = 256;        // pairs a tile of the long-run kernel
-constexpr int kSliceCols = 32;        // columns a long-run block adds
+constexpr int kLongTile = kLongThreads - 32;
+constexpr int kBig = 4 * kLongTile;
+constexpr int kMapWords = 8192;
+constexpr int kSliceCols = 32;  // columns a long-run block adds
 // At least four blocks an SM (at most 128 registers a thread): the
-// collision item kernel holds five rows a lane group.
+// collision item kernel holds kInFlight pairs' rows a lane group.
 constexpr int kCollideMinBlocks = 4;
+// The step's control words (ints at the start of the workspace, zeroed by
+// the user kernel): the item kernel's and the long-run kernel's work
+// tickets, the counts of the long-run lists, the offsets scan's tile
+// ticket; then the scan's tile states (64-bit).
+enum Ctrl {
+  kShortTicket = 0,
+  kLongTicket = 1,
+  kBigCount = 2,
+  kLongCount = 3,
+  kScanTicket = 4,
+  kCtrlInts = 8
+};
 
 // mode of sgd_step_launch.
 enum Mode {
@@ -142,6 +177,25 @@ struct Step {
   float mu, lr, reg_p, reg_q, reg_ub, reg_ib;
   uint32_t k0, k1, it;
   int start_user;
+  // mean/sum (after the fields the other kernels read, whose offsets in
+  // the parameter space stay as they were):
+  int* slot;        // the pair's slot in its item's run
+  int* counts;      // pairs an item, zero on entry and on exit
+  int* ctrl;        // the control words (Ctrl), n_ctrl ints
+  int n_ctrl;
+};
+
+// The runs of mean/sum: where the collision kernels after the user kernel
+// find their arrays in the workspace.
+struct Runs {
+  int* ctrl;                    // Ctrl
+  unsigned long long* status;   // the offsets scan's tile states
+  int* offs;                    // I + 1: item i's run is [offs[i], offs[i+1])
+  int* placed;                  // U: the users, run by run
+  int* ordered;                 // U: the long runs in ascending user order
+  int* long_items;              // max_long: from the front the runs longer
+                                // than kBig, from the back the other long ones
+  int max_long;
 };
 
 template <class L>
@@ -237,6 +291,13 @@ __device__ __forceinline__ int load_window(const int* arr, int base,
   return lane < n ? __ldg(arr + min(base + lane, last)) : 0;
 }
 
+// The same from an array an earlier kernel of the step wrote, read at L2.
+__device__ __forceinline__ int load_window_l2(const int* arr, int base,
+                                              int last, int n) {
+  const int lane = threadIdx.x & 31;
+  return lane < n ? __ldcg(arr + min(base + lane, last)) : 0;
+}
+
 // Programmatic dependent launch: each kernel of the step loop is launched
 // so that it may start while the kernel before it on the stream still runs
 // (launch_early).  Until wait_prior_kernel() it reads only the ratings
@@ -259,8 +320,29 @@ __device__ __forceinline__ void allow_next_kernel() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
-// kPairs (mean, sum): also write each user's sampled item and error for
-// the collision kernels.
+// One more pair for counts[key] from each lane whose key >= 0 (the lanes
+// of a key share one atomicAdd, __match_any_sync); returns the lane's slot
+// among its key's pairs.  Every lane of the warp calls it, a lane with no
+// pair with a negative key of its own (-1 - lane).
+__device__ __forceinline__ int count_pair(int* counts, int key) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int first = __ffs(peers) - 1;
+  int base = 0;
+  if (key >= 0 && lane == first) base = atomicAdd(counts + key, __popc(peers));
+  base = __shfl_sync(0xffffffffu, base, first);
+  return base + __popc(peers & ((1u << lane) - 1u));
+}
+
+// The step's control words to zero (block 0 of the kernel that starts the
+// runs, after its wait).
+__device__ __forceinline__ void clear_ctrl(int* ctrl, int n) {
+  if (blockIdx.x == 0)
+    for (int k = threadIdx.x; k < n; k += blockDim.x) ctrl[k] = 0;
+}
+
+// kPairs (mean, sum): also write each user's sampled item, error and slot
+// in its item's run for the collision kernels, counting the item's pairs.
 template <class L, bool kPairs>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sgd_user_kernel(const Step a) {
@@ -285,6 +367,12 @@ sgd_user_kernel(const Step a) {
   }
   wait_prior_kernel();
   allow_next_kernel();
+  int slot = 0;
+  if constexpr (kPairs) {
+    clear_ctrl(a.ctrl, a.n_ctrl);
+    slot = count_pair(a.counts,
+                      u < a.U && len > 0 && gl == 0 ? item : -1 - lane);
+  }
   if (u >= a.U) return;
   float4 x[L::V];
   load_row<L, Read::kL2>(row_ptr<L>(a.T_u, u), gl, W - 1, x);
@@ -297,6 +385,7 @@ sgd_user_kernel(const Step a) {
       if (gl == 0) {
         a.pair_item[u] = item;
         a.pair_err[u] = err;
+        a.slot[u] = slot;
       }
     } else if (a.best != nullptr && gl == 0) {
       int prio = u - a.start_user;
@@ -372,139 +461,231 @@ sgd_item_kernel(const Step a) {
   store_row<L>(row_ptr<L>(a.T_i_out, i), gl, x);
 }
 
-// ---- Collisions: the stable sort of the users by sampled item ----------
+// ---- Collisions: the runs of the users by sampled item -----------------
 
-// Digit histogram of one tile of the keys, stored digit-major:
-// hist[d · tiles + tile].  Block 0 also clears the long-run count.
-__global__ void __launch_bounds__(kSortThreads)
-sort_hist_kernel(const int* __restrict__ keys, int n, int shift,
-                 int* __restrict__ hist, int* long_count) {
-  __shared__ int s[kDigits];
-  const int t = threadIdx.x;
-  s[t] = 0;
-  if (long_count != nullptr && blockIdx.x == 0 && t == 0) *long_count = 0;
-  __syncthreads();
-  const int base = blockIdx.x * kSortTile;
-#pragma unroll
-  for (int r = 0; r < kSortRounds; ++r) {
-    const int j = base + r * kSortThreads + t;
-    if (j < n) atomicAdd(&s[(keys[j] >> shift) & (kDigits - 1)], 1);
-  }
-  __syncthreads();
-  hist[t * gridDim.x + blockIdx.x] = s[t];
-}
-
-// Exclusive prefix sum of a[0, m) in place, by one block, kScanItems
-// consecutive entries a thread and kScanThreads · kScanItems a round: each
-// round's loads are issued together, then scanned in registers, across a
-// warp by shuffles and across the warps in shared memory.
-__global__ void __launch_bounds__(kScanThreads)
-exclusive_scan_kernel(int* a, int m) {
-  constexpr int kW = kScanThreads / 32;
+// Exclusive prefix sum over a block of kT threads of one int each; *total
+// gets the block's sum.  s_warp holds kT / 32 ints.
+template <int kT>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
+                                                    int* total) {
+  constexpr int kW = kT / 32;
   static_assert(kW <= 32, "one warp scans the warps' sums");
-  __shared__ int s_warp[kW];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  int carry = 0;
-  for (int base = 0; base < m; base += kScanThreads * kScanItems) {
-    const int lo = base + t * kScanItems;
-    int v[kScanItems];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
 #pragma unroll
-    for (int k = 0; k < kScanItems; ++k) v[k] = lo + k < m ? a[lo + k] : 0;
-    int sum = 0;
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
-      const int x = v[k];
-      v[k] = sum;
-      sum += x;
-    }
-    int incl = sum;  // this thread's total, scanned across the warp
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kW ? s_warp[lane] : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += y;
+      const int y = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += y;
     }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < kW ? s_warp[lane] : 0;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, off);
-        if (lane >= off) w += y;
-      }
-      if (lane < kW) s_warp[lane] = w;
-    }
-    __syncthreads();
-    const int before = carry + (warp ? s_warp[warp - 1] : 0) + incl - sum;
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k)
-      if (lo + k < m) a[lo + k] = before + v[k];
-    carry += s_warp[kW - 1];
-    __syncthreads();  // s_warp is written again in the next round
+    if (lane < kW) s_warp[lane] = w;
   }
+  __syncthreads();
+  const int before = (warp ? s_warp[warp - 1] : 0) + incl - v;
+  *total = s_warp[kW - 1];
+  __syncthreads();  // s_warp may be written again by the caller's next scan
+  return before;
 }
 
-// Stable placement of one tile by one digit: the tile's users go to their
-// digit's offset (the scanned histogram) in user order.  A round ranks 256
-// users: within a warp by __match_any_sync, across the warps by their
-// per-digit counts in shared memory.  vals_in null: the values are the
-// positions (the user ids, on the first pass).
-__global__ void __launch_bounds__(kSortThreads)
-sort_scatter_kernel(const int* __restrict__ keys_in,
-                    const int* __restrict__ vals_in,
-                    int* __restrict__ keys_out, int* __restrict__ vals_out,
-                    int n, int shift, const int* __restrict__ offsets) {
-  constexpr int kW = kSortThreads / 32;
-  __shared__ int s_base[kDigits];
-  __shared__ int s_cnt[kW][kDigits];
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  s_base[t] = offsets[t * gridDim.x + blockIdx.x];
-#pragma unroll
-  for (int w = 0; w < kW; ++w) s_cnt[w][t] = 0;
+// A tile state of the offsets scan: its flag in the high word (kAggregate:
+// the tile's own sum; kPrefix: the sum of it and all tiles before it).
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
+
+__device__ __forceinline__ unsigned long long load_state(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_state(unsigned long long* p,
+                                            unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// Each item's run start: offs[i] = Σ_{j<i} counts[j], offs[I] the pairs,
+// in one pass over the card.  A block takes the next tile of kScanTile
+// counts (a ticket, so every tile before it belongs to a block already
+// running), publishes the tile's sum, then looks back over the tiles
+// before it until one has published its inclusive prefix (Merrill and
+// Garland's decoupled look-back).  It clears the counts it read and lists
+// the items whose run is longer than kLong.
+__global__ void __launch_bounds__(kScanThreads)
+run_offsets_kernel(int* counts, int I, const Runs r) {
+  __shared__ int s_warp[kScanThreads / 32];
+  __shared__ int s_tile, s_before;
+  wait_prior_kernel();
+  allow_next_kernel();
+  if (threadIdx.x == 0) s_tile = atomicAdd(r.ctrl + kScanTicket, 1);
   __syncthreads();
-  const int base = blockIdx.x * kSortTile;
-  for (int r = 0; r < kSortRounds; ++r) {
-    const int j = base + r * kSortThreads + t;
-    const bool ok = j < n;
-    const int key = ok ? keys_in[j] : 0;
-    const int val = ok ? (vals_in != nullptr ? vals_in[j] : j) : 0;
-    const int digit = ok ? (key >> shift) & (kDigits - 1) : kDigits;
-    const unsigned peers = __match_any_sync(0xffffffffu, digit);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (ok && rank == 0) s_cnt[warp][digit] = __popc(peers);
-    __syncthreads();
-    if (ok) {
-      int pos = s_base[digit] + rank;
-      for (int w = 0; w < warp; ++w) pos += s_cnt[w][digit];
-      keys_out[pos] = key;
-      vals_out[pos] = val;
-    }
-    __syncthreads();
-    int add = 0;
+  const int tile = s_tile;
+  const int lo = tile * kScanTile + threadIdx.x * kScanItems;
+  int v[kScanItems];
 #pragma unroll
-    for (int w = 0; w < kW; ++w) {
-      add += s_cnt[w][t];
-      s_cnt[w][t] = 0;
+  for (int k = 0; k < kScanItems; ++k)
+    v[k] = lo + k < I ? __ldcg(counts + lo + k) : 0;
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    const int n = v[k];
+    if (n != 0) counts[lo + k] = 0;  // zero for the next step
+    if (n > kBig)
+      r.long_items[atomicAdd(r.ctrl + kBigCount, 1)] = lo + k;
+    else if (n > kLong)
+      r.long_items[r.max_long - 1 - atomicAdd(r.ctrl + kLongCount, 1)] =
+          lo + k;
+    v[k] = sum;
+    sum += n;
+  }
+  int total;
+  const int before = block_exclusive_scan<kScanThreads>(sum, s_warp, &total);
+  if (threadIdx.x == 0) {
+    int excl = 0;
+    if (tile > 0) {
+      store_state(r.status + tile, kAggregate | static_cast<unsigned>(total));
+      for (int j = tile - 1; j >= 0;) {
+        const unsigned long long st = load_state(r.status + j);
+        if (st < kAggregate) continue;  // not published yet
+        excl += static_cast<int>(st & 0xffffffffu);
+        if (st >= kPrefix) break;
+        --j;
+      }
     }
-    s_base[t] += add;
-    __syncthreads();
+    store_state(r.status + tile,
+                kPrefix | static_cast<unsigned>(excl + total));
+    s_before = excl;
+    if (tile == gridDim.x - 1) r.offs[I] = excl + total;
+  }
+  __syncthreads();
+  const int base = s_before + before;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k)
+    if (lo + k < I) r.offs[lo + k] = base + v[k];
+}
+
+// Each user with a pair into its item's run, at the slot its count gave.
+__global__ void __launch_bounds__(kPlaceThreads)
+place_runs_kernel(const int* pair_item, const int* slot, int U, int I,
+                  const Runs r) {
+  wait_prior_kernel();
+  allow_next_kernel();
+  const int u = blockIdx.x * kPlaceThreads + threadIdx.x;
+  if (u >= U) return;
+  const int item = __ldcg(pair_item + u);
+  if (item < I) r.placed[__ldcg(r.offs + item) + __ldcg(slot + u)] = u;
+}
+
+// A run of n <= kLong users (src[0, n)) in ascending order into run[0, n),
+// a shared-memory buffer of kLong ints, by the G lanes of a group: each
+// lane ranks its users by counting the smaller ones.  Every lane of the
+// warp calls it (active false: nothing to order).
+template <int G>
+__device__ __forceinline__ void order_run(int* run, const int* src, int n,
+                                          int gl, bool active) {
+  constexpr int kPer = kLong / G;
+  static_assert(kLong % G == 0, "whole users a lane");
+  int v[kPer], rank[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int q = gl + G * j;
+    v[j] = active && q < n ? __ldcg(src + q) : -1;
+    if (v[j] >= 0) run[q] = v[j];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    rank[j] = 0;
+    if (v[j] >= 0)
+      for (int q = 0; q < n; ++q) rank[j] += run[q] < v[j];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (v[j] >= 0) run[rank[j]] = v[j];
+  __syncwarp();
+}
+
+// A long run's users in [lo, lo + 32·nw) as a bitmap in shared memory,
+// one bit a user, by the whole block.
+__device__ __forceinline__ void map_run(unsigned* map, int nw,
+                                        const int* src, int n, int lo) {
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) map[w] = 0u;
+  __syncthreads();
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int u = __ldcg(src + k) - lo;
+    if (u >= 0 && u < 32 * nw) atomicOr(map + (u >> 5), 1u << (u & 31));
+  }
+  __syncthreads();
+}
+
+// The users of the bitmap in ascending order into out: each of the kT
+// threads takes a run of words, finds the rank of its first user by a
+// block scan of the words' counts, and writes its users from there.
+// Returns the users written.
+template <int kT>
+__device__ __forceinline__ int write_map(const unsigned* map, int nw, int lo,
+                                         int* s_warp, int* out) {
+  const int per = (nw + kT - 1) / kT;
+  const int w0 = min(static_cast<int>(threadIdx.x) * per, nw);
+  const int w1 = min(w0 + per, nw);
+  int cnt = 0;
+  for (int w = w0; w < w1; ++w) cnt += __popc(map[w]);
+  int total;
+  int rank = block_exclusive_scan<kT>(cnt, s_warp, &total);
+  for (int w = w0; w < w1; ++w) {
+    for (unsigned bits = map[w]; bits != 0u; bits &= bits - 1u)
+      out[rank++] = lo + 32 * w + __ffs(bits) - 1;
+  }
+  __syncthreads();  // the map is read before it is cleared again
+  return total;
+}
+
+// The item of long-run entry li: the runs longer than kBig first.
+__device__ __forceinline__ int long_item(const Runs& r, int n_big, int li) {
+  return li < n_big ? __ldcg(r.long_items + li)
+                    : __ldcg(r.long_items + r.max_long - 1 - (li - n_big));
+}
+
+
+// The runs longer than kLong, each in ascending user order from placed
+// into ordered (the same positions), a block a run, the runs longer than
+// kBig first: the run's users marked in a bitmap in shared memory (a
+// chunk of 32·nw_max users at a time) and written back in order.  The
+// long-run kernel then streams each run.
+__global__ void __launch_bounds__(kLongThreads)
+order_long_kernel(const Runs r, int U, int nw_max) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* map = reinterpret_cast<unsigned*>(smem);
+  __shared__ int s_warp[kLongThreads / 32];
+  wait_prior_kernel();
+  allow_next_kernel();
+  const int n_big = __ldcg(r.ctrl + kBigCount);
+  const int n_long = n_big + __ldcg(r.ctrl + kLongCount);
+  for (int li = blockIdx.x; li < n_long; li += gridDim.x) {
+    const int i = long_item(r, n_big, li);
+    const int s = __ldcg(r.offs + i), n = __ldcg(r.offs + i + 1) - s;
+    int done = 0;
+    for (int lo = 0; lo < U && done < n; lo += 32 * nw_max) {
+      const int nw = min(nw_max, (U - lo + 31) / 32);
+      map_run(map, nw, r.placed + s, n, lo);
+      done += write_map<kLongThreads>(map, nw, lo, s_warp,
+                                      r.ordered + s + done);
+    }
   }
 }
 
 // ---- Collisions: the item side ------------------------------------------
-
-// First position p in [lo, hi) with keys[p] >= v (keys ascending).
-__device__ __forceinline__ int lower_bound(const int* keys, int lo, int hi,
-                                           int v) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < v)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
 
 // One column of a pair's item delta, rounded to the table type:
 //   lr · (err · û − reg ⊙ r) [/ denom],  û = [u[:F], 1, 0…],
@@ -547,56 +728,107 @@ __device__ __forceinline__ void pair_delta(float4 (&d)[L::V],
   }
 }
 
+// A row in flight as loaded: float4s, or a bf16 row's packed words (half
+// the registers, unpacked when it is used).
+template <class L>
+struct Held {
+  typename std::conditional<L::kBf16, uint4, float4>::type
+      w[L::kBf16 ? L::V16 : L::V];
+};
+
+template <class L>
+__device__ __forceinline__ void load_held(const typename L::Elem* row, int gl,
+                                          int last, Held<L>& h) {
+  if constexpr (L::kBf16)
+    load_words<L, Read::kReadOnly>(row, gl, last, h.w);
+  else
+    load_row<L, Read::kReadOnly>(row, gl, last, h.w);
+}
+
+template <class L>
+__device__ __forceinline__ void unpack_held(const Held<L>& h,
+                                            float4 (&x)[L::V]) {
+  if constexpr (L::kBf16) {
+    unpack_words<L>(h.w, x);
+  } else {
+#pragma unroll
+    for (int k = 0; k < L::V; ++k) x[k] = h.w[k];
+  }
+}
+
 // The item side of mean/sum for runs of at most kLong pairs, in the row
-// layout: a lane group an item adds its users' deltas in user order,
-// rounding to the table type after each add, with the next user's row in
-// flight.  Longer runs go to the long-run list.
+// layout: a lane group an item, the warps taking items a warp's rows at a
+// time from a ticket, so that the blocks that run while the long-run
+// kernel holds part of the card take the work of those that do not.  The
+// group orders its run (order_run), then adds its users' deltas in user
+// order, rounding to the table type after each add, kInFlight pairs' rows
+// and errors loaded before the first of them is added.  Launched early
+// behind the long-run kernel; it waits for it at its end, so that the step
+// ends when both have.
 template <class L, bool kMean>
 __global__ void __launch_bounds__(kThreads, kCollideMinBlocks)
-collide_item_kernel(const Step a, const int* __restrict__ sorted_items,
-                    const int* __restrict__ sorted_users,
-                    int* __restrict__ long_items, int* long_count) {
+collide_item_kernel(const Step a, const Runs r) {
   using T = typename L::Elem;
-  constexpr int G = L::G, W = L::kWidth;
-  const int lane = threadIdx.x & 31;
+  constexpr int G = L::G, NG = L::kRowsPerWarp, W = L::kWidth;
+  __shared__ int s_run[kWarps][NG * kLong];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gl = lane & (G - 1);
-  const int i = warp_first_row<L>() + lane / G;
-  if (i >= a.I) return;
-  const int s = lower_bound(sorted_items, 0, a.U, i);
-  const int e = lower_bound(sorted_items, s, a.U, i + 1);
-  if (e - s > kLong) {
-    if (gl == 0) long_items[atomicAdd(long_count, 1)] = i;
-    return;
-  }
-  float4 acc[L::V];
-  load_row<L, Read::kReadOnly>(row_ptr<L>(a.T_i, i), gl, W - 1, acc);
-  if (e > s) {
-    float4 r[L::V], o[L::V], d[L::V];
+  const int g = lane / G;
+  int* run = s_run[warp] + g * kLong;
+  const int n_tiles = (a.I + NG - 1) / NG;
+  for (;;) {
+    int tile = 0;
+    if (lane == 0) tile = atomicAdd(r.ctrl + kShortTicket, 1);
+    tile = __shfl_sync(0xffffffffu, tile, 0);
+    if (tile >= n_tiles) break;
+    const int i0 = tile * NG, i = i0 + g;
+    const int p = load_window_l2(r.offs, i0, a.I, NG + 1);
+    const int s = __shfl_sync(0xffffffffu, p, g);
+    const int n = __shfl_sync(0xffffffffu, p, g + 1) - s;
+    const bool mine = i < a.I && n <= kLong;
+    float4 acc[L::V];
+    if (mine) load_row<L, Read::kReadOnly>(row_ptr<L>(a.T_i, i), gl, W - 1,
+                                           acc);
+    order_run<G>(run, r.placed + s, n, gl, mine);
+    if (mine && n > 0) {
+      float4 pre[L::V];
 #pragma unroll
-    for (int k = 0; k < L::V; ++k) r[k] = acc[k];
-    const float denom = static_cast<float>(e - s);
-    int u = __ldg(sorted_users + s);
-    float err = __ldg(a.pair_err + u);
-    load_row<L, Read::kReadOnly>(row_ptr<L>(a.T_u, u), gl, a.F, o);
-    for (int p = s; p < e; ++p) {
-      pair_delta<L, kMean>(d, r, o, err, denom, gl, a.F, a.lr, a.reg_q,
-                           a.reg_ib);
-      if (p + 1 < e) {  // the next pair's loads, before this pair's adds
-        u = __ldg(sorted_users + p + 1);
-        err = __ldg(a.pair_err + u);
-        load_row<L, Read::kReadOnly>(row_ptr<L>(a.T_u, u), gl, a.F, o);
-      }
+      for (int k = 0; k < L::V; ++k) pre[k] = acc[k];
+      const float denom = static_cast<float>(n);
+      for (int b = 0; b < n; b += kInFlight) {
+        Held<L> o[kInFlight];
+        float err[kInFlight];
 #pragma unroll
-      for (int k = 0; k < L::V; ++k) {
-        if (L::col(gl, k) > a.F) continue;
-        acc[k].x = round_to<T>(acc[k].x + d[k].x);
-        acc[k].y = round_to<T>(acc[k].y + d[k].y);
-        acc[k].z = round_to<T>(acc[k].z + d[k].z);
-        acc[k].w = round_to<T>(acc[k].w + d[k].w);
+        for (int k = 0; k < kInFlight; ++k) {
+          if (b + k < n) {
+            const int u = run[b + k];
+            err[k] = __ldcg(a.pair_err + u);
+            load_held<L>(row_ptr<L>(a.T_u, u), gl, a.F, o[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kInFlight; ++k) {
+          if (b + k >= n) break;
+          float4 x[L::V], d[L::V];
+          unpack_held<L>(o[k], x);
+          pair_delta<L, kMean>(d, pre, x, err[k], denom, gl, a.F, a.lr,
+                               a.reg_q, a.reg_ib);
+#pragma unroll
+          for (int c = 0; c < L::V; ++c) {
+            if (L::col(gl, c) > a.F) continue;
+            acc[c].x = round_to<T>(acc[c].x + d[c].x);
+            acc[c].y = round_to<T>(acc[c].y + d[c].y);
+            acc[c].z = round_to<T>(acc[c].z + d[c].z);
+            acc[c].w = round_to<T>(acc[c].w + d[c].w);
+          }
+        }
       }
     }
+    if (mine) store_row<L>(row_ptr<L>(a.T_i_out, i), gl, acc);
+    __syncwarp();  // the run buffer is read before the next tile writes it
   }
-  store_row<L>(row_ptr<L>(a.T_i_out, i), gl, acc);
+  wait_prior_kernel();
+  allow_next_kernel();
 }
 
 template <typename T>
@@ -615,131 +847,245 @@ __device__ __forceinline__ T from_float(float v) {
     return v;
 }
 
-// The item side of mean/sum for the runs longer than kLong: a block a
-// (long-run item, slice of kSliceCols columns) pair, the blocks striding
-// over the pairs, so that the slices of one hot item run on several SMs
-// side by side.  For each tile of the run's users, every warp loads its
-// rows' entries of the slice (a lane a column, all the tile's loads in
-// flight before the first is used) and writes their deltas into shared
-// memory; then the first warp adds them in user order, a lane a column,
-// rounding after each add.
+// The long-run kernel's shared memory: two tiles of deltas.
+constexpr size_t kLongSmem = 2 * sizeof(float) * kLongTile * kSliceCols;
+
+// acc plus d[0][lane], …, d[nt - 1][lane] in that order, rounded to the
+// table type after each add, eight deltas at a time loaded into registers
+// so that each add waits only on the one before it.
+template <typename T>
+__device__ __forceinline__ float add_chain(float acc,
+                                           const float (*d)[kSliceCols],
+                                           int nt, int lane) {
+  int k = 0;
+  for (; k + 8 <= nt; k += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = d[k + j][lane];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = round_to<T>(acc + v[j]);
+  }
+  for (; k < nt; ++k) acc = round_to<T>(acc + d[k][lane]);
+  return acc;
+}
+
+// The order pass's bitmap: nw words.
+size_t map_smem(int nw) { return sizeof(unsigned) * nw; }
+
+// The bitmap's words for U users.
+int map_words(int U) {
+  const int nw = (U + 31) / 32;
+  return nw < kMapWords ? nw : kMapWords;
+}
+
+// The item side of mean/sum for the runs longer than kLong: a block takes
+// a (long-run item, slice of kSliceCols columns holding a column <= F)
+// from a ticket, the runs longer than kBig first, so that a hot item's
+// slices start at once on several SMs.  It streams the run in the order
+// order_long_kernel wrote it, a tile of kLongTile pairs at a time: warps
+// 1-7 compute tile t's deltas of the slice (a lane a column, a row a warp
+// at a time) into shared memory from the rows they loaded during the tile
+// before, then issue the loads of tile t + 1's rows (32 a warp in flight)
+// and of tile t + 2's users, while warp 0 adds tile t - 1's deltas in user
+// order, a lane a column, eight at a time into registers so that each add
+// waits only on the one before it, rounding after each add.
 template <class L, bool kMean>
-__global__ void __launch_bounds__(kLongThreads)
-collide_long_kernel(const Step a, const int* __restrict__ sorted_items,
-                    const int* __restrict__ sorted_users,
-                    const int* __restrict__ long_items,
-                    const int* __restrict__ long_count) {
+__global__ void __launch_bounds__(kLongThreads, 1)
+collide_long_kernel(const Step a, const Runs r) {
   using T = typename L::Elem;
   constexpr int W = L::kWidth;
   constexpr int kSlices = W / kSliceCols;
-  constexpr int kWarpsL = kLongThreads / 32;
-  constexpr int kRows = kLongTile / kWarpsL;  // a warp's rows of a tile
-  static_assert(W % kSliceCols == 0 && kSliceCols == 32, "a lane a column");
-  __shared__ float s_d[kLongTile][kSliceCols];
-  const int n_units = *long_count * kSlices;
+  constexpr int kRows = 32;  // rows of a tile a producer warp loads
+  static_assert(kSliceCols == 32 && kLongTile == 7 * kRows,
+                "a lane a column, warps 1-7 a tile");
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto s_d = reinterpret_cast<float(*)[kLongTile][kSliceCols]>(smem);
+  __shared__ int s_unit;
+  wait_prior_kernel();
+  allow_next_kernel();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
-    const int i = long_items[unit / kSlices];
-    const int c = (unit % kSlices) * kSliceCols + lane;
-    const int s = lower_bound(sorted_items, 0, a.U, i);
-    const int e = lower_bound(sorted_items, s, a.U, i + 1);
-    const float r = to_float<T>(row_ptr<L>(a.T_i, i)[c]);
+  const int live_slices = a.F / kSliceCols + 1;
+  const int n_big = __ldcg(r.ctrl + kBigCount);
+  const int n_units = (n_big + __ldcg(r.ctrl + kLongCount)) * live_slices;
+  for (;;) {
+    if (threadIdx.x == 0) s_unit = atomicAdd(r.ctrl + kLongTicket, 1);
+    __syncthreads();
+    const int unit = s_unit;
+    __syncthreads();
+    if (unit >= n_units) break;
+    const int slice = unit % live_slices;
+    const int i = long_item(r, n_big, unit / live_slices);
+    const int s = __ldcg(r.offs + i);
+    const int n = __ldcg(r.offs + i + 1) - s;
+    const int c = slice * kSliceCols + lane;
     const bool live = c <= a.F;  // the columns past F keep their entry
-    const float denom = static_cast<float>(e - s);
-    float acc = r;
-    for (int t0 = s; t0 < e; t0 += kLongTile) {
-      const int nt = min(kLongTile, e - t0);
-      if (live) {
-        int u[kRows];
-        float o[kRows], err[kRows];
+    const float pre = to_float<T>(__ldg(row_ptr<L>(a.T_i, i) + c));
+    const float denom = static_cast<float>(n);
+    const int tiles = (n + kLongTile - 1) / kLongTile;
+    const int* run = r.ordered + s;
+    const bool producer = warp > 0 && live;
+    const int row0 = (warp - 1) * kRows;
+    int u[kRows];
+    float o[kRows], err[kRows];
+    auto users_of = [&](int t) {
 #pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const int row = warp + j * kWarpsL;
-          u[j] = row < nt ? __ldg(sorted_users + t0 + row) : -1;
-        }
+      for (int j = 0; j < kRows; ++j) {
+        const int k = t * kLongTile + row0 + j;
+        u[j] = k < n ? __ldcg(run + k) : -1;
+      }
+    };
+    auto rows_of = [&]() {
 #pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          o[j] = u[j] >= 0 ? to_float<T>(__ldg(row_ptr<L>(a.T_u, u[j]) + c))
-                           : 0.f;
-          err[j] = u[j] >= 0 ? __ldg(a.pair_err + u[j]) : 0.f;
-        }
+      for (int j = 0; j < kRows; ++j) {
+        o[j] = u[j] >= 0 ? to_float<T>(__ldg(row_ptr<L>(a.T_u, u[j]) + c))
+                         : 0.f;
+        err[j] = u[j] >= 0 ? __ldcg(a.pair_err + u[j]) : 0.f;
+      }
+    };
+    if (producer) {
+      users_of(0);
+      rows_of();
+      users_of(1);
+    }
+    float acc = pre;
+    for (int t = 0; t <= tiles; ++t) {
+      if (producer && t < tiles) {
 #pragma unroll
         for (int j = 0; j < kRows; ++j)
-          if (u[j] >= 0)
-            s_d[warp + j * kWarpsL][lane] = delta_col<T, kMean>(
-                r, o[j], c, a.F, err[j], denom, a.lr, a.reg_q, a.reg_ib);
+          if (t * kLongTile + row0 + j < n)
+            s_d[t & 1][row0 + j][lane] = delta_col<T, kMean>(
+                pre, o[j], c, a.F, err[j], denom, a.lr, a.reg_q, a.reg_ib);
+        if (t + 1 < tiles) {
+          rows_of();
+          users_of(t + 2);
+        }
+      } else if (warp == 0 && t > 0 && live) {
+        const int nt = min(kLongTile, n - (t - 1) * kLongTile);
+        acc = add_chain<T>(acc, s_d[(t - 1) & 1], nt, lane);
       }
       __syncthreads();
-      if (warp == 0 && live)
-        for (int k = 0; k < nt; ++k) acc = round_to<T>(acc + s_d[k][lane]);
-      __syncthreads();  // the tile is read before the next one is written
     }
-    if (warp == 0) row_ptr<L>(a.T_i_out, i)[c] = from_float<T>(acc);
+    if (warp == 0) {
+      T* out = row_ptr<L>(a.T_i_out, i);
+      const T* in = row_ptr<L>(a.T_i, i);
+      out[c] = from_float<T>(acc);
+      if (slice == live_slices - 1)  // the slices past column F as they are
+        for (int k = slice + 1; k < kSlices; ++k)
+          out[k * kSliceCols + lane] = in[k * kSliceCols + lane];
+    }
   }
 }
 
-// Launches kernel(a) so that it may start before the kernel ahead of it on
-// the stream has ended (see wait_prior_kernel).
-template <typename Kernel>
-cudaError_t launch_early(Kernel kernel, int blocks, cudaStream_t s,
-                         const Step& a) {
+// Launches kernel(args…) so that it may start before the kernel ahead of
+// it on the stream has ended (see wait_prior_kernel).
+template <typename... Exp, typename... Act>
+cudaError_t launch_pdl(void (*kernel)(Exp...), int blocks, int threads,
+                       size_t smem, cudaStream_t s, Act&&... args) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, a);
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
 }
 
-int sort_tiles(int U) { return (U + kSortTile - 1) / kSortTile; }
+template <typename Kernel>
+cudaError_t launch_early(Kernel kernel, int blocks, cudaStream_t s,
+                         const Step& a) {
+  return launch_pdl(kernel, blocks, kThreads, 0, s, a);
+}
 
 // The most items that can have a run longer than kLong.
 int max_long(int U) { return U / (kLong + 1) + 1; }
 
-// The collision kernels after the user kernel.  ws: the workspace of
-// sgd_step_workspace(U) ints, its first 2·U the pairs the user kernel wrote.
-template <class L>
-int launch_collisions(const Step& a, bool mean, cudaStream_t s, int* ws,
-                      int item_blocks) {
-  const int U = a.U;
-  const int tiles = sort_tiles(U);
-  int* hist = ws + 6 * static_cast<size_t>(U);
-  int* long_items = hist + kDigits * tiles;
-  int* long_count = long_items + max_long(U);
-  const int* keys = a.pair_item;
-  const int* vals = nullptr;
-  const int units = max_long(U) * (L::kWidth / kSliceCols);
-  const int long_blocks = units < kLongBlocks ? units : kLongBlocks;
-  int bits = 0;
-  while (bits < 31 && (a.I >> bits) != 0) ++bits;  // keys are 0 … I
-  for (int pass = 0; pass * kDigitBits < bits; ++pass) {
-    int* kout = ws + (2 + 2 * (pass & 1)) * static_cast<size_t>(U);
-    int* vout = kout + U;
-    const int shift = pass * kDigitBits;
-    sort_hist_kernel<<<tiles, kSortThreads, 0, s>>>(
-        keys, U, shift, hist, pass == 0 ? long_count : nullptr);
-    exclusive_scan_kernel<<<1, kScanThreads, 0, s>>>(hist, kDigits * tiles);
-    sort_scatter_kernel<<<tiles, kSortThreads, 0, s>>>(keys, vals, kout, vout,
-                                                       U, shift, hist);
-    keys = kout;
-    vals = vout;
+int scan_tiles(int I) { return (I + kScanTile - 1) / kScanTile; }
+
+// The workspace of a mean/sum step, in ints: the control words and the
+// scan's tile states, then each user's item, error and slot, the users
+// run by run, the long runs ordered, the run offsets and the long-run
+// lists.
+long long workspace_ints(int U, int I) {
+  return kCtrlInts + 2LL * scan_tiles(I) + 5LL * U + (I + 1LL) + max_long(U);
+}
+
+Runs runs_in(int* ws, int U, int I) {
+  Runs r;
+  r.ctrl = ws;
+  r.status = reinterpret_cast<unsigned long long*>(ws + kCtrlInts);
+  int* users = ws + kCtrlInts + 2 * static_cast<size_t>(scan_tiles(I));
+  r.placed = users + 3 * static_cast<size_t>(U);
+  r.ordered = r.placed + U;
+  r.offs = r.ordered + U;
+  r.long_items = r.offs + I + 1;
+  r.max_long = max_long(U);
+  return r;
+}
+
+// The card's SMs (the grids of the collision item side).
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
-  if (mean) {
-    collide_item_kernel<L, true><<<item_blocks, kThreads, 0, s>>>(
-        a, keys, vals, long_items, long_count);
-    collide_long_kernel<L, true><<<long_blocks, kLongThreads, 0, s>>>(
-        a, keys, vals, long_items, long_count);
-  } else {
-    collide_item_kernel<L, false><<<item_blocks, kThreads, 0, s>>>(
-        a, keys, vals, long_items, long_count);
-    collide_long_kernel<L, false><<<long_blocks, kLongThreads, 0, s>>>(
-        a, keys, vals, long_items, long_count);
+  return n;
+}
+
+// The order pass of the long runs (its bitmap above 48 KB of shared
+// memory needs the kernel's attribute raised once).
+cudaError_t launch_order(const Runs& r, int U, cudaStream_t s, bool early) {
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        order_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(map_smem(kMapWords)));
+    if (e != cudaSuccess) return e;
+    raised = true;
   }
-  return static_cast<int>(cudaGetLastError());
+  const int nw = map_words(U);
+  if (early)
+    return launch_pdl(order_long_kernel, sm_count(), kLongThreads,
+                      map_smem(nw), s, r, U, nw);
+  order_long_kernel<<<sm_count(), kLongThreads, map_smem(nw), s>>>(r, U, nw);
+  return cudaGetLastError();
+}
+
+// The scan, the placement and the item side, after the user kernel.
+template <class L, bool kMean>
+cudaError_t launch_runs(const Step& a, const Runs& r, cudaStream_t s) {
+  auto long_kernel = collide_long_kernel<L, kMean>;
+  auto item_kernel = collide_item_kernel<L, kMean>;
+  static int item_blocks = 0;  // resident blocks of the item kernel an SM
+  if (item_blocks == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kLongSmem));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &item_blocks, item_kernel, kThreads, 0);
+    if (e != cudaSuccess) return e;
+  }
+  cudaError_t e = launch_pdl(run_offsets_kernel, scan_tiles(a.I),
+                             kScanThreads, 0, s, a.counts, a.I, r);
+  if (e == cudaSuccess)
+    e = launch_pdl(place_runs_kernel,
+                   (a.U + kPlaceThreads - 1) / kPlaceThreads, kPlaceThreads,
+                   0, s, static_cast<const int*>(a.pair_item),
+                   static_cast<const int*>(a.slot), a.U, a.I, r);
+  if (e == cudaSuccess) e = launch_order(r, a.U, s, true);
+  if (e == cudaSuccess)
+    e = launch_pdl(long_kernel, sm_count(), kLongThreads, kLongSmem, s, a,
+                   r);
+  if (e == cudaSuccess)
+    e = launch_pdl(item_kernel, sm_count() * item_blocks, kThreads, 0, s, a,
+                   r);
+  return e;
 }
 
 template <class L>
@@ -752,14 +1098,64 @@ int launch_step(const Step& a, int mode, cudaStream_t s, int* ws) {
       : launch_early(sgd_user_kernel<L, false>, user_blocks, s, a);
   if (e != cudaSuccess || mode == kUsersOnly) return static_cast<int>(e);
   const int blocks = (a.I + kRows - 1) / kRows;
-  if (pairs) return launch_collisions<L>(a, mode == kMean, s, ws, blocks);
-  if (mode == kFirstWins)
+  if (pairs) {
+    const Runs r = runs_in(ws, a.U, a.I);
+    e = mode == kMean ? launch_runs<L, true>(a, r, s)
+                      : launch_runs<L, false>(a, r, s);
+  } else if (mode == kFirstWins) {
     e = launch_early(sgd_item_kernel<L, 0>, blocks, s, a);
-  else if (mode == kTwinMirror)
+  } else if (mode == kTwinMirror) {
     e = launch_early(sgd_item_kernel<L, 1>, blocks, s, a);
-  else
+  } else {
     e = launch_early(sgd_item_kernel<L, 2>, blocks, s, a);
+  }
   return static_cast<int>(e);
+}
+
+// ---- The runs alone: what chip_smoke.py and the card tests hold against
+// a stable sort of the step's pairs ---------------------------------------
+
+// The step's sampling (as sgd_user_kernel draws it) and its counts and
+// slots, a thread a user.
+__global__ void __launch_bounds__(kPlaceThreads)
+runs_sample_kernel(const Step a) {
+  const int u = blockIdx.x * kPlaceThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  clear_ctrl(a.ctrl, a.n_ctrl);
+  int item = a.I, len = 0;
+  if (u < a.U) {
+    const int start = __ldg(a.indptr + u);
+    len = __ldg(a.indptr + u + 1) - start;
+    if (len > 0)
+      item = __ldg(a.indices + start + draw_offset(
+          draw_u01(a.k0, a.k1, a.it, static_cast<uint32_t>(u)), len));
+  }
+  const int slot = count_pair(a.counts, len > 0 ? item : -1 - lane);
+  if (u < a.U) {
+    a.pair_item[u] = len > 0 ? item : a.I;
+    a.slot[u] = slot;
+  }
+}
+
+// The runs of at most kLong users in the order the item kernel adds them
+// (order_run, eight lanes a run), into out.
+constexpr int kOrderG = 8;
+
+__global__ void __launch_bounds__(kThreads)
+runs_short_kernel(const Runs r, int I, int* out) {
+  constexpr int NG = 32 / kOrderG;
+  __shared__ int s_run[kWarps][NG * kLong];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gl = lane & (kOrderG - 1), g = lane / kOrderG;
+  const int i0 = (blockIdx.x * kWarps + warp) * NG, i = i0 + g;
+  const int p = load_window_l2(r.offs, i0, I, NG + 1);
+  const int s = __shfl_sync(0xffffffffu, p, g);
+  const int n = __shfl_sync(0xffffffffu, p, g + 1) - s;
+  const bool mine = i < I && n <= kLong;
+  int* run = s_run[warp] + g * kLong;
+  order_run<kOrderG>(run, r.placed + s, n, gl, mine);
+  if (mine)
+    for (int q = gl; q < n; q += kOrderG) out[s + q] = run[q];
 }
 
 }  // namespace
@@ -768,11 +1164,8 @@ extern "C" {
 
 int sgd_step_max_width() { return kMaxWidth; }
 
-// Ints of workspace a mean/sum step over U users needs.
-long long sgd_step_workspace(int U) {
-  return 6LL * U + static_cast<long long>(kDigits) * sort_tiles(U) +
-         max_long(U) + 1;
-}
+// Ints of workspace a mean/sum step over U users and I items needs.
+long long sgd_step_workspace(int U, int I) { return workspace_ints(U, I); }
 
 // One step.  Tables (rows, W) of one element type (elem: 0 float32,
 // 1 bf16), contiguous and 16-byte aligned, W one of 64, 128, 256, 384,
@@ -780,33 +1173,94 @@ long long sgd_step_workspace(int U) {
 // 0 first_wins, 1 twin mirror, 2 twin lean, 3 mean, 4 sum.  `best` (I
 // int32, all kSentinel on entry, left so on exit) and `w_rating` (U
 // floats) are used by mode 0 only; the item-major arrays by modes 1-2;
-// `ws` (sgd_step_workspace(U) ints) by modes 3-4.  Launches on `stream`;
-// returns the cudaError_t of the launches.
+// `ws` (sgd_step_workspace(U, I) ints) and `counts` (I int32, all zero on
+// entry, left so on exit) by modes 3-4.  Launches on `stream`; returns the
+// cudaError_t of the launches.
 int sgd_step_launch(const void* T_u, void* T_u_out, const void* T_i,
                     void* T_i_out, const int* indptr, const int* indices,
                     const float* data, const int* row_ids,
                     const int* it_indptr, const int* it_users,
                     const float* it_vals, const int* it_order, int* best,
-                    float* w_rating, int* ws, int U, int I, int W, int F,
-                    float mu, float lr, float reg_p, float reg_q,
-                    float reg_ub, float reg_ib, unsigned k0, unsigned k1,
-                    unsigned it, int start_user, int mode, int elem,
-                    void* stream) {
-  if (U <= 0 || I <= 0 || W <= F || F < 0 || mode < kUsersOnly ||
-      mode > kSum || ((mode == kMean || mode == kSum) && ws == nullptr))
-    return cudaErrorInvalidValue;
+                    float* w_rating, int* ws, int* counts, int U, int I,
+                    int W, int F, float mu, float lr, float reg_p,
+                    float reg_q, float reg_ub, float reg_ib, unsigned k0,
+                    unsigned k1, unsigned it, int start_user, int mode,
+                    int elem, void* stream) {
   const bool pairs = mode == kMean || mode == kSum;
-  const Step a{T_u, T_u_out, T_i, T_i_out, indptr, indices, data, row_ids,
-               it_indptr, it_users, it_vals, it_order,
-               mode == kFirstWins ? best : nullptr, w_rating,
-               pairs ? ws : nullptr,
-               pairs ? reinterpret_cast<float*>(ws + U) : nullptr, U, I, F,
-               mu, lr, reg_p, reg_q, reg_ub, reg_ib, k0, k1, it,
-               start_user};
+  if (U <= 0 || I <= 0 || W <= F || F < 0 || mode < kUsersOnly ||
+      mode > kSum || (pairs && (ws == nullptr || counts == nullptr)))
+    return cudaErrorInvalidValue;
+  Step a{T_u, T_u_out, T_i, T_i_out, indptr, indices, data, row_ids,
+         it_indptr, it_users, it_vals, it_order,
+         mode == kFirstWins ? best : nullptr, w_rating};
+  a.U = U;
+  a.I = I;
+  a.F = F;
+  a.mu = mu;
+  a.lr = lr;
+  a.reg_p = reg_p;
+  a.reg_q = reg_q;
+  a.reg_ub = reg_ub;
+  a.reg_ib = reg_ib;
+  a.k0 = k0;
+  a.k1 = k1;
+  a.it = it;
+  a.start_user = start_user;
+  if (pairs) {
+    const Runs r = runs_in(ws, U, I);
+    int* users = ws + kCtrlInts + 2 * static_cast<size_t>(scan_tiles(I));
+    a.pair_item = users;
+    a.pair_err = reinterpret_cast<float*>(users + U);
+    a.slot = users + 2 * static_cast<size_t>(U);
+    a.counts = counts;
+    a.ctrl = r.ctrl;
+    a.n_ctrl = kCtrlInts + 2 * scan_tiles(I);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_row(W, elem, [&](auto layout) {
     return launch_step<decltype(layout)>(a, mode, s, ws);
   });
+}
+
+// The runs of a mean/sum step alone: the step's sampling at iteration `it`
+// from the user-major arrays, the counts and the run offsets (`offs`, I + 1
+// int32: item i's run is users[offs[i], offs[i+1])), and each run's users
+// in the order the item side adds them (`users`, U int32; the first
+// offs[I] written).  `counts` as for sgd_step_launch, `ws` of
+// sgd_step_workspace(U, I) ints.  Launches on `stream`.
+int sgd_collision_runs(const int* indptr, const int* indices, int* counts,
+                       int* ws, int* offs, int* users, int U, int I,
+                       unsigned k0, unsigned k1, unsigned it, void* stream) {
+  if (U <= 0 || I <= 0 || counts == nullptr || ws == nullptr ||
+      offs == nullptr || users == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Runs r = runs_in(ws, U, I);
+  r.offs = offs;
+  Step a = {};
+  a.indptr = indptr;
+  a.indices = indices;
+  int* pairs = ws + kCtrlInts + 2 * static_cast<size_t>(scan_tiles(I));
+  a.pair_item = pairs;
+  a.slot = pairs + 2 * static_cast<size_t>(U);
+  a.counts = counts;
+  a.ctrl = r.ctrl;
+  a.n_ctrl = kCtrlInts + 2 * scan_tiles(I);
+  a.U = U;
+  a.I = I;
+  a.k0 = k0;
+  a.k1 = k1;
+  a.it = it;
+  const int blocks = (U + kPlaceThreads - 1) / kPlaceThreads;
+  runs_sample_kernel<<<blocks, kPlaceThreads, 0, s>>>(a);
+  run_offsets_kernel<<<scan_tiles(I), kScanThreads, 0, s>>>(counts, I, r);
+  place_runs_kernel<<<blocks, kPlaceThreads, 0, s>>>(a.pair_item, a.slot, U,
+                                                     I, r);
+  constexpr int kRunsPerBlock = kWarps * (32 / kOrderG);
+  runs_short_kernel<<<(I + kRunsPerBlock - 1) / kRunsPerBlock, kThreads, 0,
+                      s>>>(r, I, users);
+  r.ordered = users;
+  return static_cast<int>(launch_order(r, U, s, false));
 }
 
 }  // extern "C"

@@ -6,10 +6,12 @@ kernel and an item kernel, each row held in float4 registers by a group of
 lanes (four rows a warp at W = 128), each kernel launched so that its
 sampling chain runs while the kernel before it ends (programmatic
 dependent launch).  Tables are float32 or bf16 (float32 arithmetic).
-Under ``mean`` and ``sum`` the item side is a stable sort of the step's
-pairs by item and an in-order add of each item's deltas, so the result is
-deterministic.  The kernel's header says what bounds it and how the
-read-before-write hazard is handled.  Its plain version is
+Under ``mean`` and ``sum`` the item side is a counting sort of the step's
+pairs by item (run offsets from a scan across the card) and an in-order
+add of each item's deltas, so the result is deterministic;
+``collision_runs_cuda`` runs that sort alone, for the checks.  The
+kernel's header says what bounds it and how the read-before-write hazard
+is handled.  Its plain version is
 ``ops/packed.py::packed_step_reference``; ``packed_step`` takes that on CPU
 tensors and this wrapper on CUDA tensors.  The kernel takes the widths in
 ``ops/packed.py::KERNEL_WIDTHS``.
@@ -48,10 +50,12 @@ def _load():
         P, I, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
         lib.sgd_step_launch.argtypes = (
-            [P] * 15 + [I] * 4 + [F] * 6 + [U] * 3 + [I, I, I, P])
+            [P] * 16 + [I] * 4 + [F] * 6 + [U] * 3 + [I, I, I, P])
         lib.sgd_step_launch.restype = ctypes.c_int
-        lib.sgd_step_workspace.argtypes = [I]
+        lib.sgd_step_workspace.argtypes = [I, I]
         lib.sgd_step_workspace.restype = ctypes.c_longlong
+        lib.sgd_collision_runs.argtypes = [P] * 6 + [I] * 2 + [U] * 3 + [P]
+        lib.sgd_collision_runs.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -76,14 +80,17 @@ def _check(name, t, dtype, device, shape=None):
 def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
                   hp: Hyper, key, iteration: int, *, n_factors: int,
                   train_items: bool = True, collision: str = "first_wins",
-                  rotation: int = 250, best: torch.Tensor | None = None):
+                  rotation: int = 250, best: torch.Tensor | None = None,
+                  counts: torch.Tensor | None = None):
     """New ``(T_u, T_i)`` after one step; the inputs are left as they were
     (with ``train_items=False`` the returned ``T_i`` is the input).
 
     ``T_u`` (U, W) and ``T_i`` (I, W), both float32 or both bf16, on one
     CUDA device; ``dev`` a ``DeviceRatings`` there (item-major for twin).
     ``best`` is the election buffer (I,) int32, all ``INT32_MAX``, which
-    the kernel leaves so; without it a fresh one is made.
+    the kernel leaves so; ``counts`` (``mean``/``sum``) the pairs-an-item
+    buffer (I,) int32, all zero, which the kernel leaves so; without them
+    fresh ones are made.
 
     The user kernel reads ``dev.indptr``, ``dev.indices`` and ``dev.data``
     before it waits on the kernel ahead of it on the stream (programmatic
@@ -131,8 +138,13 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
     T_i_out = torch.empty_like(T_i) if mode >= 0 else T_i
     w_rating = ws = None
     if mode >= 3:
-        ws = torch.empty(lib.sgd_step_workspace(U), dtype=torch.int32,
+        ws = torch.empty(lib.sgd_step_workspace(U, I), dtype=torch.int32,
                          device=device)
+        if counts is None:
+            counts = torch.zeros(I, dtype=torch.int32, device=device)
+        _check("counts", counts, torch.int32, device, (I,))
+    else:
+        counts = None
     if mode == 0:
         if best is None:
             best = torch.full((I,), INT32_MAX, dtype=torch.int32,
@@ -148,11 +160,50 @@ def sgd_step_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float, dev,
             dev.indices.data_ptr(), dev.data.data_ptr(),
             _ptr(dev.row_ids), _ptr(dev.it_indptr), _ptr(dev.it_users),
             _ptr(dev.it_vals), _ptr(dev.it_order), _ptr(best),
-            _ptr(w_rating), _ptr(ws), U, I, W, F, mu, hp.learning_rate,
-            hp.P_reg, hp.Q_reg, hp.user_bias_reg, hp.item_bias_reg, k0, k1,
+            _ptr(w_rating), _ptr(ws), _ptr(counts), U, I, W, F, mu,
+            hp.learning_rate, hp.P_reg, hp.Q_reg, hp.user_bias_reg,
+            hp.item_bias_reg, k0, k1,
             int(iteration) & 0xFFFFFFFF,
             start_user_of(iteration, U, rotation), mode, elem, stream)
     if rc != 0:
         raise RuntimeError(f"sgd_step launch failed: cudaError {rc}")
     LAUNCHES[T_u.dtype, collision if mode >= 0 else "users"] += 1
     return T_u_out, T_i_out
+
+
+def collision_runs_cuda(dev, key, iteration: int,
+                        counts: torch.Tensor | None = None):
+    """The runs of a ``mean``/``sum`` step's item side on the card, alone:
+    ``(offsets, users)``, int32 CUDA tensors.  ``offsets`` (I + 1,): item
+    i's run is ``users[offsets[i]:offsets[i + 1]]``; ``users``: each run's
+    users in the order the kernel adds their deltas (ascending).  The
+    step's sampling at ``iteration`` from ``dev``'s user-major arrays, its
+    counting sort and each run's ordering, as the step runs them.  Its plain
+    version is ``ops/packed.py::collision_runs_reference``.  It is a check
+    of the step, not a step: ``LAUNCHES`` does not count it."""
+    device = dev.indptr.device
+    if device.type != "cuda":
+        raise ValueError(f"collision_runs_cuda takes CUDA ratings, got "
+                         f"{device}")
+    U, I = dev.n_users, dev.n_items
+    _check("indptr", dev.indptr, torch.int32, device, (U + 1,))
+    _check("indices", dev.indices, torch.int32, device)
+    if counts is None:
+        counts = torch.zeros(I, dtype=torch.int32, device=device)
+    _check("counts", counts, torch.int32, device, (I,))
+    lib = _load()
+    ws = torch.empty(lib.sgd_step_workspace(U, I), dtype=torch.int32,
+                     device=device)
+    offsets = torch.empty(I + 1, dtype=torch.int32, device=device)
+    users = torch.empty(U, dtype=torch.int32, device=device)
+    k0, k1 = _key_words(key)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.sgd_collision_runs(
+            dev.indptr.data_ptr(), dev.indices.data_ptr(), counts.data_ptr(),
+            ws.data_ptr(), offsets.data_ptr(), users.data_ptr(), U, I, k0,
+            k1, int(iteration) & 0xFFFFFFFF, stream)
+    if rc != 0:
+        raise RuntimeError(f"sgd_collision_runs launch failed: cudaError "
+                           f"{rc}")
+    return offsets, users[:int(offsets[I])]

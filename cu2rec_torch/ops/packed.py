@@ -194,6 +194,35 @@ def scatter_add_in_order(T: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def collision_runs_reference(items: torch.Tensor, has: torch.Tensor,
+                             n_items: int):
+    """The runs of a ``mean``/``sum`` step's pairs, in plain torch:
+    ``(offsets, users)``, int32.  ``offsets`` (n_items + 1,) holds each
+    item's run start (the count of pairs of the items before it), so item
+    i's run is ``users[offsets[i]:offsets[i + 1]]``; ``users`` lists the
+    users with a pair (``has``), ordered by item and, within an item, by
+    user: the order in which ``scatter_add_in_order`` adds them.  ``items``
+    is the sampled item of each user (``sample_items``)."""
+    users = torch.nonzero(has)[:, 0]
+    keys = items[users]
+    order = torch.sort(keys, stable=True).indices
+    offsets = torch.zeros(n_items + 1, dtype=torch.int64, device=items.device)
+    offsets[1:] = torch.cumsum(torch.bincount(keys, minlength=n_items), 0)
+    return offsets.to(torch.int32), users[order].to(torch.int32)
+
+
+def collision_runs(dev, key, iteration: int):
+    """The runs of a ``mean``/``sum`` step at ``iteration``: K0a's counting
+    sort (``cuda_sgd.collision_runs_cuda``) on CUDA ratings,
+    ``collision_runs_reference`` of the step's sampled pairs on CPU ones."""
+    if dev.indptr.device.type == "cpu":
+        items, _ratings, has = sample_items(key, iteration, dev.indptr,
+                                            dev.indices, dev.data)
+        return collision_runs_reference(items, has, dev.n_items)
+    from cu2rec_torch.ops.cuda_sgd import collision_runs_cuda
+    return collision_runs_cuda(dev, key, iteration)
+
+
 def packed_step_reference(pm: PackedModel, dev, hp: Hyper, key,
                           iteration: int, *, train_items: bool = True,
                           collision: str = "first_wins",
@@ -270,12 +299,13 @@ def packed_step_reference(pm: PackedModel, dev, hp: Hyper, key,
 
 def packed_step(pm: PackedModel, dev, hp: Hyper, key, iteration: int, *,
                 train_items: bool = True, collision: str = "first_wins",
-                rotation: int = 250, best=None, mu=None) -> PackedModel:
+                rotation: int = 250, best=None, counts=None,
+                mu=None) -> PackedModel:
     """One SGD iteration over packed tables (single device): kernel K0a on
     CUDA tensors, ``packed_step_reference`` on CPU tensors.  ``best`` (K0a's
-    election buffer) and ``mu`` (the global bias as a float, read once
-    instead of once a step) are what ``packed_run_steps`` carries across
-    steps."""
+    election buffer), ``counts`` (its pairs-an-item buffer under mean and
+    sum) and ``mu`` (the global bias as a float, read once instead of once a
+    step) are what ``packed_run_steps`` carries across steps."""
     if pm.T_u.device.type == "cpu":
         return packed_step_reference(pm, dev, hp, key, iteration,
                                      train_items=train_items,
@@ -286,7 +316,7 @@ def packed_step(pm: PackedModel, dev, hp: Hyper, key, iteration: int, *,
     T_u, T_i = sgd_step_cuda(pm.T_u, pm.T_i, mu, dev, hp,
                              key, iteration, n_factors=pm.n_factors,
                              train_items=train_items, collision=collision,
-                             rotation=rotation, best=best)
+                             rotation=rotation, best=best, counts=counts)
     return PackedModel(T_u=T_u, T_i=T_i, global_bias=pm.global_bias,
                        n_factors=pm.n_factors)
 
@@ -296,14 +326,17 @@ def packed_run_steps(pm: PackedModel, dev, hp: Hyper, key, start_iter: int,
                      collision: str = "first_wins") -> PackedModel:
     """``n_steps`` iterations from ``start_iter``: a host loop of steps (one
     or two kernel launches each on the card, nothing synchronizes)."""
-    best = mu = None
+    best = counts = mu = None
     if pm.T_u.device.type == "cuda":
         mu = float(pm.global_bias)
+        I = pm.T_i.shape[0]
         if train_items and collision == "first_wins":
-            best = torch.full((pm.T_i.shape[0],), INT32_MAX,
-                              dtype=torch.int32, device=pm.T_u.device)
+            best = torch.full((I,), INT32_MAX, dtype=torch.int32,
+                              device=pm.T_u.device)
+        if train_items and collision in ("mean", "sum"):
+            counts = torch.zeros(I, dtype=torch.int32, device=pm.T_u.device)
     for i in range(int(n_steps)):
         pm = packed_step(pm, dev, hp, key, int(start_iter) + i,
                          train_items=train_items, collision=collision,
-                         best=best, mu=mu)
+                         best=best, counts=counts, mu=mu)
     return pm

@@ -944,3 +944,135 @@ def test_train_bf16_and_mean_on_card_track_cpu(cuda_device):
         assert losses["cpu"].keys() == losses["cuda"].keys()
         for k in losses["cpu"]:
             assert abs(losses["cpu"][k] - losses["cuda"][k]) <= 2e-3, kw
+
+
+# ---- The runs of mean/sum at many blocks ----------------------------------
+
+# kLong and kBig of csrc/sgd_step.cu: the longest run the item kernel adds
+# itself, and the runs the long-run kernel takes first.
+K_LONG, K_BIG = 32, 896
+
+
+def _run_ratings(U, I, seed):
+    """Ratings at a size that spans many blocks of every collision kernel:
+    users 0-99 have no rating; single-rating users, scattered over the
+    user ids, give item 7 a run of 2,000 pairs (several long-run tiles,
+    above kBig), items 11 and 12 runs of exactly kLong and kLong + 1, item
+    13 a run of 100 and item I - 1 one of 36 at every step; the other users
+    rate 1-4 random items."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(np.arange(100, U))
+    fixed = [(7, 2000), (11, K_LONG), (12, K_LONG + 1), (13, 100),
+             (I - 1, 36)]
+    users, items, at = [], [], 0
+    for item, n in fixed:
+        users.append(ids[at:at + n])
+        items.append(np.full(n, item))
+        at += n
+    rest = ids[at:]
+    deg = rng.integers(1, 5, len(rest))
+    users.append(np.repeat(rest, deg))
+    items.append(rng.integers(14, I - 1, int(deg.sum())))
+    users, items = np.concatenate(users), np.concatenate(items)
+    keys = np.unique(users.astype(np.int64) * I + items)
+    return csr_from_arrays((keys // I).astype(np.int32),
+                           (keys % I).astype(np.int32),
+                           (rng.integers(1, 11, len(keys)) / 2.0).astype(
+                               np.float32), U, I)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("U,I", [(20_011, 3_001), (300_007, 3_001)])
+@pytest.mark.parametrize("iteration", [0, 1, 4095])
+def test_collision_runs_match_stable_sort(cuda_device, U, I, iteration):
+    """The step's sampling and counting sort on the card alone
+    (``collision_runs_cuda``): the run offsets and each run's users bit for
+    bit ``torch.sort(items[has], stable=True)`` and ``torch.bincount``;
+    300,007 users map a long run's bitmap in two chunks.  The counts buffer
+    is left zero."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.cuda_sgd import collision_runs_cuda
+    from cu2rec_torch.ops.sgd import prng_key, sample_items
+
+    dev = to_device(_run_ratings(U, I, seed=iteration), cuda_device)
+    counts = torch.zeros(I, dtype=torch.int32, device=cuda_device)
+    for _ in range(2):
+        offsets, users = collision_runs_cuda(dev, prng_key(3), iteration,
+                                             counts=counts)
+        torch.cuda.synchronize()
+        assert not counts.any()
+        items, _r, has = sample_items(prng_key(3), iteration, dev.indptr,
+                                      dev.indices, dev.data)
+        who = torch.nonzero(has)[:, 0]
+        keys = items[who]
+        n = torch.bincount(keys, minlength=I)
+        assert int(n[7]) == 2000 and int(n[11]) == K_LONG
+        assert int(n[12]) == K_LONG + 1 and int(n[I - 1]) == 36
+        assert not has[:100].any()
+        want = torch.zeros(I + 1, dtype=torch.int64, device=cuda_device)
+        want[1:] = torch.cumsum(n, 0)
+        assert torch.equal(offsets.long(), want)
+        assert torch.equal(users.long(),
+                           who[torch.sort(keys, stable=True).indices])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("dtype,collision", [
+    ("float32", "mean"), ("float32", "sum"), ("bfloat16", "mean"),
+    ("bfloat16", "sum")])
+@pytest.mark.parametrize("hot", [False, True])
+def test_mean_sum_steps_at_many_blocks_match_plain(cuda_device, F, dtype,
+                                                   collision, hot):
+    """The mean/sum variants at U = 20,011, I = 3,001 (many blocks of each
+    collision kernel), uniform items or the runs of ``_run_ratings``, step
+    by step from the same tables: float32 within 1e-5, bf16 within
+    BF16_CHAIN_ULPS of the chain's scale on the item side (one ulp on the
+    user side), the same bits twice, through a run of steps that carries
+    the counts buffer as the trainer does.  Under sum the 2,000-pair run
+    adds 2,000 deltas to one row, which then reaches |20| and drives the
+    rows of its users to |1e4| within two steps, where one float32
+    rounding is 1e-3: the float32 gate is 1e-5 of max(1, the entry's
+    magnitude, the chain's largest magnitude), the 1e-5 of the other tests
+    at the unit scale of their tables."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.packed import (PackedModel, packed_run_steps,
+                                         packed_step, packed_step_reference)
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    U, I = 20_011, 3_001
+    csr = _run_ratings(U, I, seed=F) if hot else _ratings(U, I, seed=F)
+    dev = to_device(csr, cuda_device)
+    pm = _packed(U, I, F, seed=1, device=cuda_device)
+    if dtype == "bfloat16":
+        pm = PackedModel(T_u=pm.T_u.bfloat16(), T_i=pm.T_i.bfloat16(),
+                         global_bias=pm.global_bias, n_factors=F)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    start = pm
+    for it in (0, 1, 2):
+        got = packed_step(pm, dev, hp, prng_key(42), it, collision=collision)
+        again = packed_step(pm, dev, hp, prng_key(42), it,
+                            collision=collision)
+        peak = torch.zeros(pm.T_i.shape, device=cuda_device)
+        want = packed_step_reference(pm, dev, hp, prng_key(42), it,
+                                     collision=collision, peak=peak)
+        torch.cuda.synchronize()
+        assert torch.equal(got.T_u, again.T_u)
+        assert torch.equal(got.T_i, again.T_i)
+        for side in ("T_u", "T_i"):
+            g, w, p = (getattr(x, side) for x in (got, want, pm))
+            if dtype == "float32":
+                scale = torch.maximum(w.abs(), p.abs()).clamp(min=1.0)
+                if side == "T_i":
+                    scale = torch.maximum(scale, peak)
+                assert ((g - w).abs() <= 1e-5 * scale).all(), side
+            elif side == "T_i":
+                assert _bf16_scaled_error(g, w, p, peak) <= BF16_CHAIN_ULPS
+            else:
+                assert _bf16_scaled_error(g, w, p) <= 1.0
+        pm = got
+    run = packed_run_steps(start, dev, hp, prng_key(42), 0, 3, True,
+                           collision)
+    assert torch.equal(run.T_u, pm.T_u) and torch.equal(run.T_i, pm.T_i)

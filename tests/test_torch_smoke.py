@@ -309,3 +309,47 @@ def test_step_ab_runs_each_checkout_in_turn_and_takes_medians(
     assert median["a"]["first_wins"]["loop_ms"] == 2.5     # runs 1 and 4
     assert median["b"]["twin"]["held_ms"] == 2.5           # runs 2 and 3
     assert median["b"]["eval_error"]["held_ms"] == 5.0
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+def test_phase9_run_order_check_rejects_planted_faults(monkeypatch, skewed):
+    """Phase 9's check of a mean/sum step's runs, on the CPU at a small
+    shape: the runs pass against the stable sort, and a planted swap of two
+    users in a run and a planted dropped pair are each rejected."""
+    smoke = _smoke()
+    for name, value in (("U", 3000), ("I", 800), ("N_HEADLINE", 30_000)):
+        monkeypatch.setattr(smoke, name, value)
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.packed import collision_runs
+    from cu2rec_torch.ops.sgd import prng_key, sample_items
+
+    dr = to_device(smoke._headline_csr(0, smoke.SKEW_POWER if skewed
+                                       else None), "cpu")
+    pairs, longest = smoke._check_run_order(torch, dr, 0, "test")
+    assert pairs > 2500 and longest >= (100 if skewed else 2)
+    offsets, users = collision_runs(dr, prng_key(0), 7)
+    items, _r, has = sample_items(prng_key(0), 7, dr.indptr, dr.indices,
+                                  dr.data)
+    for fault in ("swap", "drop"):
+        bad = smoke._planted_runs(torch, offsets, users, fault)
+        with pytest.raises(smoke.SmokeFailure, match="test: the"):
+            smoke._check_runs(torch, *bad, items, has, 800, "test")
+    # The planted runs leave the inputs as they were.
+    assert smoke._check_runs(torch, offsets, users, items, has, 800,
+                             "test") == longest
+
+
+def test_item_side_time_is_the_busy_time_outside_the_user_kernel():
+    """The profile's item side: the union of the kernel intervals less the
+    user kernel's, overlaps counted once."""
+    smoke = _smoke()
+    prof = _Session([_event(CUDA, "sgd_user_kernel<128>", 0, 10),
+                     _event(CUDA, "run_offsets_kernel", 2, 12),
+                     _event(CUDA, "collide_long_kernel", 12, 30),
+                     _event(CUDA, "collide_item_kernel", 14, 20),
+                     _event(CPU, "host", 0, 100)])
+    busy, top = smoke._device_breakdown(torch, prof)
+    side, _ = smoke._device_breakdown(torch, prof,
+                                      outside="sgd_user_kernel")
+    assert busy == pytest.approx(30e-6) and side == pytest.approx(20e-6)
+    assert top[0] == ("collide_long_kernel", 0.018, 1)
