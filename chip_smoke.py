@@ -94,10 +94,38 @@ fatal on failure:
    in float32 and bf16 on ML-100K-shaped CSVs, ``foldin_ranking_eval``
    explicit and implicit (recall@10 above a random 10/I), and
    ``ServeClient`` against the daemon over a unix socket: 10,000
-   single-user recommends, each the engine's own top-10, and a fold-in.
+   single-user recommends, each the engine's own top-10, and a fold-in;
+10. sharded training (``cu2rec_torch/parallel``): (a) a world of one
+   rank under NCCL at the headline shape: K0a's sharded mode
+   (``csrc/sgd_sharded.cu``, the kernels split at the collectives) for
+   first_wins, twin, mean and sum, float32 and bf16, two steps each
+   against the plain local step (float32 within 1e-5, bf16 within one
+   ulp of the operands' scale: the step rounds once), timed with the
+   stream held beside the fused K0a step in the same call and beside its
+   bound (the one-device bytes plus the deltas' traffic); then
+   ``ShardedEngine`` three steps of each policy, float32 against the
+   one-device engine (tables within 1e-6 / 1e-5 of max(1, |entry|), the
+   eval within rtol 1e-5) and bf16 near float32's RMSE; (b) 2 ranks
+   (dp=2) and 4 ranks (dp=2, ip=2) under gloo sharing the card, at ML-1M's
+   depth (6,040 x 3,706, 1,000,209 planted ratings) and F=100, each rank's
+   kernel step against its plain step over the grid's collectives and
+   rank 0's model against the one-device engine, each rank's memory
+   printed (gloo stages every CUDA all_reduce through the host: a check,
+   not a timing); (c) ALS and iALS two sweeps and BPR 50 steps at dp=2
+   against one device, K1 launched on every rank, BPR's ids bit-equal;
+   (d) ``mf --devices 1 --device cuda`` trains and ``mf --devices 2
+   --device cuda`` on a one-card host raises the fewer-cards error.
 
 It prints the kernels' JSON line, then the nvidia-smi name/power line, then
 ``{"ok": true, "device": {...}}`` as the last line.
+
+    python3 chip_smoke.py --nccl
+
+runs, on a host of four cards, only phases 1-2, the sharded step's time
+at the headline shape on 4 x 1 and 2 x 2 grids beside one card's fused
+step, and phase 10 (b)-(c) under NCCL, one rank a card (the engine on 4 x
+1, 2 x 2 and 1 x 4 grids, the families on 2 x 2), then ``mf --devices 4
+--device cuda`` against ``--devices 1``.
 """
 
 from __future__ import annotations
@@ -2593,9 +2621,712 @@ def phase_variants(torch, seed: int, workdir: Path, card: str,
                       "als_test_rmse": als_rmse}
 
 
+# -- phase 10: sharded training on the card --------------------------------
+
+SHARD_POLICIES = ("first_wins", "twin", "mean", "sum")
+# The gloo grids of ranks sharing the card, at ML-1M's depth (users, items,
+# planted ratings) and the headline's F: gloo stages each CUDA all_reduce
+# through the host, so these runs check the grid, they do not time it.
+SHARD_GRIDS = ((2, 1), (2, 2))
+ML1M = (6_040, 3_706, 1_000_209)
+SHARD_STEPS = 3
+# The sharded engine against the one-device engine, float32: tables within
+# 1e-6 (first_wins, twin) and 1e-5 (mean, sum) of max(1, |entry|), the eval
+# within rtol 1e-5.
+SHARD_ATOL = {"first_wins": 1e-6, "twin": 1e-6, "mean": 1e-5, "sum": 1e-5}
+SHARD_EVAL_RTOL = 1e-5
+# A bf16 engine's test RMSE against the float32 engine's (bf16 tables
+# differ from float32 ones by 2^-8 of an entry).
+BF16_EVAL_RTOL = 1e-2
+# The families at dp = 2 against one device, tables over max(1, |entry|):
+# the row-sharded sweeps multiply each chunk's rows in batches of other
+# sizes, and iALS's systems at alpha 40 are ill-conditioned enough to grow
+# those roundings (its objective must still agree within 1e-4).
+FAMILY_SHARD_GATES = {"als": 1e-3, "ials": 1e-2, "bpr": 1e-5}
+FAMILY_SHARD_RTOL = 1e-4
+BPR_SHARD_STEPS = 50
+RANK_TIMEOUT = 600.0
+
+
+def _shard_cfg(seed: int, policy: str, dtype: str = "float32"):
+    from cu2rec_torch.utils.config import Config
+
+    return Config(n_factors=F, collision_policy=policy, dtype=dtype,
+                  seed=seed)
+
+
+def _every_nth(csr, n: int):
+    """The CSR of every n-th rating (the engines' test split)."""
+    from cu2rec_torch.data.csr import CSRRatings
+
+    sel = np.arange(0, csr.nnz, n)
+    rows = csr.row_ids[sel]
+    indptr = np.zeros(csr.n_users + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=csr.n_users), out=indptr[1:])
+    return CSRRatings(indptr=indptr, indices=csr.indices[sel],
+                      data=csr.data[sel], n_users=csr.n_users,
+                      n_items=csr.n_items)
+
+
+def _model_diff(torch, a, b) -> float:
+    """The largest difference of two models' entries, each over
+    max(1, |b's entry|): float32 keeps a relative precision, and a run
+    under sum may grow its entries well past 1."""
+    return max(float(((x.float() - y.float()).abs()
+                      / y.float().abs().clamp(min=1.0)).max())
+               for x, y in zip((a.P, a.Q, a.user_bias, a.item_bias),
+                               (b.P, b.Q, b.user_bias, b.item_bias)))
+
+
+def _shard_split_bytes(csr, policy: str, elem: int) -> int:
+    """The sharded step's bytes: the one-device step's, and under every
+    policy but twin the deltas' write and read and the apply's second read
+    of T_i (``csrc/sgd_sharded.cu``)."""
+    n = _step_bytes(csr, F, policy, False, True, elem)
+    if policy != "twin":
+        n += csr.n_items * 128 * (8 + elem)
+    return n
+
+
+def _shard_headline(torch, dev, seed: int, card: str):
+    """Phase 10 (a): a world of 1 under NCCL at the headline shape.  K0a's
+    sharded mode against its plain version (two steps a variant, float32
+    within STEP_ATOL, bf16 within one ulp of the operands' scale: the
+    sharded step rounds once), timed with the stream held beside the fused
+    step; then the engine for each policy in float32 (against the
+    one-device engine) and bf16 (finite, its RMSE near float32's).
+    Returns (kernel entries, {"dtype/policy": launches})."""
+    import torch.distributed as dist
+
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.ops import cuda_sgd
+    from cu2rec_torch.ops.packed import PackedModel, packed_step, unpack
+    from cu2rec_torch.ops.sgd import prng_key
+    from cu2rec_torch.parallel.distributed import initialize
+    from cu2rec_torch.parallel.sharded import (
+        ShardedEngine, _local_step_packed, make_mesh,
+    )
+    from cu2rec_torch.train.trainer import SingleChipEngine
+
+    entries = []
+    with tempfile.TemporaryDirectory(prefix="cu2rec_rdzv_") as tmp:
+        initialize("nccl", f"file://{tmp}/rendezvous", 1, 0, dev)
+        try:
+            mesh = make_mesh(1, 1)
+            csr = _headline_csr(seed)
+            dr = to_device(csr, dev, item_major=True)
+            key, hp = prng_key(seed), _hp()
+            base = _packed_tables(torch, U, I, F, seed, dev)
+            site = _tpu_kernel_site("parallel/sharded.py",
+                                    "def _local_step_packed(")
+            for dtype in ("float32", "bfloat16"):
+                tdt = getattr(torch, dtype)
+                pm = PackedModel(T_u=base.T_u.to(tdt), T_i=base.T_i.to(tdt),
+                                 global_bias=base.global_bias, n_factors=F)
+
+                # The buffers a run of steps carries (a step makes its own
+                # without them); the global bias as a float, as the loop
+                # passes it (reading it from the card would wait for the
+                # card).
+                best = torch.full((I,), 2 ** 31 - 1, dtype=torch.int32,
+                                  device=dev)
+                counts = torch.zeros(I, dtype=torch.int32, device=dev)
+
+                def bufs(policy):
+                    return dict(
+                        best=best if policy == "first_wins" else None,
+                        counts=counts if policy in ("mean", "sum")
+                        else None)
+
+                def sharded(it, policy):
+                    return cuda_sgd.sgd_step_sharded_cuda(
+                        pm.T_u, pm.T_i, 3.5, dr, hp, key, it, n_factors=F,
+                        mesh=mesh, n_users_global=U, collision=policy,
+                        **bufs(policy))
+
+                def plain(it, policy):
+                    return _local_step_packed(
+                        pm.T_u, pm.T_i, pm.global_bias, dr.indptr,
+                        dr.indices, dr.data, hp, key, it, U, F,
+                        dr.it_indptr, dr.it_users, dr.it_vals, mesh=mesh,
+                        train_items=True, collision=policy)
+
+                for policy in SHARD_POLICIES:
+                    label = f"sgd_sharded {dtype}/{policy}"
+                    worst = 0.0
+                    for it in (0, 3):
+                        got, want = sharded(it, policy), plain(it, policy)
+                        torch.cuda.synchronize()
+                        for side, g, w, p in (("T_u", got[0], want[0],
+                                               pm.T_u),
+                                              ("T_i", got[1], want[1],
+                                               pm.T_i)):
+                            require(g.dtype == p.dtype,
+                                    f"{label}: {side} is {g.dtype}")
+                            err = float((g.float() - w.float()).abs().max())
+                            worst = max(worst, err)
+                            if dtype == "float32":
+                                require(torch.equal((g != p).any(1),
+                                                    (w != p).any(1)),
+                                        f"{label} step {it}: the changed "
+                                        f"rows of {side} differ")
+                                require(err <= STEP_ATOL,
+                                        f"{label} step {it}: {side} "
+                                        f"differs by {err}")
+                                continue
+                            scaled, above, raw = _bf16_error(torch, g, w, p)
+                            require(scaled <= 1.0,
+                                    f"{label} step {it}: {side} differs by "
+                                    f"{scaled:.3f} bf16 ulps of the "
+                                    f"operands' scale ({above} entries "
+                                    f"above 1, {raw} raw ulps)")
+                        del got, want
+                    ms = time_ms(lambda: sharded(7, policy), [()], reps=20,
+                                 hold=True)
+                    fused_ms = time_ms(lambda: packed_step(
+                        pm, dr, hp, key, 7, collision=policy, mu=3.5,
+                        **bufs(policy)), [()], reps=20, hold=True)
+                    plain_ms = time_ms(lambda: plain(7, policy), [()],
+                                       reps=3)
+                    elem = 4 if dtype == "float32" else 2
+                    e = _entry(f"sgd_sharded/{dtype}/{policy}", site, worst,
+                               ms, plain_ms,
+                               _shard_split_bytes(csr, policy, elem),
+                               5 * 128 * (U + I), None,
+                               {"U": U, "I": I, "F": F, "W": 128,
+                                "nnz": N_HEADLINE, "grid": [1, 1],
+                                "dtype": dtype, "collision": policy},
+                               semantics="_local_step_packed",
+                               source="sgd_sharded")
+                    e["fused_ms"] = fused_ms
+                    e["fused_bound_ms"] = _bound(
+                        _step_bytes(csr, F, policy, False, True, elem),
+                        5 * 128 * (U + I))[0]
+                    log(f"[shard] {label}: the split step {ms:.4f} ms "
+                        f"held, the fused K0a step {fused_ms:.4f} ms in the "
+                        f"same call ({ms - fused_ms:+.4f} ms), bound "
+                        f"{e['bound_ms']:.4f} ms against the fused step's "
+                        f"{e['fused_bound_ms']:.4f} ms; max_abs_err "
+                        f"{worst:.3e} on {card}")
+                    entries.append(e)
+                del pm
+            del dr
+            torch.cuda.empty_cache()
+
+            # The main path: the engine through a few steps.
+            test = _every_nth(csr, 20)
+            model = unpack(base)
+            f32_eval = {}
+            cuda_sgd.SHARD_LAUNCHES.clear()
+            for dtype in ("float32", "bfloat16"):
+                for policy in SHARD_POLICIES:
+                    cfg = _shard_cfg(seed, policy, dtype)
+                    eng = ShardedEngine(csr, test, cfg, mesh=mesh)
+                    st = eng.run(eng.prepare(model), hp, 0, SHARD_STEPS)
+                    ev = eng.evaluate(st, "test")
+                    got = eng.finalize(st)
+                    del eng, st
+                    if dtype == "bfloat16":
+                        require(all(bool(torch.isfinite(t.float()).all())
+                                    for t in (got.P, got.Q)) and
+                                abs(ev[0] - f32_eval[policy])
+                                <= BF16_EVAL_RTOL * f32_eval[policy],
+                                f"sharded bf16 {policy}: RMSE {ev[0]} against "
+                                f"float32's {f32_eval[policy]}")
+                        log(f"[shard] engine bf16/{policy}, world of 1 "
+                            f"(NCCL): {SHARD_STEPS} steps, test RMSE "
+                            f"{ev[0]:.6f} (float32 {f32_eval[policy]:.6f})")
+                        continue
+                    one = SingleChipEngine(csr, test, cfg, device=dev)
+                    s1 = one.run(one.prepare(model), hp, 0, SHARD_STEPS)
+                    ev1 = one.evaluate(s1, "test")
+                    want = one.finalize(s1)
+                    del one, s1
+                    f32_eval[policy] = ev[0]
+                    diff = _model_diff(torch, got, want)
+                    rel = abs(ev[0] - ev1[0]) / ev1[0]
+                    require(diff <= SHARD_ATOL[policy] and
+                            rel <= SHARD_EVAL_RTOL,
+                            f"sharded {policy} at the headline shape: tables "
+                            f"{diff:.3e} (gate {SHARD_ATOL[policy]}), test "
+                            f"RMSE {ev[0]} against one device's {ev1[0]}")
+                    log(f"[shard] engine float32/{policy}, world of 1 "
+                        f"(NCCL), {SHARD_STEPS} steps against the one-device "
+                        f"engine: tables {diff:.3e}, test RMSE {ev[0]:.6f} "
+                        f"({rel:.2e} relative)")
+            launches = {f"{_dtype_name(k[0])}/{k[1]}": n
+                        for k, n in cuda_sgd.SHARD_LAUNCHES.items()}
+        finally:
+            dist.destroy_process_group()
+    del csr, test, base
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
+def _ml1m_data(seed: int):
+    """ML-1M-shaped planted ratings, split 90/10: (train CSR, test CSR,
+    train mean)."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+    from cu2rec_torch.data.synth import generate_planted, split_arrays
+
+    n_users, n_items, n = ML1M
+    d = generate_planted(n_users, n_items, n, seed=seed)
+    tr, te = split_arrays(d.users, d.items, d.ratings, 0.9, seed=seed)
+    csrs = [csr_from_arrays(*x, n_users, n_items) for x in (tr, te)]
+    return csrs[0], csrs[1], float(np.mean(tr[2]))
+
+
+def _csr_args(csr):
+    return (csr.indptr, csr.indices, csr.data, csr.n_users, csr.n_items)
+
+
+def _grid_rank(n_dp: int, n_ip: int, train, test, model_d, seed: int):
+    """One rank of phase 10 (b): K0a's sharded mode against the plain local
+    step over the grid's collectives (one step a policy, uncounted), then
+    the engine for each policy (counted); returns what the parent checks."""
+    import torch
+
+    from cu2rec_torch.data.csr import CSRRatings
+    from cu2rec_torch.models.state import model_from_numpy, model_to_numpy
+    from cu2rec_torch.ops import cuda_sgd
+    from cu2rec_torch.parallel.sharded import (
+        ShardedEngine, _local_step_packed, make_mesh,
+    )
+
+    mesh = make_mesh(n_dp, n_ip)
+    csr, test = CSRRatings(*train), CSRRatings(*test)
+    model = model_from_numpy(model_d, mesh.device)
+    hp = _hp()
+    engines, errs = {}, {}
+    for policy in SHARD_POLICIES:
+        eng = ShardedEngine(csr, test, _shard_cfg(seed, policy), mesh=mesh)
+        engines[policy] = eng
+        T_u, T_i, mu = eng.prepare(model)
+        d = eng.train_dev
+        got = cuda_sgd.sgd_step_sharded_cuda(
+            T_u, T_i, float(mu), d, hp, eng.key, 0, n_factors=F, mesh=mesh,
+            n_users_global=eng.n_users, collision=policy)
+        want = _local_step_packed(
+            T_u, T_i, mu, d.indptr, d.indices, d.data, hp, eng.key, 0,
+            eng.n_users, F, d.it_indptr, d.it_users, d.it_vals, mesh=mesh,
+            train_items=True, collision=policy)
+        errs[policy] = max(float((g - w).abs().max())
+                           for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    cuda_sgd.SHARD_LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    runs = {}
+    for policy, eng in engines.items():
+        st = eng.run(eng.prepare(model), hp, 0, SHARD_STEPS)
+        ev = eng.evaluate(st, "test")
+        m = eng.finalize(st)
+        runs[policy] = (model_to_numpy(m) if mesh.rank == 0 else None, ev)
+    torch.cuda.synchronize()
+    return {"rank": mesh.rank, "errs": errs, "runs": runs,
+            "launches": {f"{_dtype_name(k[0])}/{k[1]}": n
+                         for k, n in cuda_sgd.SHARD_LAUNCHES.items()},
+            "memory": torch.cuda.max_memory_allocated(mesh.device)}
+
+
+def _shard_grids(torch, dev, seed: int, data, card: str,
+                 grids=SHARD_GRIDS, backend: str = "gloo"):
+    """Phase 10 (b): 2 ranks (dp=2) and 4 ranks (dp=2, ip=2) under gloo,
+    sharing the card, at ML-1M's depth: each rank holds K0a's sharded mode
+    against the plain step over the grid, and rank 0's model after the
+    engine's steps is held against the one-device engine on the card.
+    ``grids`` and ``backend`` take others (NCCL on a host of as many cards
+    as ranks).  Returns {"dtype/policy": launches} summed over the
+    ranks."""
+    from cu2rec_torch.models.state import model_from_numpy, model_to_numpy
+    from cu2rec_torch.ops.packed import unpack
+    from cu2rec_torch.parallel.distributed import launch
+    from cu2rec_torch.train.trainer import SingleChipEngine
+
+    train, test, _mu = data
+    model_d = model_to_numpy(unpack(_packed_tables(
+        torch, train.n_users, train.n_items, F, seed, "cpu")))
+    model = model_from_numpy(model_d, dev)
+    hp = _hp()
+    want = {}
+    for policy in SHARD_POLICIES:
+        one = SingleChipEngine(train, test, _shard_cfg(seed, policy),
+                               device=dev)
+        st = one.run(one.prepare(model), hp, 0, SHARD_STEPS)
+        want[policy] = (one.finalize(st), one.evaluate(st, "test"))
+    launches = {}
+    for n_dp, n_ip in grids:
+        t0 = time.perf_counter()
+        ranks = launch(_grid_rank, n_dp * n_ip, backend, "cuda",
+                       args=(n_dp, n_ip, _csr_args(train), _csr_args(test),
+                             model_d, seed), timeout=RANK_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            for policy, err in r["errs"].items():
+                require(err <= STEP_ATOL, f"sgd_sharded {n_dp}x{n_ip} rank "
+                        f"{r['rank']} {policy}: differs from the plain step "
+                        f"by {err}")
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        for policy in SHARD_POLICIES:
+            comps, ev = ranks[0]["runs"][policy]
+            got = model_from_numpy(comps, "cpu")
+            ref, ev1 = want[policy]
+            diff = _model_diff(torch, got, ref.to("cpu"))
+            rel = abs(ev[0] - ev1[0]) / ev1[0]
+            require(all(r["runs"][policy][1] == ev for r in ranks),
+                    f"{n_dp}x{n_ip} {policy}: the ranks' evals differ")
+            require(diff <= SHARD_ATOL[policy] and rel <= SHARD_EVAL_RTOL,
+                    f"{n_dp}x{n_ip} {policy}: tables {diff:.3e} (gate "
+                    f"{SHARD_ATOL[policy]}), test RMSE {ev[0]} against one "
+                    f"device's {ev1[0]}")
+            log(f"[shard] {n_dp}x{n_ip} {backend} ranks, "
+                f"{policy}: {SHARD_STEPS} steps against the one-device "
+                f"engine: tables {diff:.3e}, test RMSE {ev[0]:.6f} "
+                f"({rel:.2e}); kernel against plain step, worst rank "
+                f"{max(r['errs'][policy] for r in ranks):.3e}")
+        log(f"[shard] {n_dp}x{n_ip} at {ML1M[0]} x {ML1M[1]}, "
+            f"{train.nnz} train ratings, F={F}: {wall:.1f} s wall with the "
+            f"ranks' start; peak memory a rank (MB): "
+            + ", ".join(f"{r['rank']}: {r['memory'] / 2**20:.1f}"
+                        for r in ranks)
+            + (f"; gloo stages each all_reduce through the host: a "
+               f"check, not a timing" if backend == "gloo" else "")
+            + f", on {card}")
+    return launches
+
+
+def _family_rank(train, test, mu: float, seed: int, grid=(2, 1)):
+    """One rank of phase 10 (c) on ``grid`` (dp = 2): ALS and iALS two
+    sweeps each (K1 launches counted on the rank), BPR's draws at two
+    iterations and its training."""
+    from cu2rec_torch.data.csr import CSRRatings
+    from cu2rec_torch.models.state import model_to_numpy
+    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.ops.sgd import prng_key
+    from cu2rec_torch.parallel.bpr import ShardedBPR
+    from cu2rec_torch.parallel.sharded import make_mesh
+    from cu2rec_torch.train.als import train_als
+    from cu2rec_torch.train.bpr import train_bpr
+    from cu2rec_torch.train.ials import train_ials
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    mesh = make_mesh(*grid)
+    csr, test = CSRRatings(*train), CSRRatings(*test)
+    quiet = MetricsLogger(verbose=False)
+    out = {"rank": mesh.rank, "blocks": (mesh.dp_index, mesh.ip_index)}
+    cuda_linalg.LAUNCHES = 0
+    m, losses = train_als(csr, test, _family_cfg(seed, total_iterations=2),
+                          mu, logger=quiet, mesh=mesh)
+    out["als"] = (model_to_numpy(m), losses, cuda_linalg.LAUNCHES)
+    cuda_linalg.LAUNCHES = 0
+    m, losses = train_ials(csr, test, _family_cfg(seed, total_iterations=2),
+                           alpha=ALPHA, logger=quiet, mesh=mesh)
+    out["ials"] = (model_to_numpy(m), losses, cuda_linalg.LAUNCHES)
+    cfg = _bpr_shard_cfg(seed)
+    eng = ShardedBPR(csr, cfg, mesh=mesh)
+    out["draws"] = {it: [t.cpu().numpy() for t in
+                         eng.draws(prng_key(seed), it)]
+                    for it in (0, BPR_SHARD_STEPS - 1)}
+    m, losses = train_bpr(csr, test, cfg, logger=quiet, mesh=mesh)
+    out["bpr"] = (model_to_numpy(m), losses)
+    return out
+
+
+def _bpr_shard_cfg(seed: int):
+    from cu2rec_torch.utils.config import Config
+
+    return Config(n_factors=F, total_iterations=BPR_SHARD_STEPS,
+                  check_error=BPR_SHARD_STEPS, seed=seed,
+                  learning_rate=BPR_LR, P_reg=BPR_REG, Q_reg=BPR_REG,
+                  user_bias_reg=BPR_REG, item_bias_reg=BPR_REG)
+
+
+def _shard_families(torch, dev, seed: int, data, card: str, grid=(2, 1),
+                    backend: str = "gloo"):
+    """Phase 10 (c): ALS and iALS two sweeps and BPR 50 steps at dp = 2
+    (gloo ranks sharing the card; ``grid`` and ``backend`` take others),
+    each held against its one-device run on the card; K1 must launch on
+    every rank, and BPR's ids equal the one-device draws bit for bit.
+    Returns K1's launches over the ranks."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops.bpr import bpr_draws
+    from cu2rec_torch.ops.sgd import prng_key
+    from cu2rec_torch.parallel.distributed import launch
+    from cu2rec_torch.train.als import train_als
+    from cu2rec_torch.train.bpr import train_bpr
+    from cu2rec_torch.train.ials import train_ials
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    train, test, mu = data
+    t0 = time.perf_counter()
+    ranks = launch(_family_rank, grid[0] * grid[1], backend, "cuda",
+                   args=(_csr_args(train), _csr_args(test), mu, seed, grid),
+                   timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    quiet = MetricsLogger(verbose=False)
+    want = {
+        "als": train_als(train, test, _family_cfg(seed, total_iterations=2),
+                         mu, logger=quiet, device=dev),
+        "ials": train_ials(train, test,
+                           _family_cfg(seed, total_iterations=2),
+                           alpha=ALPHA, logger=quiet, device=dev),
+        "bpr": train_bpr(train, test, _bpr_shard_cfg(seed), logger=quiet,
+                         device=dev)}
+    k1 = 0
+    for fam in ("als", "ials", "bpr"):
+        comps, losses = ranks[0][fam][:2]
+        ref, ref_losses = want[fam]
+        diff = _model_diff(torch, model_from_numpy(comps, "cpu"),
+                           ref.to("cpu"))
+        worst_loss = max(abs(losses[k] - v) / max(abs(v), 1e-12)
+                         for k, v in ref_losses.items())
+        gate = FAMILY_SHARD_GATES[fam]
+        require(diff <= gate and worst_loss <= FAMILY_SHARD_RTOL and
+                sorted(losses) == sorted(ref_losses),
+                f"{fam} at {grid}: tables {diff:.3e} (gate {gate}), losses "
+                f"{losses} against one device's {ref_losses}")
+        line = (f"[shard] {fam} at {grid[0]}x{grid[1]} ({backend} ranks) "
+                f"against one device: tables {diff:.3e}, objective "
+                f"{worst_loss:.2e} relative")
+        if fam != "bpr":
+            per_rank = [r[fam][2] for r in ranks]
+            require(all(per_rank), f"{fam} at {grid}: K1 launched "
+                    f"{per_rank} times by rank")
+            k1 += sum(per_rank)
+            line += f"; K1 launched {per_rank} by rank"
+        log(line)
+    dr = to_device(train, dev, item_major=True)
+    U_loc = -(-train.n_users // grid[0])
+    I_loc = -(-train.n_items // grid[1])
+    for it in (0, BPR_SHARD_STEPS - 1):
+        full = [t.cpu().numpy() for t in bpr_draws(dr, prng_key(seed), it)]
+        for r in ranks:
+            got = r["draws"][it]
+            d, i = r["blocks"]
+            us = slice(d * U_loc, min((d + 1) * U_loc, train.n_users))
+            its = slice(i * I_loc, min((i + 1) * I_loc, train.n_items))
+            n, m = us.stop - us.start, its.stop - its.start
+            has_u, has_y, has_v = full[1][us], full[4][its], full[8][its]
+            same = (np.array_equal(got[1][:n], has_u)
+                    and np.array_equal(got[0][:n][has_u], full[0][us][has_u])
+                    and np.array_equal(got[2][:n], full[2][us])
+                    and np.array_equal(got[4][:m], has_y)
+                    and np.array_equal(got[3][:m][has_y],
+                                       full[3][its][has_y])
+                    and np.array_equal(got[5][:m], full[5][its])
+                    and np.array_equal(got[6][:m], full[6][its])
+                    and np.array_equal(got[8][:m], has_v)
+                    and np.array_equal(got[7][:m][has_v],
+                                       full[7][its][has_v]))
+            require(same, f"BPR at {grid}, rank {r['rank']}, iteration "
+                    f"{it}: the ids differ from one device's")
+    log(f"[shard] BPR at {grid[0]}x{grid[1]}: the ids of iterations 0 and "
+        f"{BPR_SHARD_STEPS - 1} bit-equal to one device's on every rank; "
+        f"the ranks' run {wall:.1f} s wall on {card}")
+    return k1
+
+
+def _shard_cli(torch, seed: int, workdir: Path, card: str):
+    """Phase 10 (d): ``mf --devices 1 --device cuda`` trains; ``mf
+    --devices 2 --device cuda`` on a host of fewer cards raises and names
+    both counts."""
+    from cu2rec_torch.cli import mf
+
+    paths = _family_csvs(seed, workdir)
+    cfg = workdir / "shard.cfg"
+    cfg.write_text(f"0 20 {F} 0.05 {seed} 0.02 0.02 0.02 0.02 32 10 2 "
+                   f"0.2\n")
+    train, test = paths["explicit", "train"], paths["explicit", "test"]
+    text = _capture(mf.main, ["-c", str(cfg), train, test, "--devices", "1",
+                              "--device", "cuda", "--outdir",
+                              str(workdir / "shard_out")])
+    lines = [METRIC_LINE.match(ln) for ln in text.splitlines()
+             if ln.startswith("TEST:")]
+    require(lines and all(lines), "mf --devices 1: no TEST line parses")
+    n = torch.cuda.device_count()
+    if n < 2:
+        try:
+            mf.main(["-c", str(cfg), train, test, "--devices", "2",
+                     "--device", "cuda"])
+        except RuntimeError as e:
+            require("--devices 2" in str(e) and f"has {n}" in str(e),
+                    f"mf --devices 2: the error names no counts: {e}")
+            log(f"[shard] mf --devices 2 --device cuda on {n} card(s) "
+                f"raises: {e}")
+        else:
+            raise SmokeFailure("mf --devices 2 --device cuda ran on a host "
+                               f"of {n} card(s)")
+    log(f"[shard] mf --devices 1 --device cuda: last {lines[-1][0]} on "
+        f"{card}")
+
+
+# The grids of ``--nccl``: one NCCL rank a card on a host of NCCL_RANKS;
+# the grids and policies it times at the headline shape, and the steps.
+NCCL_RANKS = 4
+NCCL_GRIDS = ((4, 1), (2, 2), (1, 4))
+NCCL_TIMED_GRIDS = ((4, 1), (2, 2))
+NCCL_TIMED_POLICIES = ("first_wins", "twin")
+NCCL_TIMED_STEPS = 50
+
+
+def _nccl_step_rank(grid, seed: int, policies, n_steps: int):
+    """One NCCL rank of ``--nccl``'s timing: ``ShardedEngine`` at the
+    headline shape, a few steps to warm up, then ``n_steps`` steps
+    between CUDA events (the collectives' waits included), after a
+    barrier, and the host's time to enqueue them; then 10 more steps,
+    rank 0's under the profiler (one session: every rank must take the
+    same steps).  Returns {policy: (event ms a step, host ms a step,
+    enqueue ms a step, rank 0's (busy ms a step, top kernels) or None)}."""
+    import torch
+
+    from cu2rec_torch.ops.packed import unpack
+    from cu2rec_torch.parallel.distributed import barrier
+    from cu2rec_torch.parallel.sharded import ShardedEngine, make_mesh
+
+    mesh = make_mesh(*grid)
+    csr = _headline_csr(seed)
+    test = _every_nth(csr, 20)
+    model = unpack(_packed_tables(torch, U, I, F, seed, "cpu"))
+    out = {}
+    for policy in policies:
+        eng = ShardedEngine(csr, test, _shard_cfg(seed, policy), mesh=mesh)
+        st = eng.run(eng.prepare(model), _hp(), 0, 3)
+        torch.cuda.synchronize()
+        barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        t_rec = time.perf_counter()
+        st = eng.run(st, _hp(), 3, n_steps)
+        enqueue = (time.perf_counter() - t_rec) * 1e3 / n_steps
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / n_steps
+        profile = None
+        barrier()
+        prof = _new_profile(torch) if mesh.rank == 0 else None
+        if prof is not None:
+            prof.start()
+        st = eng.run(st, _hp(), 3 + n_steps, 10)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.stop()
+            if _has_device_time(torch, prof):
+                busy_s, top = _device_breakdown(torch, prof, top=6)
+                profile = (busy_s * 1e3 / 10,
+                           [(k[:48], ms / 10, n) for k, ms, n in top])
+        out[policy] = (start.elapsed_time(end) / n_steps, host, enqueue,
+                       profile)
+        del eng, st
+    return out
+
+
+def _nccl_timing(torch, dev, seed: int, card: str):
+    """``--nccl``'s timing: the sharded engine's step on NCCL_TIMED_GRIDS
+    at the headline shape, beside the one-device fused step's loop on one
+    of the cards in the same call; the slowest rank's time counts."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.parallel.distributed import launch
+
+    csr = _headline_csr(seed)
+    pm = _packed_tables(torch, U, I, F, seed, dev)
+    one = {}
+    for policy in NCCL_TIMED_POLICIES:
+        dr = to_device(csr, dev, item_major=policy == "twin")
+        one[policy] = _time_steps(torch, pm, dr, policy)[0]
+        del dr
+    del pm, csr
+    torch.cuda.empty_cache()
+    for grid in NCCL_TIMED_GRIDS:
+        ranks = launch(_nccl_step_rank, grid[0] * grid[1], "nccl", "cuda",
+                       args=(grid, seed, NCCL_TIMED_POLICIES,
+                             NCCL_TIMED_STEPS), timeout=RANK_TIMEOUT)
+        for policy in NCCL_TIMED_POLICIES:
+            ms = max(r[policy][0] for r in ranks)
+            host = max(r[policy][1] for r in ranks)
+            enqueue = max(r[policy][2] for r in ranks)
+            profile = ranks[0][policy][3]
+            seen = "rank 0's profile: not measured (no device event)"
+            if profile is not None:
+                seen = (f"rank 0's device busy {profile[0]:.4f} ms a step, "
+                        "top: " + "; ".join(f"{k} {t:.4f} ms x{n}"
+                                           for k, t, n in profile[1]))
+            log(f"[nccl] {grid[0]}x{grid[1]} {policy} at U={U} I={I} F={F}, "
+                f"{N_HEADLINE} ratings: {ms:.4f} ms a step (CUDA events "
+                f"over {NCCL_TIMED_STEPS} steps, the slowest rank), "
+                f"{host:.4f} ms by the host clock, the host enqueueing "
+                f"{enqueue:.4f} ms a step, {U / ms * 1e3:.4g} user "
+                f"updates/s; one card's fused step {one[policy]:.4f} ms "
+                f"({U / one[policy] * 1e3:.4g}/s); {seen}; each card "
+                f"{card}")
+
+
+def phase_shard_nccl(torch, dev, seed: int, workdir: Path, card: str):
+    """``--nccl``, on a host of NCCL_RANKS cards: the sharded step's time
+    at the headline shape (``_nccl_timing``), phase 10 (b) and (c) under
+    NCCL, one rank a card (the engine on three grids, the families on 2 x
+    2), and ``mf --devices 4 --device cuda`` against ``--devices 1`` (the
+    components within 1e-5)."""
+    from cu2rec_torch.cli import mf
+
+    _nccl_timing(torch, dev, seed, card)
+    data = _ml1m_data(seed)
+    _shard_grids(torch, dev, seed, data, card, grids=NCCL_GRIDS,
+                 backend="nccl")
+    _shard_families(torch, dev, seed, data, card, grid=(2, 2),
+                    backend="nccl")
+    paths = _family_csvs(seed, workdir)
+    cfg = workdir / "nccl.cfg"
+    cfg.write_text(f"0 20 {F} 0.05 {seed} 0.02 0.02 0.02 0.02 32 10 2 "
+                   "0.2\n")
+    comps = {}
+    for n in (1, NCCL_RANKS):
+        out = workdir / f"nccl_out{n}"
+        t0 = time.perf_counter()
+        _capture(mf.main, ["-c", str(cfg), paths["explicit", "train"],
+                           paths["explicit", "test"], "--devices", str(n),
+                           "--device", "cuda", "--outdir", str(out)])
+        log(f"[nccl] mf --devices {n} --device cuda: "
+            f"{time.perf_counter() - t0:.1f} s wall on {card}")
+        comps[n] = {c: np.loadtxt(out / f"explicit_train_f{F}_{c}.csv",
+                                  delimiter=",", skiprows=1, ndmin=1)
+                    for c in ("p", "q", "user_bias", "item_bias")}
+    diff = max(float(np.abs(comps[NCCL_RANKS][c] - comps[1][c]).max())
+               for c in comps[1])
+    require(diff <= 1e-5, f"mf --devices {NCCL_RANKS} differs from "
+            f"--devices 1 by {diff}")
+    log(f"[nccl] mf --devices {NCCL_RANKS} against --devices 1: the "
+        f"components within {diff:.3e}")
+
+
+def phase_shard(torch, dev, seed: int, workdir: Path, card: str):
+    """Phase 10: sharded training on the card.  Returns (kernel entries
+    with their launches, K1's launches on the ranks)."""
+    t0 = time.perf_counter()
+    entries, launches = _shard_headline(torch, dev, seed, card)
+    data = _ml1m_data(seed)
+    for k, n in _shard_grids(torch, dev, seed, data, card).items():
+        launches[k] = launches.get(k, 0) + n
+    k1 = _shard_families(torch, dev, seed, data, card)
+    _shard_cli(torch, seed, workdir, card)
+    for e in entries:
+        key = f"{e['shape']['dtype']}/{e['shape']['collision']}"
+        e["launches"] = launches.get(key, 0)
+        require(e["launches"] > 0, f"phase 10 launched no {e['name']}")
+    log(f"[shard] launches {launches}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return entries, k1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nccl", action="store_true",
+                    help=f"on a host of {NCCL_RANKS} cards: only the build "
+                    "and the sharded paths under NCCL, one rank a card")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2616,6 +3347,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     name, count, smi = phase_device(torch)
     registers = phase_build()
+    if args.nccl:
+        require(count >= NCCL_RANKS, f"--nccl needs {NCCL_RANKS} cards, "
+                f"this host has {count}")
+        with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
+            phase_shard_nccl(torch, dev, args.seed, Path(tmp), smi)
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}), flush=True)
+        return 0
     kernels = phase_kernels(torch, dev)
     kernels += phase_train_kernels(torch, dev, args.seed)
     kernels += phase_variant_kernels(torch, dev, args.seed)
@@ -2636,6 +3377,14 @@ def main(argv=None) -> int:
     families, measured = phase_families(torch, dev, args.seed, smi)
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
         piped, pipeline = phase_pipeline(args.seed, Path(tmp), smi)
+    with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
+        sharded, shard_k1 = phase_shard(torch, dev, args.seed, Path(tmp),
+                                        smi)
+    for k in sharded:  # the registers of the variant's own instances
+        tag = f"<128,{k['shape']['dtype']}"
+        k["registers"] = {fn: r for fn, r in registers["sgd_sharded"].items()
+                          if tag in fn or "apply" in fn}
+    kernels += sharded
     by_name["sgd_step"]["launches"] = trained["sgd_step"] + \
         predicted["explicit"] + piped["sgd_step"]
     by_name["sgd_step"]["pipeline"] = pipeline
@@ -2649,7 +3398,8 @@ def main(argv=None) -> int:
             by_name[f"sgd_step/{key}"]["launches"] = n
     by_name["eval_error/bfloat16"]["launches"] = \
         variants["eval_error/bfloat16"]
-    by_name["ridge_cholesky"]["launches"] += variants["ridge_cholesky"]
+    by_name["ridge_cholesky"]["launches"] += variants["ridge_cholesky"] \
+        + shard_k1
     by_name["sgd_step"]["variants"] = extras
     by_name["row_gather"]["launches"] = probed["row_gather"]
     by_name["smem_gather"]["launches"] = probed["smem_gather"]

@@ -10,8 +10,11 @@ and the other training families, ``--algo als|ials|bpr`` (``--solver``,
 ``--alpha``).  It trains on the CUDA device unless ``--device cpu`` is
 given.  ``--dtype bfloat16`` trains bf16 tables (float32 arithmetic);
 ``--collision mean`` (and ``sum`` through a JSON config) adds colliding
-item updates together, in a fixed order.  ``--devices N > 1`` raises and
-names the ROADMAP item that ports it.
+item updates together, in a fixed order.  ``--devices N > 1`` trains on N
+ranks of a dp grid (``parallel/``), each a process this command starts:
+with ``--device cuda`` N NCCL ranks, one card each (it raises where the
+host has fewer cards), with ``--device cpu`` N gloo ranks.  Rank 0 prints,
+exports the CSVs and writes the checkpoint.
 
 Output contract preserved: the five component CSVs are written next to the
 train file as ``{base}_f{factors}_{p,q,user_bias,item_bias,global_bias}.csv``
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from cu2rec_torch.data.csr import build_csr
 from cu2rec_torch.data.ratings import read_ratings_csv
@@ -33,11 +37,6 @@ from cu2rec_torch.utils.checkpoint import (
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import print_free_memory, resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
-
-# What each option not yet ported waits for (ROADMAP.md, Queue 1).
-_NOT_PORTED = {
-    "devices": "ROADMAP Queue 1 item 12 (multi-GPU)",
-}
 
 
 def build_parser():
@@ -55,8 +54,8 @@ def build_parser():
     p.add_argument("--resume", default=None,
                    help="resume from a .npz checkpoint")
     p.add_argument("--devices", type=int, default=0,
-                   help="number of devices; only 1 (or 0 = the default "
-                   "one) is supported")
+                   help="shard over this many devices, a rank each "
+                   "(0 or 1 = one device)")
     p.add_argument("--collision", choices=["first_wins", "mean", "twin"],
                    default=None,
                    help="item-update policy: first_wins = deterministic "
@@ -81,19 +80,49 @@ def build_parser():
     return p
 
 
-def _refuse(what: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet: "
-                              f"{_NOT_PORTED[what]}")
-
-
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     if args.devices > 1:
-        _refuse("devices")
+        return _launch_ranks(args, argv)
+    return _train(args, None)
+
+
+def _launch_ranks(args, argv) -> int:
+    """``--devices N``: N ranks of this command, NCCL on N cards or gloo on
+    the CPU."""
+    import torch
+
+    from cu2rec_torch.parallel.distributed import launch
+
+    n = args.devices
     device = resolve_device(args.device)
+    if device.type == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(
+            f"--devices {n} trains on {n} CUDA devices, one a rank, and "
+            f"this host has {torch.cuda.device_count()}")
+    launch(_rank_main, n, "gloo" if device.type == "cpu" else "nccl",
+           device.type, args=(argv,))
+    return 0
+
+
+def _rank_main(argv) -> int:
+    from cu2rec_torch.parallel.sharded import make_mesh
+
+    args = build_parser().parse_args(argv)
+    return _train(args, make_mesh(args.devices, 1))
+
+
+def _train(args, mesh) -> int:
+    """Train as ``args`` say, on one device (``mesh`` None) or as one rank
+    of ``mesh``."""
+    lead = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    say = print if lead else (lambda *a, **k: None)
 
     # Free-memory probe at startup (mf.cu:33-37).
-    print_free_memory(device)
+    if lead:
+        print_free_memory(device)
 
     # Both CSRs share dimensions (max over the two files): evaluation
     # indexes the model tables by user/item id.
@@ -107,7 +136,7 @@ def main(argv=None) -> int:
     model = None
     if args.resume:
         model, cfg, _extra = load_checkpoint(args.resume, device=device)
-        print(f"Resuming from {args.resume} at iteration {cfg.cur_iterations}")
+        say(f"Resuming from {args.resume} at iteration {cfg.cur_iterations}")
     else:
         cfg = Config()
     if args.config:
@@ -123,44 +152,50 @@ def main(argv=None) -> int:
         cfg.dtype = args.dtype
     if args.algo:
         cfg.algo = args.algo
-    cfg.print_config()
+    if lead:
+        cfg.print_config()
 
-    logger = MetricsLogger(jsonl_path=args.jsonl,
+    logger = MetricsLogger(jsonl_path=args.jsonl if lead else None,
+                           verbose=lead,
                            label="CPU" if device.type == "cpu" else "GPU")
     if cfg.algo == "bpr":
         from cu2rec_torch.train.bpr import train_bpr
         model, _losses = train_bpr(train_csr, test_csr, cfg, model=model,
-                                   logger=logger, device=device)
+                                   logger=logger, mesh=mesh, device=device)
     elif cfg.algo == "ials":
         from cu2rec_torch.train.ials import train_ials
         model, _losses = train_ials(train_csr, test_csr, cfg,
                                     alpha=args.alpha, model=model,
-                                    logger=logger, solver=args.solver,
-                                    device=device)
+                                    logger=logger, mesh=mesh,
+                                    solver=args.solver, device=device)
     elif cfg.algo == "als":
         from cu2rec_torch.train.als import train_als
         model, _losses = train_als(train_csr, test_csr, cfg,
                                    train_rd.global_bias, model=model,
-                                   logger=logger, solver=args.solver,
-                                   device=device)
+                                   logger=logger, mesh=mesh,
+                                   solver=args.solver, device=device)
     else:
+        engine = None
+        if mesh is not None:
+            from cu2rec_torch.parallel.sharded import ShardedEngine
+            engine = ShardedEngine(train_csr, test_csr, cfg, mesh=mesh)
         model, _losses = train(train_csr, test_csr, cfg,
                                train_rd.global_bias, model=model,
-                               logger=logger,
+                               logger=logger, engine=engine,
                                checkpoint_path=args.checkpoint,
                                checkpoint_every=args.checkpoint_every,
                                device=device)
 
     # Component export next to the train file (mf.cu:63-87).
-    outdir = args.outdir or (os.path.dirname(args.train_csv) or ".")
-    os.makedirs(outdir, exist_ok=True)
-    base = os.path.splitext(os.path.basename(args.train_csv))[0]
-    paths = export_components(model, outdir, base, cfg.n_factors)
-    for p in paths:
-        print(f"Wrote {p}")
+    if lead:
+        outdir = args.outdir or (os.path.dirname(args.train_csv) or ".")
+        os.makedirs(outdir, exist_ok=True)
+        base = os.path.splitext(os.path.basename(args.train_csv))[0]
+        for p in export_components(model, outdir, base, cfg.n_factors):
+            print(f"Wrote {p}")
     if args.checkpoint:
         save_checkpoint(args.checkpoint, model, cfg)
-        print(f"Wrote checkpoint {args.checkpoint}")
+        say(f"Wrote checkpoint {args.checkpoint}")
     logger.close()
     return 0
 

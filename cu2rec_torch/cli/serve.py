@@ -97,7 +97,7 @@ def main(argv=None) -> int:
     if args.devices > 1:
         raise SystemExit(
             f"--devices {args.devices}: the PyTorch port serves on one GPU; "
-            "multi-GPU serving is ROADMAP Queue 1 item 12")
+            "multi-GPU serving is ROADMAP Queue 1 item 12b")
 
     from cu2rec_torch.serve.daemon import ServingDaemon, run_socket, run_stdio
     from cu2rec_torch.serve.engine import ServingEngine

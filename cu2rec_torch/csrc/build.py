@@ -26,8 +26,8 @@ CSRC = Path(__file__).resolve().parent
 BUILD_ROOT = CSRC.parents[1] / "build" / "cu2rec_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("ridge_cholesky", "sgd_step", "eval_error", "row_gather",
-           "smem_gather")
+KERNELS = ("ridge_cholesky", "sgd_step", "sgd_sharded", "eval_error",
+           "row_gather", "smem_gather")
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -24,6 +24,15 @@ one-program dispatch and its fall-back tiers, the disabled-signature store
 and the padding of tail chunks to a common shape.  Here a half sweep is a
 host loop over chunks; each chunk's solved rows are written into one clone
 of the table, so the peak is two tables plus one chunk's temporaries.
+
+Row-sharded sweeps (``row_sharding``, a ``parallel.sharded.Mesh``): the
+TPU package shards every chunk's rows over the whole grid (dp × ip
+flattened) with the counterpart table replicated, since each row's solve
+is independent.  Here each rank keeps its share of each regular chunk's
+rows and every n-th heavy chunk (``prepare_chunks``), solves them with K1,
+and writes them into a zero-filled table, which is assembled over the grid
+with a mask of the rows solved (``parallel/distributed.py``,
+``Axis.assemble_``); the rows no rank solved keep their value.
 """
 
 from __future__ import annotations
@@ -47,13 +56,32 @@ BUCKET_CAPS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 # Elements of a chunk's (chunk, width, F + 1) design tensor.
 DEFAULT_BUDGET = 64 << 20
 
-_MULTI_GPU = "ROADMAP Queue 1 item 12 (multi-GPU)"
+
+def _rank_rows(row_sharding, s: int, e: int) -> tuple[int, int]:
+    """This rank's share [lo, hi) of a regular chunk's rows [s, e): all of
+    them without a row sharding."""
+    if row_sharding is None:
+        return s, e
+    n, r, B = row_sharding.size, row_sharding.rank, e - s
+    return s + r * B // n, s + (r + 1) * B // n
 
 
-def check_single_device(what: str, value) -> None:
-    """Raise for a multi-device argument (a row sharding, a mesh)."""
-    if value is not None:
-        raise NotImplementedError(f"{what} is not ported yet: {_MULTI_GPU}")
+def _rank_takes(row_sharding, k: int) -> bool:
+    """Whether this rank solves the k-th heavy chunk (whole rows only: a
+    heavy row's segments must stay in one chunk)."""
+    return row_sharding is None or k % row_sharding.size == row_sharding.rank
+
+
+def assemble_solved(T_new, T_self, solved, row_sharding):
+    """The half sweep's table: each row from the rank that solved it (a
+    zero-filled ``T_new`` of its rows, ``solved`` an int32 mask of them),
+    the rows no rank solved as ``T_self`` holds them."""
+    if row_sharding is None:
+        return T_new
+    axis = row_sharding.world
+    axis.assemble_(T_new)
+    axis.sum_(solved)
+    return torch.where(solved[:, None] > 0, T_new, T_self)
 
 
 @dataclass
@@ -176,13 +204,15 @@ def prepare_chunks(bucketed: BucketedRows, n_factors: int,
     cols, vals, mask, rows, seg_start, seg_end, deg), segment ranges
     relative to the chunk.  A tail chunk keeps its own row count (no
     padding rows, so every row id is in range).  ``n_rows_total`` is the
-    table's row count, kept for the TPU package's signature.
+    table's row count, kept for the TPU package's signature.  With
+    ``row_sharding`` only this rank's rows are kept (``_rank_rows``,
+    ``_rank_takes``).
     """
-    check_single_device("row_sharding", row_sharding)
     budget = budget or DEFAULT_BUDGET
     dev = torch.device("cpu" if device is None else device)
     F1 = n_factors + 1
     chunks = []
+    n_heavy = 0
     for b in bucketed.buckets:
         B, D = b["cols"].shape
         chunk = _chunk_size(B, D, F1, budget)
@@ -194,15 +224,20 @@ def prepare_chunks(bucketed: BucketedRows, n_factors: int,
 
         if "seg_start" not in b:
             for s in range(0, B, chunk):
-                e = min(s + chunk, B)
-                chunks.append(("reg", *slab(s, e),
-                               _put(b["row_ids"][s:e], torch.int64, dev)))
+                lo, hi = _rank_rows(row_sharding, s, min(s + chunk, B))
+                if hi > lo:
+                    chunks.append(("reg", *slab(lo, hi),
+                                   _put(b["row_ids"][lo:hi], torch.int64,
+                                        dev)))
             continue
 
         # Heavy bucket: B here counts segments.
         seg_start, seg_end = b["seg_start"], b["seg_end"]
         groups, _h, chunk = _heavy_groups(seg_start, seg_end, chunk)
         for lo, hi in groups:
+            n_heavy += 1
+            if not _rank_takes(row_sharding, n_heavy - 1):
+                continue
             s0, s1 = int(seg_start[lo]), int(seg_end[hi - 1])
             chunks.append((
                 "heavy", *slab(s0, s1),
@@ -231,7 +266,6 @@ def prepare_chunks_device(indices_dev, data_dev, indptr_host, n_factors: int,
     """The chunks of :func:`prepare_chunks`, with (cols, vals) extracted on
     the device from the uploaded flat CSR tensors: only the (starts, lens)
     vectors cross from the host, not the padded bucket expansion."""
-    check_single_device("row_sharding", row_sharding)
     budget = budget or DEFAULT_BUDGET
     dev = indices_dev.device
     F1 = n_factors + 1
@@ -245,19 +279,25 @@ def prepare_chunks_device(indices_dev, data_dev, indptr_host, n_factors: int,
             _put(m["lens"][s:e], torch.int64, dev), int(m["cap"]))
 
     chunks = []
+    n_heavy = 0
     for m in bucket_meta(indptr_host, caps):
         B = len(m["starts"])
         chunk = _chunk_size(B, int(m["cap"]), F1, budget)
         if "seg_start" not in m:
             for s in range(0, B, chunk):
-                e = min(s + chunk, B)
-                chunks.append(("reg", *extract(m, s, e),
-                               _put(m["row_ids"][s:e], torch.int64, dev)))
+                lo, hi = _rank_rows(row_sharding, s, min(s + chunk, B))
+                if hi > lo:
+                    chunks.append(("reg", *extract(m, lo, hi),
+                                   _put(m["row_ids"][lo:hi], torch.int64,
+                                        dev)))
             continue
 
         seg_start, seg_end = m["seg_start"], m["seg_end"]
         groups, _h, chunk = _heavy_groups(seg_start, seg_end, chunk)
         for lo, hi in groups:
+            n_heavy += 1
+            if not _rank_takes(row_sharding, n_heavy - 1):
+                continue
             s0, s1 = int(seg_start[lo]), int(seg_end[hi - 1])
             chunks.append((
                 "heavy", *extract(m, s0, s1),
@@ -298,24 +338,41 @@ def als_half_sweep(T_self, T_other, bucketed, mu,
     :func:`prepare_chunks_device` (upload once, sweep many), or a host-side
     :class:`BucketedRows` uploaded here.  With ``weight_by_degree`` the
     ridge term is scaled by each row's degree (λ·|S|, Zhou et al.).  Rows
-    with no ratings are in no chunk and come out unchanged.
+    with no ratings are in no chunk and come out unchanged.  With
+    ``row_sharding`` each rank solves the rows of its chunks (from
+    ``prepare_chunks(..., row_sharding)``) and every rank returns the
+    whole table (``assemble_solved``).
     """
-    check_single_device("row_sharding", row_sharding)
     F = n_factors
     dev = T_self.device
     reg = reg_vector(factor_reg, bias_reg, F, dev)
     if isinstance(bucketed, BucketedRows):
-        bucketed = prepare_chunks(bucketed, F, T_self.shape[0], device=dev)
+        bucketed = prepare_chunks(bucketed, F, T_self.shape[0], row_sharding,
+                                  device=dev)
     regs, heavies = split_chunks(bucketed)
     mu32 = torch.tensor(float(mu), dtype=torch.float32, device=dev)
     T_x = design_table(T_other, F)
-    T_new = T_self.clone()
+    T_new, solved = _solve_into(T_self, row_sharding)
     for ch in regs:
         _als_apply_reg(T_new, T_x, ch, mu32, reg, F, weight_by_degree, solver)
     for ch in heavies:
         _als_apply_heavy(T_new, T_x, ch, mu32, reg, F, weight_by_degree,
                          solver)
-    return T_new
+    if solved is not None:
+        for ch in regs + heavies:
+            solved[ch[3]] = 1
+    return assemble_solved(T_new, T_self, solved, row_sharding)
+
+
+def _solve_into(T_self, row_sharding):
+    """(the table the solved rows are written into, the mask of them):
+    a clone of ``T_self`` on one device; under a row sharding a zero-filled
+    table and a zero int32 mask, assembled by ``assemble_solved``."""
+    if row_sharding is None:
+        return T_self.clone(), None
+    return (torch.zeros_like(T_self),
+            torch.zeros(T_self.shape[0], dtype=torch.int32,
+                        device=T_self.device))
 
 
 def _scatter_theta(T_new, theta, rows, F: int) -> None:

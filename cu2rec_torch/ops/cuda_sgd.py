@@ -207,3 +207,201 @@ def collision_runs_cuda(dev, key, iteration: int,
         raise RuntimeError(f"sgd_collision_runs launch failed: cudaError "
                            f"{rc}")
     return offsets, users[:int(offsets[I])]
+
+
+# ---- K0a's sharded mode (csrc/sgd_sharded.cu) ----------------------------
+
+SHARD_KERNEL = "sgd_sharded"
+# Sharded step launches in this process (incremented where the step's
+# kernels launch), by (table dtype, policy), the policy "users" for a step
+# with the items frozen.
+SHARD_LAUNCHES: Counter = Counter()
+
+_shard_lib = None
+
+
+def _load_shard():
+    global _shard_lib
+    if _shard_lib is None:
+        from cu2rec_torch.csrc.build import load
+        lib = load(SHARD_KERNEL)
+        P, I, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint)
+        lib.sgd_shard_workspace.argtypes = [I, I]
+        lib.sgd_shard_workspace.restype = ctypes.c_longlong
+        lib.sgd_shard_assemble.argtypes = (
+            [P, P, I, U, I, I, P, P, I, I, U, U, U, P])
+        lib.sgd_shard_assemble.restype = ctypes.c_int
+        lib.sgd_shard_users.argtypes = (
+            [P] * 11 + [I] * 4 + [F] * 4 + [U] * 3 + [I] * 7 + [P])
+        lib.sgd_shard_users.restype = ctypes.c_int
+        lib.sgd_shard_items.argtypes = (
+            [P] * 13 + [I] * 4 + [F] * 4 + [U] * 3 + [I] * 7 + [P])
+        lib.sgd_shard_items.restype = ctypes.c_int
+        lib.sgd_shard_apply.argtypes = [P, P, P, ctypes.c_longlong, I, P]
+        lib.sgd_shard_apply.restype = ctypes.c_int
+        _shard_lib = lib
+    return _shard_lib
+
+
+def _rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def sgd_step_sharded_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float,
+                          dev, hp: Hyper, key, iteration: int, *,
+                          n_factors: int, mesh, n_users_global: int,
+                          train_items: bool = True,
+                          collision: str = "first_wins",
+                          rotation: int = 250,
+                          best: torch.Tensor | None = None,
+                          counts: torch.Tensor | None = None):
+    """New ``(T_u, T_i)`` blocks of this rank after one sharded step: K0a
+    split at the grid's collectives (``csrc/sgd_sharded.cu``), which this
+    wrapper runs between the kernels over ``mesh``'s axes
+    (``parallel/sharded.py``).  The inputs are left as they were.
+
+    ``T_u`` (U_loc, W) and ``T_i`` (I_loc, W), this rank's blocks, both
+    float32 or both bf16, on its CUDA device; ``dev`` its shard's
+    ``DeviceRatings`` (global item ids; under twin with its item block's
+    ``it_indptr``/``it_users``/``it_vals``).  ``n_users_global`` is the
+    unpadded user count (the election's modulus).  ``best`` and ``counts``
+    as for ``sgd_step_cuda``, of I_loc entries.  Its plain version is
+    ``parallel/sharded.py::_local_step_packed``."""
+    device = T_u.device
+    if device.type != "cuda":
+        raise ValueError(f"sgd_step_sharded_cuda takes CUDA tensors, got "
+                         f"{device}")
+    U, W = T_u.shape
+    I = T_i.shape[0]
+    F = int(n_factors)
+    elem = TABLE_ELEMS.get(T_u.dtype)
+    if elem is None:
+        raise TypeError(f"T_u must be float32 or bfloat16, got {T_u.dtype}")
+    _check("T_u", T_u, T_u.dtype, device)
+    _check("T_i", T_i, T_u.dtype, device, (I, W))
+    if not 0 <= F < W:
+        raise ValueError(f"n_factors {F} does not fit rows of width {W}")
+    check_kernel_tables("K0a", T_u, T_i)
+    if dev.n_users != U:
+        raise ValueError(f"the shard's ratings hold {dev.n_users} users, "
+                         f"T_u {U}")
+    _check("indptr", dev.indptr, torch.int32, device, (U + 1,))
+    _check("indices", dev.indices, torch.int32, device)
+    _check("data", dev.data, torch.float32, device)
+    mode = -1
+    if train_items:
+        if collision not in MODES:
+            raise ValueError(f"K0a takes collision in {sorted(MODES)}, got "
+                             f"{collision!r}")
+        mode = MODES[collision]
+        if mode == 1:
+            _check("it_indptr", dev.it_indptr, torch.int32, device, (I + 1,))
+            _check("it_users", dev.it_users, torch.int32, device)
+            _check("it_vals", dev.it_vals, torch.float32, device)
+    lib = _load_shard()
+    user_offset = mesh.dp_index * U
+    item_offset = mesh.ip_index * I
+    k0, k1 = _key_words(key)
+    it = int(iteration) & 0xFFFFFFFF
+    start_user = start_user_of(iteration, n_users_global, rotation)
+    ws = w_rating = None
+    if mode >= 3:
+        ws = torch.empty(lib.sgd_shard_workspace(U, I), dtype=torch.int32,
+                         device=device)
+        if counts is None:
+            counts = torch.zeros(I, dtype=torch.int32, device=device)
+        _check("counts", counts, torch.int32, device, (I,))
+    else:
+        counts = None
+    if mode == 0:
+        if best is None:
+            best = torch.full((I,), INT32_MAX, dtype=torch.int32,
+                              device=device)
+        _check("best", best, torch.int32, device, (I,))
+        w_rating = torch.empty(U, dtype=torch.float32, device=device)
+    else:
+        best = None
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+        def assemble(indptr, ids, n, id_offset, own_offset, n_own, table,
+                     axis):
+            out = torch.empty((n, W), dtype=T_u.dtype, device=device)
+            _rc(lib.sgd_shard_assemble(
+                indptr.data_ptr(), ids.data_ptr(), n,
+                int(id_offset) & 0xFFFFFFFF, own_offset, n_own,
+                table.data_ptr(), out.data_ptr(), W, elem, k0, k1, it,
+                stream), "sgd_shard_assemble")
+            return axis.assemble_(out)
+
+        # The rows the kernels gather across the grid, each assembled
+        # before the user kernel: the sampled items' rows over ip, the
+        # twin raters' pre-step rows over dp.
+        rows = raters = None
+        if mesh.n_ip > 1:
+            rows = assemble(dev.indptr, dev.indices, U, user_offset,
+                            item_offset, I, T_i, mesh.ip)
+        if mode == 1 and mesh.n_dp > 1:
+            raters = assemble(dev.it_indptr, dev.it_users, I,
+                              n_users_global + item_offset, user_offset, U,
+                              T_u, mesh.dp)
+        T_u_out = torch.empty_like(T_u)
+        _rc(lib.sgd_shard_users(
+            T_u.data_ptr(), T_u_out.data_ptr(), T_i.data_ptr(), _ptr(rows),
+            dev.indptr.data_ptr(), dev.indices.data_ptr(),
+            dev.data.data_ptr(), _ptr(best), _ptr(w_rating), _ptr(ws),
+            _ptr(counts), U, I, W, F, mu, hp.learning_rate, hp.P_reg,
+            hp.user_bias_reg, k0, k1, it, start_user, user_offset,
+            item_offset, n_users_global, mode, elem,
+            int(rows is None and raters is None), stream), "sgd_shard_users")
+        if mode < 0:
+            SHARD_LAUNCHES[T_u.dtype, "users"] += 1
+            return T_u_out, T_i
+        T_i_out = torch.empty_like(T_i)
+        dT = denom = None
+        if mode != 1:
+            dT = torch.empty((I, W), dtype=torch.float32, device=device)
+        if mode == 0:
+            mesh.dp.min_(best)
+        if mode == 3 and mesh.n_dp > 1:
+            denom = mesh.dp.sum_(counts.clone())
+        _rc(lib.sgd_shard_items(
+            T_u.data_ptr(), T_i.data_ptr(), _ptr(T_i_out if mode == 1
+                                                 else None),
+            _ptr(dT), _ptr(raters), _ptr(dev.it_indptr), _ptr(dev.it_users),
+            _ptr(dev.it_vals), _ptr(best), _ptr(w_rating), _ptr(ws),
+            _ptr(counts), _ptr(denom), U, I, W, F, mu, hp.learning_rate,
+            hp.Q_reg, hp.item_bias_reg, k0, k1, it, start_user, user_offset,
+            item_offset, n_users_global, mode, elem,
+            int(mesh.n_dp == 1 or mode == 1), stream), "sgd_shard_items")
+        if dT is not None:
+            mesh.dp.sum_(dT)
+            _rc(lib.sgd_shard_apply(T_i.data_ptr(), dT.data_ptr(),
+                                    T_i_out.data_ptr(), T_i.numel(), elem,
+                                    stream), "sgd_shard_apply")
+    SHARD_LAUNCHES[T_u.dtype, collision] += 1
+    return T_u_out, T_i_out
+
+
+def sharded_run_steps(T_u, T_i, mu: float, dev, hp: Hyper, key,
+                      start_iter: int, n_steps: int, *, n_factors: int,
+                      mesh, n_users_global: int, train_items: bool = True,
+                      collision: str = "first_wins"):
+    """``n_steps`` sharded steps from ``start_iter``, the election and
+    counts buffers carried across them; returns the new blocks."""
+    I = T_i.shape[0]
+    best = counts = None
+    if train_items and collision == "first_wins":
+        best = torch.full((I,), INT32_MAX, dtype=torch.int32,
+                          device=T_u.device)
+    if train_items and collision in ("mean", "sum"):
+        counts = torch.zeros(I, dtype=torch.int32, device=T_u.device)
+    for k in range(int(n_steps)):
+        T_u, T_i = sgd_step_sharded_cuda(
+            T_u, T_i, mu, dev, hp, key, int(start_iter) + k,
+            n_factors=n_factors, mesh=mesh, n_users_global=n_users_global,
+            train_items=train_items, collision=collision, best=best,
+            counts=counts)
+    return T_u, T_i

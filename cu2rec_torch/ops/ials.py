@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from cu2rec_torch.ops.als import _ridge_finish, segment_sums, split_chunks
+from cu2rec_torch.ops.als import (
+    _ridge_finish, _solve_into, assemble_solved, segment_sums, split_chunks,
+)
 
 
 def gramian(T: torch.Tensor) -> torch.Tensor:
@@ -90,20 +92,21 @@ def ials_fold_in(Y, cols, vals, mask, alpha: float, reg: float,
 
 
 def ials_half_sweep(T_self, T_other, chunks, alpha: float, reg: float,
-                    solver: str = "auto"):
+                    solver: str = "auto", row_sharding=None):
     """Every row of ``T_self`` (plain (N, F) factors) solved given the
     frozen ``T_other``, from the chunks of ``ops/als.prepare_chunks`` or
     ``prepare_chunks_device``; returns a new table.  Rows with no ratings
-    come out unchanged."""
+    come out unchanged.  ``row_sharding``: as in ``als_half_sweep``, each
+    rank solves its chunks' rows and every rank returns the whole table."""
     regs, heavies = split_chunks(chunks)
     return _ials_sweep_body(T_self, T_other, regs, heavies, float(alpha),
-                            float(reg), solver)
+                            float(reg), solver, row_sharding)
 
 
 def _ials_sweep_body(T_self, T_other, regs, heavies, a: float, r: float,
-                     solver: str):
+                     solver: str, row_sharding=None):
     G = gramian(T_other)
-    T_new = T_self.clone()
+    T_new, solved = _solve_into(T_self, row_sharding)
     for cols, vals, mask, rows in regs:
         theta = _solve_ials_bucket(T_other, G, cols, vals, mask, a, r,
                                    solver=solver)
@@ -112,4 +115,7 @@ def _ials_sweep_body(T_self, T_other, regs, heavies, a: float, r: float,
         theta = _solve_ials_heavy(T_other, G, cols, vals, mask, s0, s1, a,
                                   r, solver=solver)
         T_new[rows] = theta.to(T_new.dtype)
-    return T_new
+    if solved is not None:
+        for ch in regs + heavies:
+            solved[ch[3]] = 1
+    return assemble_solved(T_new, T_self, solved, row_sharding)

@@ -11,8 +11,8 @@ take the error in float32 and sum in float64, in a fixed order, so an eval
 gives the same value every time it runs.
 
 The TPU package's windowed user-row path (a VMEM trick) has no counterpart:
-the sums are the same without it.  Its eval over unpacked tables
-(``error_sums``) comes with the unpacked step of the multi-GPU engine.
+the sums are the same without it.  Over unpacked tables (the unpacked
+step's engine) the eval is ``error_sums``, plain torch on either device.
 """
 
 from __future__ import annotations
@@ -78,6 +78,44 @@ def packed_error_sums(pm, dev) -> torch.Tensor:
     from cu2rec_torch.ops.cuda_loss import packed_error_sums_cuda
     return packed_error_sums_cuda(pm.T_u, pm.T_i, float(pm.global_bias),
                                   rows, cols, vals, pm.n_factors)
+
+
+def pairwise_errors(P, Q, user_bias, item_bias, global_bias, rows, cols,
+                    vals):
+    """error[k] = rating[k] − r̂(u_k, i_k), in float32 (loss_kernel,
+    loss.cu:29-33)."""
+    rows, cols = rows.to(torch.int64), cols.to(torch.int64)
+    pred = (global_bias + user_bias[rows].to(torch.float32)
+            + item_bias[cols].to(torch.float32)
+            + torch.sum(P[rows].to(torch.float32)
+                        * Q[cols].to(torch.float32), dim=-1))
+    return vals - pred
+
+
+def error_sums(P, Q, user_bias, item_bias, global_bias, rows, cols, vals,
+               mask, chunk_size: int = EVAL_CHUNK) -> torch.Tensor:
+    """(Σerr², Σ|err|) over the ratings where ``mask`` holds, as a float64
+    (2,) tensor, in chunks of ``chunk_size`` ratings: the TPU package's
+    ``error_sums`` over unpacked tables."""
+    out = torch.zeros(2, dtype=torch.float64, device=P.device)
+    for s in range(0, rows.shape[0], chunk_size):
+        sl = slice(s, s + chunk_size)
+        err = pairwise_errors(P, Q, user_bias, item_bias, global_bias,
+                              rows[sl], cols[sl], vals[sl])
+        a, b = _sums(torch.where(mask[sl], err, 0.0))
+        out += torch.stack([a, b])
+    return out
+
+
+def evaluate_unpacked(model: MFModel, dev, chunk_size: int = EVAL_CHUNK):
+    """(RMSE, MAE) of unpacked tables over the first ``dev.nnz`` ratings
+    of a ``DeviceRatings`` set (``error_sums``)."""
+    n = dev.nnz
+    mask = torch.ones(n, dtype=torch.bool, device=dev.indices.device)
+    return _metrics(error_sums(model.P, model.Q, model.user_bias,
+                               model.item_bias, model.global_bias,
+                               dev.row_ids[:n], dev.indices[:n],
+                               dev.data[:n], mask, chunk_size), n)
 
 
 def _metrics(sums: torch.Tensor, nnz: int):

@@ -206,3 +206,69 @@ def win_mask(best: torch.Tensor, items: torch.Tensor, cand: torch.Tensor,
              has: torch.Tensor) -> torch.Tensor:
     idx = torch.where(has, items, torch.zeros_like(items))
     return has & (best[idx] == cand)
+
+
+def sgd_step(P, Q, user_bias, item_bias, global_bias, items, ratings, has,
+             win, hp: Hyper, *, train_items: bool = True,
+             collision: str = "first_wins", q_rows=None,
+             item_bias_rows=None):
+    """One SGD update over unpacked tables given each user's sampled
+    (item, rating): the TPU package's unpacked ``sgd_step``.
+
+    Every read is of the pre-step tables (sgd.cu reads the error and every
+    ``P_old``/``Q_old`` before its writes land), in float32 whatever the
+    table dtype.  Returns ``(P, user_bias, dq, dib)``: the user side
+    updated, and the item side's delta for each sampled row (zero for a
+    losing user under first_wins; under mean divided by the item's count),
+    in the table dtype, for ``apply_item_deltas``.  ``q_rows`` and
+    ``item_bias_rows`` pass pre-gathered item rows; by default they are
+    gathered from ``Q`` and ``item_bias`` here."""
+    lr = hp.learning_rate
+    dt = P.dtype
+    idx = torch.where(has, items, torch.zeros_like(items))
+    q = Q[idx] if q_rows is None else q_rows
+    ib_g = item_bias[idx] if item_bias_rows is None else item_bias_rows
+    Pf, qf = P.to(torch.float32), q.to(torch.float32)
+    ubf, ibf = user_bias.to(torch.float32), ib_g.to(torch.float32)
+    pred = global_bias + ubf + ibf + torch.sum(Pf * qf, dim=-1)
+    err = torch.where(has, ratings - pred, 0.0)
+
+    hasf = has[:, None]
+    P_new = torch.where(hasf, Pf + lr * (err[:, None] * qf - hp.P_reg * Pf),
+                        Pf).to(dt)
+    ub_new = torch.where(has, ubf + lr * (err - hp.user_bias_reg * ubf),
+                         ubf).to(dt)
+    if not train_items:
+        # Fold-in: Q and item_bias frozen (sgd.cu:61, 70).
+        return P_new, ub_new, torch.zeros_like(q), torch.zeros_like(ib_g)
+
+    dq = lr * (err[:, None] * Pf - hp.Q_reg * qf)
+    dib = lr * (err - hp.item_bias_reg * ibf)
+    if collision == "first_wins":
+        dq = torch.where(win[:, None], dq, 0.0)
+        dib = torch.where(win, dib, 0.0)
+    elif collision == "mean":
+        counts = torch.zeros(Q.shape[0], dtype=torch.float32,
+                             device=Q.device)
+        counts.index_add_(0, idx, has.to(torch.float32))
+        denom = torch.clamp(counts, min=1.0)[idx]
+        dq = torch.where(hasf, dq / denom[:, None], 0.0)
+        dib = torch.where(has, dib / denom, 0.0)
+    else:
+        raise ValueError(f"unknown collision policy: {collision}")
+    return P_new, ub_new, dq.to(dt), dib.to(dt)
+
+
+def apply_item_deltas(Q, item_bias, items, dq, dib):
+    """The per-row item deltas added into the tables: the TPU package's
+    ``Q.at[items].add(dq)``, whose adds XLA on the CPU makes in the order
+    of the rows, rounding to the table dtype after each
+    (``ops/packed.py::scatter_add_in_order``; ``index_add_`` keeps no
+    order on the card).  Under first_wins at most one row an item is
+    nonzero, which equals the reference's winner overwrite."""
+    from cu2rec_torch.ops.packed import scatter_add_in_order
+
+    rows = torch.cat([dq, dib[:, None]], dim=1)
+    out = scatter_add_in_order(
+        torch.cat([Q, item_bias[:, None]], dim=1), items, rows)
+    return out[:, :-1].contiguous(), out[:, -1].contiguous()

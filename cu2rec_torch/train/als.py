@@ -20,8 +20,7 @@ from cu2rec_torch.models.state import (
     MFModel, init_model, table_dtype, with_dtype,
 )
 from cu2rec_torch.ops.als import (
-    als_half_sweep, bucket_csr, check_single_device, prepare_chunks,
-    prepare_chunks_device,
+    als_half_sweep, bucket_csr, prepare_chunks, prepare_chunks_device,
 )
 from cu2rec_torch.ops.loss import evaluate_packed
 from cu2rec_torch.ops.packed import PackedModel, pack, unpack
@@ -36,11 +35,12 @@ DEVICE_BUCKETS_ABOVE = 5_000_000
 
 
 def sweep_chunks(csr: CSRRatings, n_factors: int, device,
-                 device_buckets: bool | None = None):
+                 device_buckets: bool | None = None, row_sharding=None):
     """(user chunks, item chunks) of a training CSR for the half sweeps:
     extracted on the device from the uploaded flat CSR above
     ``DEVICE_BUCKETS_ABOVE`` ratings (or with ``device_buckets``), else
-    bucketed on the host and uploaded."""
+    bucketed on the host and uploaded; with ``row_sharding`` this rank's
+    share of them."""
     if device_buckets is None:
         device_buckets = csr.nnz > DEVICE_BUCKETS_ABOVE
     it_indptr, it_rows, it_vals = transpose_csr(csr)
@@ -52,9 +52,11 @@ def sweep_chunks(csr: CSRRatings, n_factors: int, device,
 
         return tuple(prepare_chunks_device(
             up(ind, torch.int32), up(dat, torch.float32), ip, n_factors, n,
-            csr.nnz) for ip, ind, dat, n in sides)
+            csr.nnz, row_sharding=row_sharding)
+            for ip, ind, dat, n in sides)
     return tuple(prepare_chunks(bucket_csr(ip, ind, dat), n_factors, n,
-                                device=device) for ip, ind, dat, n in sides)
+                                row_sharding, device=device)
+                 for ip, ind, dat, n in sides)
 
 
 def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
@@ -69,11 +71,13 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     """Train by ALS for ``cfg.total_iterations`` sweeps, on the CUDA device
     unless ``device="cpu"``.  Returns ``(model, losses)``, losses mapping
     each sweep to its test RMSE.  A resumed run (``cfg.cur_iterations``
-    sweeps done) runs only the remaining sweeps.  ``mesh`` (row-sharded
-    solves over several devices) is not ported yet."""
-    check_single_device("mesh", mesh)
+    sweeps done) runs only the remaining sweeps.  With ``mesh`` (a
+    ``parallel.sharded.Mesh``; every rank of it calls this) the ridge
+    solves are row-sharded over the whole grid, each rank solving its share
+    with K1, the counterpart table replicated; the device is the mesh's."""
     dtype = table_dtype(cfg.dtype)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None and device is None
+                         else device)
     logger = logger or MetricsLogger()
     F = cfg.n_factors
     if model is None:
@@ -94,7 +98,7 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     else:
         test_eval_dev = to_device(test_csr, dev)
     user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
-                                            device_buckets)
+                                            device_buckets, mesh)
 
     losses: dict[int, float] = {}
     n_sweeps = cfg.total_iterations
@@ -104,12 +108,12 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         T_u = als_half_sweep(pm.T_u, pm.T_i, user_chunks, mu, cfg.P_reg,
                              cfg.user_bias_reg, F,
                              weight_by_degree=weight_by_degree,
-                             solver=solver)
+                             row_sharding=mesh, solver=solver)
         t1 = mark(dev)
         T_i = als_half_sweep(pm.T_i, T_u, item_chunks, mu, cfg.Q_reg,
                              cfg.item_bias_reg, F,
                              weight_by_degree=weight_by_degree,
-                             solver=solver)
+                             row_sharding=mesh, solver=solver)
         t2 = mark(dev)
         pm = PackedModel(T_u=T_u, T_i=T_i, global_bias=pm.global_bias,
                          n_factors=F)

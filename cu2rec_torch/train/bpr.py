@@ -18,7 +18,6 @@ from cu2rec_torch.data.csr import CSRRatings, to_device
 from cu2rec_torch.models.state import (
     MFModel, init_model, table_dtype, with_dtype,
 )
-from cu2rec_torch.ops.als import check_single_device
 from cu2rec_torch.ops.bpr import auc_eval, bpr_run_steps
 from cu2rec_torch.ops.packed import pack, unpack
 from cu2rec_torch.ops.sgd import Hyper, prng_key
@@ -42,14 +41,17 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     One iteration = one pairwise update a user row + one positive and one
     negative update an item row.  ``cfg.learning_rate`` and the four reg
     fields apply as in the SGD trainer.  A resumed run trains only the
-    iterations past ``cfg.cur_iterations``.  ``mesh`` and ``n_devices`` > 1
-    are not ported yet.
+    iterations past ``cfg.cur_iterations``.  With ``mesh`` (or
+    ``n_devices`` > 1 ranks, a dp grid) every rank of the grid calls this
+    and the users shard over it (``parallel/bpr.py``, the same draws as on
+    one device); the device is the mesh's.
     """
-    check_single_device("mesh", mesh)
     dtype = table_dtype(cfg.dtype)
-    if n_devices and n_devices > 1:
-        check_single_device("n_devices > 1", n_devices)
-    dev = resolve_device(device)
+    sharded = mesh is not None or (n_devices and n_devices > 1)
+    if sharded and mesh is None:
+        from cu2rec_torch.parallel.sharded import make_mesh
+        mesh = make_mesh(n_devices, 1, device)
+    dev = resolve_device(mesh.device if sharded else device)
     logger = logger or MetricsLogger()
     F = cfg.n_factors
     recall_k = min(recall_k, train_csr.n_items)
@@ -63,8 +65,13 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
                         global_bias=torch.zeros((), device=dev))
     hp = Hyper.from_config(cfg)
     key = prng_key(cfg.seed)
-    train_dev = to_device(train_csr, dev, item_major=True)
-    pm = pack(with_dtype(model.to(dev), dtype))
+    engine = None
+    if sharded:
+        from cu2rec_torch.parallel.bpr import ShardedBPR
+        engine = ShardedBPR(train_csr, cfg, mesh=mesh, model=model)
+    else:
+        train_dev = to_device(train_csr, dev, item_major=True)
+        pm = pack(with_dtype(model.to(dev), dtype))
 
     check = max(1, cfg.check_error)
     start_at = min(cfg.cur_iterations, cfg.total_iterations)
@@ -77,11 +84,15 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     for point in points:
         seg = point - done
         t0 = time.perf_counter()
-        pm = bpr_run_steps(pm, train_dev, hp, key, done, seg)
-        fetch_barrier(pm.T_u)
+        if engine is not None:
+            engine.run(hp, key, done, seg)
+            fetch_barrier(engine.T_u)
+        else:
+            pm = bpr_run_steps(pm, train_dev, hp, key, done, seg)
+            fetch_barrier(pm.T_u)
         dt_seg = time.perf_counter() - t0
         done = point
-        m = unpack(pm)
+        m = engine.model() if engine is not None else unpack(pm)
         auc = auc_eval(m, train_csr, test_csr, seed=cfg.seed)
         rk = ranking_eval(m, train_csr, test_csr, k=recall_k,
                           max_users=recall_users)
@@ -98,4 +109,4 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         cfg.cur_iterations = point
 
     logger.log_time(cfg.total_iterations, time.perf_counter() - start)
-    return unpack(pm), losses
+    return (engine.model() if engine is not None else unpack(pm)), losses

@@ -16,7 +16,6 @@ import torch
 
 from cu2rec_torch.data.csr import CSRRatings
 from cu2rec_torch.models.state import MFModel, init_model
-from cu2rec_torch.ops.als import check_single_device
 from cu2rec_torch.ops.bpr import auc_eval
 from cu2rec_torch.ops.ials import ials_half_sweep
 from cu2rec_torch.serve.recommend import ranking_eval
@@ -42,10 +41,11 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
 
     ``cfg.P_reg`` is the user side's ridge λ (``Q_reg`` the item side's);
     ``alpha`` the confidence slope c = 1 + α·r.  Any observed pair is a
-    positive.  ``mesh`` is not ported yet.
+    positive.  ``mesh``: the solves row-sharded over the grid, as in
+    ``train_als``.
     """
-    check_single_device("mesh", mesh)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None and device is None
+                         else device)
     logger = logger or MetricsLogger()
     F = cfg.n_factors
     recall_k = min(recall_k, train_csr.n_items)
@@ -57,7 +57,7 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     X = model.P.to(dev, torch.float32)
     Y = model.Q.to(dev, torch.float32)
     user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
-                                            device_buckets)
+                                            device_buckets, mesh)
 
     def as_model(X, Y) -> MFModel:
         zeros = torch.zeros
@@ -72,10 +72,10 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
                        cfg.total_iterations + 1):
         t0 = mark(dev)
         X = ials_half_sweep(X, Y, user_chunks, alpha, cfg.P_reg,
-                            solver=solver)
+                            solver=solver, row_sharding=mesh)
         t1 = mark(dev)
         Y = ials_half_sweep(Y, X, item_chunks, alpha, cfg.Q_reg,
-                            solver=solver)
+                            solver=solver, row_sharding=mesh)
         t2 = mark(dev)
         mdl = as_model(X, Y)
         m = ranking_eval(mdl, train_csr, test_csr, k=recall_k,

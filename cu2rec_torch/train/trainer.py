@@ -12,6 +12,11 @@ loop of step launches (K0a on the card, ``ops/packed.py``) that nothing
 synchronizes until the eval (K0b) reads its sums.  The eval cadence,
 plateau scheduling, metric lines, resume from ``cur_iterations`` and
 periodic checkpoints are the TPU package's host contract, unchanged.
+
+The loop is engine-agnostic: ``SingleChipEngine`` runs one device (the
+packed step, or with ``packed=False`` the plain unpacked step), and
+``parallel.sharded.ShardedEngine`` the same semantics over a grid of
+ranks.
 """
 
 from __future__ import annotations
@@ -27,16 +32,53 @@ from cu2rec_torch.data.csr import (
 from cu2rec_torch.models.state import (
     MFModel, init_model, table_dtype, with_dtype,
 )
-from cu2rec_torch.ops.loss import evaluate_packed
+from cu2rec_torch.ops.loss import evaluate_packed, evaluate_unpacked
 from cu2rec_torch.ops.packed import (
     PackedModel, check_collision, pack, packed_run_steps, packed_width,
     unpack,
 )
-from cu2rec_torch.ops.sgd import Hyper, prng_key
+from cu2rec_torch.ops.sgd import (
+    Hyper, apply_item_deltas, elect_winners, prng_key, rotated_priority,
+    sample_items, sgd_step, win_mask,
+)
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
 from cu2rec_torch.utils.timing import fetch_barrier
+
+
+def single_step(model: MFModel, dev: DeviceRatings, hp: Hyper, key,
+                iteration: int, *, train_items: bool = True,
+                collision: str = "first_wins",
+                rotation: int = 250) -> MFModel:
+    """One SGD iteration over unpacked tables, plain torch on either
+    device (the TPU package's ``single_step``)."""
+    n_users, n_items = model.n_users, model.n_items
+    items, ratings, has = sample_items(key, iteration, dev.indptr,
+                                       dev.indices, dev.data)
+    prio = rotated_priority(n_users, iteration, 0, n_users, rotation,
+                            items.device)
+    best, cand = elect_winners(items, has, prio, n_items)
+    win = win_mask(best, items, cand, has)
+    P, ub, dq, dib = sgd_step(
+        model.P, model.Q, model.user_bias, model.item_bias,
+        model.global_bias, items, ratings, has, win, hp,
+        train_items=train_items, collision=collision)
+    Q, ib = model.Q, model.item_bias
+    if train_items:
+        Q, ib = apply_item_deltas(Q, ib, items, dq, dib)
+    return MFModel(P=P, Q=Q, user_bias=ub, item_bias=ib,
+                   global_bias=model.global_bias)
+
+
+def run_steps(model: MFModel, dev: DeviceRatings, hp: Hyper, key,
+              start_iter: int, n_steps: int, train_items: bool = True,
+              collision: str = "first_wins") -> MFModel:
+    """``n_steps`` unpacked iterations from ``start_iter``."""
+    for i in range(int(n_steps)):
+        model = single_step(model, dev, hp, key, int(start_iter) + i,
+                            train_items=train_items, collision=collision)
+    return model
 
 
 def _subsample_dev(csr: CSRRatings, n_sample: int, seed: int,
@@ -63,15 +105,15 @@ class SingleChipEngine:
 
     The engine's state is a :class:`PackedModel` (factors and bias in one row
     per user/item); ``prepare``/``finalize`` convert from/to the public
-    ``MFModel``.  It runs on the CUDA device unless ``device="cpu"``.
+    ``MFModel``.  With ``packed=False`` the state is the ``MFModel`` itself
+    and the step the plain unpacked one (``run_steps``: first_wins and
+    mean, as in the TPU package).  It runs on the CUDA device unless
+    ``device="cpu"``.
     """
 
     def __init__(self, train_csr: CSRRatings, test_csr: CSRRatings,
                  cfg: Config, packed: bool = True, device=None):
-        if not packed:
-            raise NotImplementedError(
-                "the unpacked step is not ported yet (ROADMAP Queue 1 item "
-                "12: it comes with the sharded multi-GPU engine)")
+        self.packed = packed
         self.dtype = table_dtype(cfg.dtype)
         if cfg.is_train:
             check_collision(cfg.collision_policy)
@@ -127,21 +169,22 @@ class SingleChipEngine:
                             user_bias=pad(model.user_bias, (0, du)),
                             item_bias=pad(model.item_bias, (0, di)),
                             global_bias=model.global_bias)
-        return pack(model)
+        return pack(model) if self.packed else model
 
-    def run(self, state: PackedModel, hp: Hyper, start_iter: int,
-            n_steps: int) -> PackedModel:
-        return packed_run_steps(state, self.train_dev, hp, self.key,
-                                start_iter, n_steps,
-                                bool(self.cfg.is_train),
-                                self.cfg.collision_policy)
+    def run(self, state, hp: Hyper, start_iter: int, n_steps: int):
+        runner = packed_run_steps if self.packed else run_steps
+        return runner(state, self.train_dev, hp, self.key, start_iter,
+                      n_steps, bool(self.cfg.is_train),
+                      self.cfg.collision_policy)
 
-    def evaluate(self, state: PackedModel, split: str):
+    def evaluate(self, state, split: str):
         dev = self.train_eval_dev if split == "train" else self.test_eval_dev
-        return evaluate_packed(state, dev)
+        if self.packed:
+            return evaluate_packed(state, dev)
+        return evaluate_unpacked(state, dev)
 
-    def finalize(self, state: PackedModel) -> MFModel:
-        return unpack(state)
+    def finalize(self, state) -> MFModel:
+        return unpack(state) if self.packed else state
 
 
 def eval_segments(total_iterations: int, check_error: int, start: int = 0):
@@ -165,13 +208,26 @@ def _hyper(cfg: Config, lr: float) -> Hyper:
     return Hyper.from_config(cfg.replace(learning_rate=lr))
 
 
-def _warmup(engine, cfg: Config, state: PackedModel) -> None:
+def _clone_state(state):
+    """A copy of an engine's state (a ``PackedModel``, an ``MFModel`` or a
+    tuple of blocks) that a throwaway run may change."""
+    if isinstance(state, PackedModel):
+        return PackedModel(T_u=state.T_u.clone(), T_i=state.T_i.clone(),
+                           global_bias=state.global_bias,
+                           n_factors=state.n_factors)
+    if isinstance(state, MFModel):
+        return MFModel(P=state.P.clone(), Q=state.Q.clone(),
+                       user_bias=state.user_bias.clone(),
+                       item_bias=state.item_bias.clone(),
+                       global_bias=state.global_bias)
+    return tuple(t.clone() for t in state)
+
+
+def _warmup(engine, cfg: Config, state) -> None:
     """Build the kernels and run each program once, on a throwaway copy,
     before the timer starts: the analogue of the reference's timer
     excluding setup (training.cu:18-19)."""
-    throwaway = PackedModel(T_u=state.T_u.clone(), T_i=state.T_i.clone(),
-                            global_bias=state.global_bias,
-                            n_factors=state.n_factors)
+    throwaway = _clone_state(state)
     hp = _hyper(cfg, float(cfg.learning_rate))
     throwaway = engine.run(throwaway, hp, 0, 1)
     throwaway = engine.run(throwaway, hp, 1, 1)

@@ -56,15 +56,24 @@ def save_checkpoint(path: str, model: MFModel, cfg: Config,
     """Write ``path`` (``.npz`` appended if missing) and return it.
 
     Write-then-rename: a concurrent reader, or a crash mid-write, sees
-    either the previous complete checkpoint or the new one."""
+    either the previous complete checkpoint or the new one.  In a world of
+    several ranks every rank calls it with the full model (the engines'
+    ``finalize`` assembles it on every rank); rank 0 writes, and no rank
+    returns before the file is in place, so that a rank may load it at
+    once."""
+    from cu2rec_torch.parallel.distributed import barrier, process_info
+
     final = path if path.endswith(".npz") else path + ".npz"
-    comps = model_to_numpy(model)
-    meta = {"config": dataclasses.asdict(cfg), "extra": extra or {}}
-    tmp = f"{final}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        np.savez_compressed(f, meta=np.frombuffer(
-            json.dumps(meta).encode(), dtype=np.uint8), **comps)
-    os.replace(tmp, final)
+    rank, _world = process_info()
+    if rank == 0:
+        comps = model_to_numpy(model)
+        meta = {"config": dataclasses.asdict(cfg), "extra": extra or {}}
+        tmp = f"{final}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez_compressed(f, meta=np.frombuffer(
+                json.dumps(meta).encode(), dtype=np.uint8), **comps)
+        os.replace(tmp, final)
+    barrier()
     return final
 
 

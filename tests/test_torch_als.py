@@ -256,14 +256,24 @@ def test_half_sweep_matches(weight_by_degree, side):
 
 
 def test_half_sweep_refuses_what_is_not_ported():
+    """A row sharding over a grid of one rank solves every row, as the
+    sweep without one does (the multi-rank sweeps: test_torch_parallel.py);
+    a chunk of an unknown tag is refused."""
+    from cu2rec_torch.parallel.sharded import make_mesh
+
     t, _ = _both_csrs()
     d = _tables(t.n_users, t.n_items, 4, seed=0)
     pm = t_pack(model_from_numpy(d, "cpu"))
     chunks = t_als.prepare_chunks(
         t_als.bucket_csr(t.indptr, t.indices, t.data), 4, t.n_users)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_als.als_half_sweep(pm.T_u, pm.T_i, chunks, 3.0, 0.1, 0.1, 4,
-                             row_sharding=object())
+    mesh = make_mesh(1, 1, "cpu")
+    sharded = t_als.prepare_chunks(
+        t_als.bucket_csr(t.indptr, t.indices, t.data, SMALL_CAPS), 4,
+        t.n_users, row_sharding=mesh)
+    got = t_als.als_half_sweep(pm.T_u, pm.T_i, sharded, 3.0, 0.1, 0.1, 4,
+                               row_sharding=mesh)
+    want = t_als.als_half_sweep(pm.T_u, pm.T_i, chunks, 3.0, 0.1, 0.1, 4)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="unknown chunk tag"):
         t_als.als_half_sweep(pm.T_u, pm.T_i, [("odd",) + chunks[0][1:]],
                              3.0, 0.1, 0.1, 4)

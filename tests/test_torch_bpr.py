@@ -180,9 +180,30 @@ def test_train_bpr_matches():
         assert a["iteration"] == b["iteration"]
         for k in ("auc", "recall_at_k", "ndcg_at_k", "objective"):
             assert a[k] == pytest.approx(b[k], abs=1e-3), k
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_train(*[t_csr(*s, 160, 50) for s in (tr, te)], Config(),
-                n_devices=2, device="cpu")
+    # n_devices=2: two gloo ranks (parallel/bpr.py), each returning the
+    # same model as the one-device run within 1e-6 and the same metrics.
+    from cu2rec_torch.models.state import model_to_numpy
+    from cu2rec_torch.parallel.distributed import launch
+
+    csrs = [t_csr(*s, 160, 50) for s in (tr, te)]
+
+    def fresh():  # a run counts its iterations into its config
+        return Config(total_iterations=60, check_error=25, n_factors=8,
+                      seed=6, learning_rate=0.1, P_reg=0.01, Q_reg=0.01,
+                      user_bias_reg=0.01, item_bias_reg=0.01)
+
+    m = model_from_numpy(j_to_numpy(j_init(160, 50, 8, 0.0, seed=6)), "cpu")
+    one = t_train(*csrs, fresh(), model=m,
+                  logger=MetricsLogger(verbose=False), device="cpu")
+    ranks = launch(t_train, 2, "gloo", "cpu", args=(*csrs, fresh()),
+                   kwargs=dict(model=m, logger=MetricsLogger(verbose=False),
+                               n_devices=2), timeout=60)
+    want = model_to_numpy(one[0])
+    for model, losses in ranks:
+        assert losses == pytest.approx(one[1], abs=1e-6)
+        got = model_to_numpy(model)
+        for c in want:
+            np.testing.assert_allclose(got[c], want[c], rtol=0, atol=1e-6)
 
 
 def test_twenty_bpr_steps_in_bf16_match():

@@ -327,12 +327,47 @@ def test_mf_families_in_bf16_match_the_tpu_package(tmp_path, data_dir,
                     ["--dtype", "bfloat16"], metric_tol=1e-2, comp_tol=1e-2)
 
 
-@pytest.mark.parametrize("args,what", [
-    (["--devices", "2"], "item 12"),
-    (["--algo", "als", "--devices", "2"], "item 12")])
-def test_mf_still_refuses_what_is_not_ported(tmp_path, data_dir, args, what):
+@pytest.mark.parametrize("cli,args,what", [
+    ("mf", ["--devices", "2", "--device", "cuda"],
+     "no CUDA device|trains on 2 CUDA devices"),
+    ("serve", ["--devices", "2", "--device", "cpu"], "item 12b")])
+def test_mf_still_refuses_what_is_not_ported(tmp_path, data_dir, cli, args,
+                                             what):
+    """``mf --devices 2`` on the card needs two cards and raises, naming
+    both counts, where the host has fewer (here: no card at all); ``serve
+    --devices 2`` is not ported and names the ROADMAP item that ports
+    it."""
     cfg = tmp_path / "cfg.txt"
     cfg.write_text(FAMILY_CONFIG)
     train = str(data_dir / "test_ratings.csv")
-    with pytest.raises(NotImplementedError, match=what):
-        tmf.main(["-c", str(cfg), train, train, "--device", "cpu"] + args)
+    if cli == "serve":
+        from cu2rec_torch.cli.serve import main as serve_main
+        with pytest.raises(SystemExit, match=what):
+            serve_main(["--checkpoint", str(tmp_path / "x.npz")] + args)
+        return
+    with pytest.raises(RuntimeError, match=what):
+        tmf.main(["-c", str(cfg), train, train] + args)
+
+
+def test_mf_devices_two_trains_als_on_the_cpu(tmp_path, data_dir,
+                                              monkeypatch):
+    """``--algo als --devices 2 --device cpu``: two gloo ranks solve the
+    rows of each sweep between them, and the components are the one-device
+    run's (row solves do not depend on the rank that makes them).  The
+    ranks have 60 s."""
+    from cu2rec_torch.parallel import distributed
+
+    monkeypatch.setattr(distributed, "LAUNCH_TIMEOUT", 60.0)
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text(FAMILY_CONFIG)
+    train = str(data_dir / "test_ratings.csv")
+    comps = {}
+    for n in (1, 2):
+        out = tmp_path / f"out{n}"
+        assert tmf.main(["-c", str(cfg), train, train, "--device", "cpu",
+                         "--algo", "als", "--devices", str(n), "--outdir",
+                         str(out)]) == 0
+        comps[n] = _components(out, "test_ratings")
+    for c in COMPONENTS:
+        np.testing.assert_allclose(comps[2][c], comps[1][c], rtol=1e-5,
+                                   atol=1e-6, err_msg=c)

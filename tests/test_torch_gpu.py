@@ -948,7 +948,7 @@ def test_train_bf16_and_mean_on_card_track_cpu(cuda_device):
 
 # ---- The runs of mean/sum at many blocks ----------------------------------
 
-# kLong and kBig of csrc/sgd_step.cu: the longest run the item kernel adds
+# kLong and kBig of csrc/sgd_step.cuh: the longest run the item kernel adds
 # itself, and the runs the long-run kernel takes first.
 K_LONG, K_BIG = 32, 896
 
@@ -1076,3 +1076,130 @@ def test_mean_sum_steps_at_many_blocks_match_plain(cuda_device, F, dtype,
     run = packed_run_steps(start, dev, hp, prng_key(42), 0, 3, True,
                            collision)
     assert torch.equal(run.T_u, pm.T_u) and torch.equal(run.T_i, pm.T_i)
+
+
+# ---- K0a's sharded mode (csrc/sgd_sharded.cu) ---------------------------
+
+SHARD_POLICIES = ["first_wins", "twin", "mean", "sum"]
+
+
+def _shard_steps(mesh, csr, F, policy, dtype, steps=3, train_items=True):
+    """The sharded kernel step against the plain local step of this
+    rank's blocks, step by step from the same blocks: the largest
+    difference (float32), or of bf16 ulps of the operands' scale (bf16:
+    the step rounds once)."""
+    from cu2rec_torch.ops import cuda_sgd
+    from cu2rec_torch.ops.sgd import Hyper
+    from cu2rec_torch.parallel.sharded import (
+        ShardedEngine, _local_step_packed,
+    )
+    from cu2rec_torch.utils.config import Config
+
+    cfg = Config(n_factors=F, collision_policy=policy, dtype=dtype, seed=3)
+    eng = ShardedEngine(csr, csr, cfg, mesh=mesh)
+    T_u, T_i, mu = eng.init_model(eng.n_users, eng.n_items, 3.5)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    d = eng.train_dev
+    worst = 0.0
+    for it in range(steps):
+        n0 = cuda_sgd.SHARD_LAUNCHES.total()
+        got = cuda_sgd.sgd_step_sharded_cuda(
+            T_u, T_i, float(mu), d, hp, eng.key, it, n_factors=F, mesh=mesh,
+            n_users_global=eng.n_users, train_items=train_items,
+            collision=policy)
+        want = _local_step_packed(
+            T_u, T_i, mu, d.indptr, d.indices, d.data, hp, eng.key, it,
+            eng.n_users, F, d.it_indptr, d.it_users, d.it_vals, mesh=mesh,
+            train_items=train_items, collision=policy)
+        torch.cuda.synchronize()
+        assert cuda_sgd.SHARD_LAUNCHES.total() == n0 + 1
+        for g, w, p in zip(got, want, (T_u, T_i)):
+            assert g.dtype == p.dtype
+            if dtype == "float32":
+                worst = max(worst, float((g - w).abs().max()))
+            else:
+                worst = max(worst, _bf16_scaled_error(g, w, p))
+        if not train_items:
+            assert got[1] is T_i
+        T_u, T_i = got
+    return worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("policy", SHARD_POLICIES)
+@pytest.mark.parametrize("F", WIDTH_FS)
+def test_sharded_step_kernel_matches_plain(cuda_device, F, policy, dtype):
+    """A grid of one rank, every row width: the split kernels against the
+    plain local step, float32 within 1e-5, bf16 within one ulp of the
+    operands' scale."""
+    from cu2rec_torch.parallel.sharded import make_mesh
+
+    worst = _shard_steps(make_mesh(1, 1, cuda_device),
+                         _ratings(301, 97, seed=F), F, policy, dtype)
+    assert worst <= (1e-5 if dtype == "float32" else 1.0)
+
+
+@pytest.mark.gpu
+def test_sharded_step_kernel_users_only(cuda_device):
+    from cu2rec_torch.parallel.sharded import make_mesh
+
+    worst = _shard_steps(make_mesh(1, 1, cuda_device),
+                         _ratings(301, 97, seed=2), 100, "first_wins",
+                         "float32", train_items=False)
+    assert worst <= 1e-5
+
+
+def _gpu_grid_job(n_dp, n_ip, csr_args):
+    """One gloo rank sharing the card: every policy's kernel steps against
+    the plain steps over the grid's collectives."""
+    from cu2rec_torch.data.csr import CSRRatings
+    from cu2rec_torch.parallel.sharded import make_mesh
+
+    mesh = make_mesh(n_dp, n_ip)
+    csr = CSRRatings(*csr_args)
+    return {p: _shard_steps(mesh, csr, 100, p, "float32")
+            for p in SHARD_POLICIES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dp,n_ip", [(2, 1), (1, 2), (2, 2)])
+def test_sharded_step_kernel_on_gloo_ranks_sharing_the_card(cuda_device,
+                                                            n_dp, n_ip):
+    """The assembly over ip, the election's MIN over dp, twin's raters and
+    the deltas' SUM between ranks: each rank's kernel steps within 1e-5 of
+    its plain steps."""
+    from cu2rec_torch.parallel.distributed import launch
+
+    csr = _ratings(301, 97, seed=5)
+    ranks = launch(_gpu_grid_job, n_dp * n_ip, "gloo", "cuda",
+                   args=(n_dp, n_ip, (csr.indptr, csr.indices, csr.data,
+                                      csr.n_users, csr.n_items)),
+                   timeout=300)
+    for errs in ranks:
+        assert all(e <= 1e-5 for e in errs.values()), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", SHARD_POLICIES)
+def test_sharded_engine_on_card_matches_cpu(cuda_device, policy):
+    """The engine on the card (K0a's sharded mode, K0b) against the same
+    engine on the CPU (the plain step and eval)."""
+    from cu2rec_torch.ops.sgd import Hyper
+    from cu2rec_torch.parallel.sharded import ShardedEngine, make_mesh
+    from cu2rec_torch.utils.config import Config
+
+    csr = _ratings(301, 97, seed=8)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    out = {}
+    for device in ("cpu", cuda_device):
+        cfg = Config(n_factors=100, collision_policy=policy, seed=3)
+        eng = ShardedEngine(csr, csr, cfg, mesh=make_mesh(1, 1, device))
+        st = eng.run(eng.init_model(301, 97, 3.5), hp, 0, 5)
+        out[str(device)] = (eng.finalize(st).to("cpu"),
+                            eng.evaluate(st, "train"))
+    (a, ea), (b, eb) = out.values()
+    for x, y in ((a.P, b.P), (a.Q, b.Q), (a.user_bias, b.user_bias),
+                 (a.item_bias, b.item_bias)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ea, eb, rtol=1e-6)
