@@ -114,7 +114,22 @@ fatal on failure:
    not a timing); (c) ALS and iALS two sweeps and BPR 50 steps at dp=2
    against one device, K1 launched on every rank, BPR's ids bit-equal;
    (d) ``mf --devices 1 --device cuda`` trains and ``mf --devices 2
-   --device cuda`` on a one-card host raises the fewer-cards error.
+   --device cuda`` on a one-card host raises the fewer-cards error;
+11. sharded serving (``ShardedServingEngine``, ``parallel/serving.py``):
+   (a) phase 6's catalog and waves through the daemon over 2 and 4 item
+   shards on the card, every recommend within rtol 1e-5 and every
+   implicit fold-in within 1e-3 of phase 6's responses, the explicit
+   wave's rows (in one batch) within 1e-6 of one device's and the
+   implicit rows within K1's tolerance, K1 launched by the implicit wave
+   only; each wave's latency and requests/s beside phase 6's; (b) the TPU
+   package's serving probe shape (1,000,000 items, F=64, batch 512, k=10,
+   fold-ins of 32 ratings and 100 iterations) over 1, 2 and 4 shards:
+   recommend users/s, a fold-in batch's time and 32 users' top-10 against
+   a float64 reference; (c) two gloo ranks sharing the card, a shard each:
+   the ranks bit-equal, the rank-mode engine against the one-process
+   shards, ``sharded_ranking_eval`` equal to ``ranking_eval``; (d) ``serve
+   --devices 2 --device cuda`` on a one-card host raises the fewer-cards
+   error.
 
 It prints the kernels' JSON line, then the nvidia-smi name/power line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -125,7 +140,10 @@ runs, on a host of four cards, only phases 1-2, the sharded step's time
 at the headline shape on 4 x 1 and 2 x 2 grids beside one card's fused
 step, and phase 10 (b)-(c) under NCCL, one rank a card (the engine on 4 x
 1, 2 x 2 and 1 x 4 grids, the families on 2 x 2), then ``mf --devices 4
---device cuda`` against ``--devices 1``.
+--device cuda`` against ``--devices 1``; then phase 6's waves through
+``serve --devices 1`` and ``serve --devices 4`` (their times, every
+response of the four cards against the one card's) and phase 11 (c) on
+four NCCL ranks, a card each.
 """
 
 from __future__ import annotations
@@ -964,7 +982,8 @@ class _WaveInput:
     last (stats) wave, its replay runs under a profiler from
     ``profile()``, again under new ids while ``busy(profile)`` is false,
     at most PROFILE_TRIES times.  ``profiles`` holds (profile, start,
-    attempt) of each wave's kept replay."""
+    attempt) of each wave's kept replay.  With ``profile`` None there are
+    no replays."""
 
     def __init__(self, waves, out, probe, profile, busy):
         self.waves, self.out, self.probe = waves, out, probe
@@ -987,7 +1006,7 @@ class _WaveInput:
             self.t_start.append(time.perf_counter())
             yield from self._send(wave)
             self.counts.append((before, self.probe()))
-            if n == len(self.waves) - 1:
+            if n == len(self.waves) - 1 or self.profile is None:
                 continue
             for attempt in range(PROFILE_TRIES):
                 prof = self.profile()
@@ -1052,14 +1071,9 @@ class _ResponseOutput:
         pass
 
 
-def _make_data(seed: int, workdir: Path):
-    """Random ML-20M-scale tables and a user-sorted train CSV, from the
-    seed; the tables go into an ``.npz`` through the port's
-    ``save_checkpoint``."""
-    from cu2rec_torch.models.state import model_from_numpy
-    from cu2rec_torch.utils.checkpoint import save_checkpoint
-    from cu2rec_torch.utils.config import Config
-
+def _serve_data(seed: int):
+    """Random ML-20M-scale tables and user-sorted train ratings, from the
+    seed: (tables, users, items, ratings)."""
     rng = np.random.default_rng(seed)
     tables = {
         "p": rng.normal(0, 0.1, (U, F)).astype(np.float32),
@@ -1068,13 +1082,24 @@ def _make_data(seed: int, workdir: Path):
         "item_bias": rng.normal(0, 0.3, I).astype(np.float32),
         "global_bias": np.array([3.5], np.float32),
     }
-    ckpt = save_checkpoint(str(workdir / "model.npz"),
-                           model_from_numpy(tables, device="cpu"),
-                           Config(n_factors=F, total_iterations=100))
     users = np.sort(np.concatenate([np.arange(U),
                                     rng.integers(0, U, N_RATINGS - U)]))
     items = rng.integers(0, I, N_RATINGS)
     ratings = rng.integers(1, 11, N_RATINGS) / 2.0
+    return tables, users, items, ratings
+
+
+def _make_data(seed: int, workdir: Path):
+    """``_serve_data``'s tables in an ``.npz`` (the port's
+    ``save_checkpoint``) and its ratings in a train CSV."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.utils.checkpoint import save_checkpoint
+    from cu2rec_torch.utils.config import Config
+
+    tables, users, items, ratings = _serve_data(seed)
+    ckpt = save_checkpoint(str(workdir / "model.npz"),
+                           model_from_numpy(tables, device="cpu"),
+                           Config(n_factors=F, total_iterations=100))
     train = workdir / "train.csv"
     with open(train, "w") as f:
         f.write("userId,itemId,rating\n")
@@ -1124,6 +1149,13 @@ def _check_topk(items, scores, ref_scores, excluded, what: str):
             f"{what}: scores differ from the reference")
     require(np.abs(top - s).max() <= tol,
             f"{what}: not the reference top-10")
+
+
+def _wave_times(waves, inp, out):
+    """(latency of each of the three serving waves, requests/s)."""
+    lat = [max(out.t_done[r["id"]] for r in w) - t
+           for w, t in zip(waves[:3], inp.t_start[:3])]
+    return lat, sum(len(w) for w in waves[:3]) / sum(lat)
 
 
 def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
@@ -1211,11 +1243,9 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
         _check_topk(r["items"], r["scores"], Q @ x + mu + ib, req["items"],
                     f"implicit fold_in {req['id']}")
 
-    lat = [max(out.t_done[r["id"]] for r in w) - t
-           for w, t in zip(waves[:3], inp.t_start[:3])]
-    n_req = sum(len(w) for w in waves[:3])
-    rps = n_req / sum(lat)
-    log(f"[serve] {n_req} requests in 3 batches: recommend "
+    lat, rps = _wave_times(waves, inp, out)
+    log(f"[serve] {sum(len(w) for w in waves[:3])} requests in 3 batches: "
+        "recommend "
         f"{lat[0] * 1e3:.1f} ms, explicit fold-in {lat[1] * 1e3:.1f} ms, "
         f"implicit fold-in {lat[2] * 1e3:.1f} ms; p50 batch latency "
         f"{float(np.median(lat)) * 1e3:.1f} ms; {rps:.1f} requests/s "
@@ -1241,7 +1271,9 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
             f"unprofiled wave's {wave_s * 1e3:.1f} ms;"
             " top kernels by device time: " + "; ".join(
                 f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in top))
-    return launches
+    return launches, {"tables": tables, "indptr": indptr,
+                      "train_items": train_items, "waves": waves,
+                      "resp": out.resp, "lat": lat, "rps": rps}
 
 
 # -- phase 7: the training families (ALS, iALS, BPR) -----------------------
@@ -3321,6 +3353,483 @@ def phase_shard(torch, dev, seed: int, workdir: Path, card: str):
     return entries, k1
 
 
+# -- phase 11: sharded serving -----------------------------------------------
+
+# (a) phase 6's catalog and waves through the daemon over n item shards on
+# one card.  Against phase 6's one-device engine: recommend scores within
+# rtol 1e-5 plus a response's 6-decimal rounding, items equal wherever the
+# reference's scores are not tied within that; the explicit fold-in rows
+# within 1e-6 (each sampled row is one shard's bits); the implicit rows
+# within K1's rtol 1e-3 / atol 1e-4 (the Gramian is the shards' Grams,
+# summed in another order), and so their responses' scores within 1e-3.
+SERVE_SHARDS = (2, 4)
+SHARD_SCORE_RTOL = 1e-5
+RESPONSE_ATOL = 1e-6
+# (b) the TPU package's own serving probe (experiments/serve_probe.py:
+# 25-30): items, F, batch, k, fold-in iterations, ratings a new user.
+PROBE_I, PROBE_F, PROBE_B, PROBE_K = 1_000_000, 64, 512, 10
+PROBE_ITERS, PROBE_RATINGS = 100, 32
+PROBE_SHARDS = (1, 2, 4)
+# (c) the ranks' ranking eval: the first users with a held-out list.
+SERVE_EVAL_USERS = 2048
+
+
+def _serve_csr(indptr, items):
+    from cu2rec_torch.data.csr import CSRRatings
+
+    return CSRRatings(indptr=np.asarray(indptr, np.int32),
+                      indices=np.asarray(items, np.int32),
+                      data=np.ones(len(items), np.float32), n_users=U,
+                      n_items=I)
+
+
+def _fold_arrays(wave):
+    """(items, ratings, mask) (B, D) of a wave of fold-in requests, as the
+    daemon pads them."""
+    D = max(len(r["items"]) for r in wave)
+    items = np.zeros((len(wave), D), np.int32)
+    vals = np.zeros((len(wave), D), np.float32)
+    mask = np.zeros((len(wave), D), bool)
+    for b, r in enumerate(wave):
+        n = len(r["items"])
+        items[b, :n], vals[b, :n], mask[b, :n] = r["items"], r["ratings"], 1
+    return items, vals, mask
+
+
+def _same_response(got, want, rtol: float, what: str) -> None:
+    """One response's items and scores against the reference's: scores
+    within rtol (plus the rounding of a response), items equal wherever
+    the reference's score is not tied with another within that."""
+    a = np.asarray(got["scores"], np.float64)
+    b = np.asarray(want["scores"], np.float64)
+    require(len(a) == len(b) == len(got["items"]),
+            f"{what}: {len(a)} scores, want {len(b)}")
+    tol = rtol * np.abs(b) + RESPONSE_ATOL
+    require(np.all(np.abs(a - b) <= tol),
+            f"{what}: scores differ by {np.abs(a - b).max():.3g}")
+    for j in range(len(b)):
+        if (np.abs(b - b[j]) <= 2 * tol[j]).sum() == 1:
+            require(got["items"][j] == want["items"][j],
+                    f"{what}: item {j} is {got['items'][j]}, want "
+                    f"{want['items'][j]}")
+
+
+def _same_waves(resp, ctx, label: str) -> None:
+    """The responses to phase 6's three waves against phase 6's: every
+    recommend and implicit fold-in.  An explicit fold-in's rows depend on
+    the batch slot the daemon gives the request (its sample stream keys on
+    the slot), and so on how the wave's requests fell into batches: each
+    must hold 10 finite-scored unrated items (``_same_explicit`` holds the
+    wave's rows, in one batch, against one device's)."""
+    waves, want = ctx["waves"], ctx["resp"]
+    errors = [r for r in resp.values() if "error" in r]
+    require(not errors, f"{label}: error responses: {errors[:3]}")
+    got_rec, want_rec = resp["rec"]["results"], want["rec"]["results"]
+    require(len(got_rec) == len(want_rec), f"{label}: recommend results")
+    for b, (g, w) in enumerate(zip(got_rec, want_rec)):
+        _same_response(g, w, SHARD_SCORE_RTOL, f"{label} recommend {b}")
+    for req in waves[1]:
+        r = resp[req["id"]]
+        require(len(r["items"]) == 10 and np.all(np.isfinite(r["scores"]))
+                and not set(r["items"]) & set(req["items"]),
+                f"{label} {req['id']}: wrong items")
+    for req in waves[2]:
+        _same_response(resp[req["id"]], want[req["id"]], RTOL,
+                       f"{label} {req['id']}")
+
+
+def _same_explicit(ref, engine, wave, label: str) -> None:
+    """The explicit fold-in wave in one batch (phase 6's 100 iterations)
+    through ``engine`` against the one-device ``ref``: the same rows within
+    1e-6 (each sampled row is one shard's bits), then the same
+    recommends."""
+    from cu2rec_torch.utils.config import Config
+
+    cfg = Config(n_factors=F, total_iterations=100, is_train=False)
+    items, vals, mask = _fold_arrays(wave)
+    (p, ub), (p0, ub0) = (e.fold_in(items, vals, mask, cfg)
+                          for e in (engine, ref))
+    err = max(np.abs(p - p0).max(), np.abs(ub - ub0).max())
+    require(err <= 1e-6, f"{label}: explicit fold-in rows differ by {err}")
+    got, want = (e.recommend(p0, ub0, items, mask, k=10)
+                 for e in (engine, ref))
+    for b in range(len(wave)):
+        _same_response({"items": got[1][b].tolist(), "scores": got[0][b]},
+                       {"items": want[1][b].tolist(), "scores": want[0][b]},
+                       SHARD_SCORE_RTOL, f"{label} explicit {b}")
+
+
+def _daemon_waves(engine, ctx, label: str):
+    """Phase 6's waves through a ``ServingDaemon`` over ``engine`` with
+    phase 6's settings (20 ms window, the ladder warmed to 512 x 64), no
+    profiler: (responses, wave latencies, requests/s, K1 launches by
+    wave, the whole run's K1 launches, warm-up seconds)."""
+    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.serve.daemon import ServingDaemon, run_stdio
+    from cu2rec_torch.utils.config import Config
+
+    cfg = Config(n_factors=F, total_iterations=100, is_train=False)
+    daemon = ServingDaemon(engine, train_csr=_serve_csr(ctx["indptr"],
+                                                        ctx["train_items"]),
+                           cfg=cfg, max_batch=512, window_ms=20.0,
+                           default_k=10, completion_workers=4)
+    n0 = cuda_linalg.LAUNCHES
+    t0 = time.perf_counter()
+    daemon.warm(max_batch=512, max_width=64, ks=(10,))
+    warm_s = time.perf_counter() - t0
+    out = _ResponseOutput()
+    inp = _WaveInput(ctx["waves"], out, lambda: cuda_linalg.LAUNCHES, None,
+                     None)
+    require(run_stdio(daemon, inp, out) == 0, f"{label}: the daemon failed")
+    per_wave = [b - a for a, b in inp.counts]
+    require(per_wave[2] > 0, f"{label}: ridge_cholesky was not launched by "
+            "the implicit fold-ins")
+    require(per_wave[0] == per_wave[1] == 0, f"{label}: ridge_cholesky "
+            "launched outside the implicit fold-ins")
+    lat, rps = _wave_times(ctx["waves"], inp, out)
+    return (out.resp, lat, rps, per_wave[:3], cuda_linalg.LAUNCHES - n0,
+            warm_s)
+
+
+def _headline_shards(torch, ctx, card: str) -> int:
+    """Phase 11 (a): phase 6's waves over SERVE_SHARDS item shards on one
+    card, each response against phase 6's one-device engine, the implicit
+    rows against a one-device engine's.  Returns K1's launches."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.serve.engine import ServingEngine, ShardedServingEngine
+
+    model = model_from_numpy(ctx["tables"], device="cuda")
+    items, vals, mask = _fold_arrays(ctx["waves"][2])
+    ref = ServingEngine(model, device="cuda")
+    ref_rows, _ = ref.fold_in_implicit(items, vals, mask, 40.0, 0.1)
+    lat6 = ctx["lat"]
+    k1 = 0
+    for n in SERVE_SHARDS:
+        engine = ShardedServingEngine(model, devices=["cuda:0"] * n)
+        resp, lat, rps, per_wave, launches, warm_s = _daemon_waves(
+            engine, ctx, f"{n} shards")
+        k1 += launches
+        _same_waves(resp, ctx, f"{n} shards")
+        _same_explicit(ref, engine, ctx["waves"][1], f"{n} shards")
+        rows, _ = engine.fold_in_implicit(items, vals, mask, 40.0, 0.1)
+        err = np.abs(rows - ref_rows) - RTOL * np.abs(ref_rows)
+        require(err.max() <= ATOL, f"{n} shards: implicit rows differ from "
+                f"one device by {np.abs(rows - ref_rows).max():.3g}")
+        log(f"[shard-serve] {n} item shards on one card ({I} items, F={F}): "
+            f"recommend {lat[0] * 1e3:.1f} ms, explicit fold-in "
+            f"{lat[1] * 1e3:.1f} ms, implicit fold-in {lat[2] * 1e3:.1f} ms "
+            f"a wave, {rps:.1f} requests/s (phase 6, one shard: "
+            f"{lat6[0] * 1e3:.1f} / {lat6[1] * 1e3:.1f} / "
+            f"{lat6[2] * 1e3:.1f} ms, {ctx['rps']:.1f} requests/s); warm-up "
+            f"{warm_s:.1f} s; ridge_cholesky {per_wave} by wave, {launches} "
+            f"in the run; the recommends within rtol {SHARD_SCORE_RTOL:g} "
+            f"and the implicit fold-ins within {RTOL:g} of phase 6's, the "
+            f"explicit wave's rows within 1e-6 of one device's in one "
+            f"batch, the implicit rows within "
+            f"{np.abs(rows - ref_rows).max():.3g}; {card}")
+        del engine
+    torch.cuda.empty_cache()
+    return k1
+
+
+def _probe_shards(torch, seed: int, card: str) -> None:
+    """Phase 11 (b): the TPU package's serving probe shape over
+    PROBE_SHARDS item shards on the card: recommend users/s
+    (``bench_qps``) and a fold-in batch's time, 32 users' top-10 against a
+    float64 reference."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+    from cu2rec_torch.utils.config import Config
+
+    rng = np.random.default_rng(seed + 11)
+    tables = {
+        "p": np.zeros((8, PROBE_F), np.float32),
+        "q": rng.normal(0, 0.1, (PROBE_I, PROBE_F)).astype(np.float32),
+        "user_bias": np.zeros(8, np.float32),
+        "item_bias": rng.normal(0, 0.3, PROBE_I).astype(np.float32),
+        "global_bias": np.array([3.5], np.float32),
+    }
+    model = model_from_numpy(tables, device="cuda")
+    p = rng.normal(0, 1.0, (32, PROBE_F)).astype(np.float32)
+    rated = rng.integers(0, PROBE_I, (32, PROBE_RATINGS)).astype(np.int32)
+    ref = (tables["q"].astype(np.float64) @ p.T.astype(np.float64)).T \
+        + 3.5 + tables["item_bias"].astype(np.float64)[None, :]
+    ref[np.arange(32)[:, None], rated] = -np.inf
+    top = -np.sort(-np.partition(ref, -PROBE_K, axis=1)[:, -PROBE_K:],
+                   axis=1)
+    tol = 1e-3 * np.maximum(1.0, np.abs(top).max(axis=1))
+    f_items = rng.integers(0, PROBE_I, (PROBE_B, PROBE_RATINGS)).astype(
+        np.int32)
+    f_vals = rng.uniform(1, 5, (PROBE_B, PROBE_RATINGS)).astype(np.float32)
+    f_mask = np.ones((PROBE_B, PROBE_RATINGS), bool)
+    cfg = Config(total_iterations=PROBE_ITERS, learning_rate=0.05,
+                 n_factors=PROBE_F)
+    b_rows = rng.normal(0, 1.0 / PROBE_F, (PROBE_B, PROBE_F)).astype(
+        np.float32)
+    b_rated = rng.integers(0, PROBE_I, (PROBE_B, 32)).astype(np.int32)
+    for n in PROBE_SHARDS:
+        eng = ShardedServingEngine(model, devices=["cuda:0"] * n)
+        vals, ids = eng.recommend(p, np.zeros(32, np.float32), rated,
+                                  np.ones_like(rated, bool), k=PROBE_K)
+        got = ref[np.arange(32)[:, None], ids]
+        require(np.all(np.isfinite(got)) and np.all(np.isfinite(vals)),
+                f"probe, {n} shards: a rated item or a non-finite score")
+        require(np.all(np.abs(got - vals).max(axis=1) <= tol)
+                and np.all(np.abs(top - vals).max(axis=1) <= tol),
+                f"probe, {n} shards: not the float64 reference's top-10")
+        torch.cuda.reset_peak_memory_stats()
+        qps = eng.bench_qps(batch_size=PROBE_B, k=PROBE_K, n_batches=20,
+                            seed=seed)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+
+        def batch():
+            eng.recommend_padded(b_rows, np.zeros(PROBE_B, np.float32),
+                                 b_rated, np.ones_like(b_rated, bool),
+                                 k=PROBE_K)
+            torch.cuda.synchronize()
+
+        prof, host_s = _profiled(torch, batch, lambda: _new_profile(torch))
+        busy_s, kernels = _device_breakdown(torch, prof, top=4)
+        eng.fold_in(f_items, f_vals, f_mask, cfg)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.fold_in(f_items, f_vals, f_mask, cfg)
+        fold_s = time.perf_counter() - t0
+        log(f"[shard-serve] probe shape ({PROBE_I} items, F={PROBE_F}, "
+            f"batch {PROBE_B}, k={PROBE_K}) over {n} item shard(s) on one "
+            f"card: recommend {qps:.1f} users/s (20 batches, host clock "
+            f"to a synchronize), fold-in batch of {PROBE_B} x "
+            f"{PROBE_RATINGS} ratings, {PROBE_ITERS} iterations: "
+            f"{fold_s * 1e3:.1f} ms ({PROBE_B / fold_s:.1f} users/s); peak "
+            f"{peak:.0f} MiB while recommending; one recommend batch under "
+            f"the profiler: device busy {busy_s * 1e3:.3f} ms of "
+            f"{host_s * 1e3:.3f} ms, top kernels: " + "; ".join(
+                f"{k[:48]} {ms:.3f} ms x{c}" for k, ms, c in kernels)
+            + f"; 32 users' top-10 within the float64 reference; {card}")
+        del eng
+    del model
+    torch.cuda.empty_cache()
+
+
+def _eval_split(ctx, one):
+    """A held-out list for the first SERVE_EVAL_USERS users: the
+    one-device engine's top 5 for the user and 5 random items, so that
+    recall and NDCG are far from 0 and move with the ranking."""
+    from cu2rec_torch.data.csr import CSRRatings
+
+    users = np.arange(SERVE_EVAL_USERS)
+    csr = _serve_csr(ctx["indptr"], ctx["train_items"])
+    _, ids = one.recommend_known(users, csr, k=10)
+    rng = np.random.default_rng(7)
+    held = np.concatenate([ids[:, :5], rng.integers(0, I, (len(users), 5))],
+                          axis=1).astype(np.int32)
+    indptr = np.zeros(U + 1, np.int32)
+    indptr[1:SERVE_EVAL_USERS + 1] = np.arange(1, SERVE_EVAL_USERS + 1) * 10
+    indptr[SERVE_EVAL_USERS + 1:] = SERVE_EVAL_USERS * 10
+    return CSRRatings(indptr=indptr, indices=held.reshape(-1),
+                      data=np.ones(held.size, np.float32), n_users=U,
+                      n_items=I)
+
+
+def _serve_rank_job(seed: int, test_args):
+    """A rank of an item-sharded grid (1 x world) on the card: the
+    rank-mode engine over phase 6's catalog (the recommend wave, the
+    implicit and explicit fold-in waves, each run once and then timed to a
+    synchronize) and ``sharded_ranking_eval``; K1's launches on the rank."""
+    import torch
+
+    from cu2rec_torch.data.csr import CSRRatings
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.parallel.distributed import barrier
+    from cu2rec_torch.parallel.serving import sharded_ranking_eval
+    from cu2rec_torch.parallel.sharded import make_mesh
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+    from cu2rec_torch.utils.config import Config
+
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh(1, world)
+    tables, users, items, _ = _serve_data(seed)
+    model = model_from_numpy(tables, device=mesh.device)
+    csr = _serve_csr(np.searchsorted(users, np.arange(U + 1)), items)
+    rec_users, waves = _requests(np.random.default_rng(seed + 1))
+    eng = ShardedServingEngine(model, mesh=mesh)
+    cfg = Config(n_factors=F, total_iterations=100, is_train=False)
+    ops = {
+        "recommend": lambda: eng.recommend_known(rec_users, csr, k=10),
+        "explicit": lambda: eng.fold_in(*_fold_arrays(waves[1]), cfg),
+        "implicit": lambda: eng.fold_in_implicit(*_fold_arrays(waves[2]),
+                                                 40.0, 0.1)[0],
+    }
+    out, ms = {}, {}
+    n0 = cuda_linalg.LAUNCHES
+    for name, op in ops.items():
+        op()
+        barrier()
+        t0 = time.perf_counter()
+        out[name] = op()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    out["k1"] = cuda_linalg.LAUNCHES - n0
+    out["eval"] = sharded_ranking_eval(mesh, model, csr,
+                                       CSRRatings(*test_args), k=10,
+                                       max_users=SERVE_EVAL_USERS)
+    out["ms"] = ms
+    return out
+
+
+def _rank_shards(torch, seed: int, ctx, card: str, world: int = 2,
+                 backend: str = "gloo") -> int:
+    """Phase 11 (c): ``world`` ranks, a shard each (gloo ranks sharing the
+    card, or NCCL ranks a card each), against the one-process shards: the
+    ranks bit-equal, the recommends and fold-ins within phase 11 (a)'s
+    tolerances, ``sharded_ranking_eval`` equal to ``ranking_eval`` within
+    1e-6.  Returns K1's launches on the ranks."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.parallel.distributed import launch
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+    from cu2rec_torch.serve.recommend import ranking_eval
+    from cu2rec_torch.utils.config import Config
+
+    model = model_from_numpy(ctx["tables"], device="cuda")
+    devices = (["cuda:0"] * world if backend == "gloo"
+               else [f"cuda:{r}" for r in range(world)])
+    one = ShardedServingEngine(model, devices=devices)
+    test = _eval_split(ctx, one)
+    t0 = time.perf_counter()
+    ranks = launch(_serve_rank_job, world, backend, "cuda", args=(
+        seed, (test.indptr, test.indices, test.data, U, I)),
+        timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for n, r in enumerate(ranks[1:], 1):
+        for key in ("recommend", "explicit", "implicit"):
+            for a, b in zip(ranks[0][key], r[key]):
+                require(np.array_equal(a, b), f"rank {n}'s {key} differs "
+                        "from rank 0's")
+        require(r["eval"] == ranks[0]["eval"], "the ranks' evals differ")
+    r0 = ranks[0]
+    csr = _serve_csr(ctx["indptr"], ctx["train_items"])
+    rec_users = np.asarray([int(u) for u in ctx["waves"][0][0]["users"]])
+    v, i = one.recommend_known(rec_users, csr, k=10)
+    for b in range(len(rec_users)):
+        _same_response({"items": r0["recommend"][1][b].tolist(),
+                        "scores": r0["recommend"][0][b]},
+                       {"items": i[b].tolist(), "scores": v[b]},
+                       SHARD_SCORE_RTOL, f"{backend} ranks recommend {b}")
+    cfg = Config(n_factors=F, total_iterations=100, is_train=False)
+    want_p, want_ub = one.fold_in(*_fold_arrays(ctx["waves"][1]), cfg)
+    err = max(np.abs(r0["explicit"][0] - want_p).max(),
+              np.abs(r0["explicit"][1] - want_ub).max())
+    require(err <= 1e-6, f"{backend} ranks: explicit fold-in rows differ "
+            f"by {err:.3g}")
+    want_rows = one.fold_in_implicit(*_fold_arrays(ctx["waves"][2]), 40.0,
+                                     0.1)[0]
+    err = np.abs(r0["implicit"] - want_rows) - RTOL * np.abs(want_rows)
+    require(err.max() <= ATOL, f"{backend} ranks: implicit rows differ by "
+            f"{np.abs(r0['implicit'] - want_rows).max():.3g}")
+    want = ranking_eval(model, csr, test, k=10, max_users=SERVE_EVAL_USERS)
+    for m in ("recall", "ndcg"):
+        require(abs(r0["eval"][m] - want[m]) < 1e-6,
+                f"{backend} ranks: sharded {m} {r0['eval'][m]} against "
+                f"ranking_eval's {want[m]}")
+    require(all(r["k1"] > 0 for r in ranks), "a rank launched no K1")
+    times = {k: max(r["ms"][k] for r in ranks) for k in ranks[0]["ms"]}
+    what = ("gloo stages each CUDA all_reduce through the host: a check, "
+            "not a timing of the card" if backend == "gloo"
+            else "one rank a card")
+    log(f"[shard-serve] {world} {backend} ranks, a shard each: recommend "
+        f"{times['recommend']:.1f} ms (512 users), explicit fold-in "
+        f"{times['explicit']:.1f} ms (256 users, 100 iterations), implicit "
+        f"{times['implicit']:.1f} ms (256 users), the slowest rank by the "
+        f"host clock ({what}); {wall:.1f} s with the ranks' start; "
+        f"recall@10 {r0['eval']['recall']:.6f}, NDCG@10 "
+        f"{r0['eval']['ndcg']:.6f} = ranking_eval's; K1 "
+        f"{[r['k1'] for r in ranks]} by rank; {card}")
+    return sum(r["k1"] for r in ranks)
+
+
+def _serve_cli_shards(torch) -> None:
+    """Phase 11 (d): ``serve --devices 2 --device cuda`` on a host of fewer
+    cards raises and names both counts."""
+    from cu2rec_torch.cli.serve import main as serve_main
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return
+    try:
+        serve_main(["--checkpoint", "absent.npz", "--devices", "2",
+                    "--device", "cuda"])
+    except RuntimeError as e:
+        require("--devices 2" in str(e) and f"has {n}" in str(e),
+                f"serve --devices 2: the error names no counts: {e}")
+        log(f"[shard-serve] serve --devices 2 --device cuda on {n} card(s) "
+            f"raises: {e}")
+    else:
+        raise SmokeFailure("serve --devices 2 --device cuda ran on a host "
+                           f"of {n} card(s)")
+
+
+def phase_shard_serve(torch, seed: int, ctx, card: str) -> int:
+    """Phase 11: sharded serving on one card.  Returns K1's launches."""
+    t0 = time.perf_counter()
+    k1 = _headline_shards(torch, ctx, card)
+    _probe_shards(torch, seed, card)
+    k1 += _rank_shards(torch, seed, ctx, card)
+    _serve_cli_shards(torch)
+    log(f"[shard-serve] ridge_cholesky launches {k1}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return k1
+
+
+def _serve_cli_waves(data, seed: int, n: int, card: str):
+    """``--nccl``: phase 6's waves through ``serve --devices n --device
+    cuda`` over ``_make_data``'s files, no profiler: the context of
+    ``_same_waves``."""
+    from cu2rec_torch.cli.serve import main as serve_main
+    from cu2rec_torch.ops import cuda_linalg
+
+    tables, ckpt, train, indptr, train_items = data
+    _, waves = _requests(np.random.default_rng(seed + 1))
+    out = _ResponseOutput()
+    inp = _WaveInput(waves, out, lambda: cuda_linalg.LAUNCHES, None, None)
+    saved = sys.stdin, sys.stdout
+    sys.stdin, sys.stdout = inp, out
+    t0 = time.perf_counter()
+    try:
+        rc = serve_main(["--checkpoint", ckpt, "--train", train, "--device",
+                         "cuda", "--devices", str(n), "--window-ms", "20",
+                         "--warm-batch", "512", "--warm-width", "64"])
+    finally:
+        sys.stdin, sys.stdout = saved
+    require(rc == 0, f"serve --devices {n} exited with {rc}")
+    lat, rps = _wave_times(waves, inp, out)
+    log(f"[nccl] serve --devices {n} --device cuda: recommend "
+        f"{lat[0] * 1e3:.1f} ms, explicit fold-in {lat[1] * 1e3:.1f} ms, "
+        f"implicit fold-in {lat[2] * 1e3:.1f} ms a wave, {rps:.1f} "
+        f"requests/s; {time.perf_counter() - t0:.1f} s with the model's "
+        f"load and the warm-up; each card {card}")
+    return {"tables": tables, "indptr": indptr, "train_items": train_items,
+            "waves": waves, "resp": out.resp, "lat": lat, "rps": rps}
+
+
+def phase_shard_serve_nccl(torch, seed: int, workdir: Path, card: str):
+    """``--nccl``'s phase 11: phase 6's waves through ``serve --devices 1``
+    and ``--devices 4`` (every response of the four cards against the one
+    card's), and the rank-mode engine on NCCL_RANKS NCCL ranks, a card
+    each, against the one-process shards over the four cards."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.serve.engine import ServingEngine, ShardedServingEngine
+
+    data = _make_data(seed, workdir)
+    one = _serve_cli_waves(data, seed, 1, card)
+    four = _serve_cli_waves(data, seed, NCCL_RANKS, card)
+    _same_waves(four["resp"], one, f"serve --devices {NCCL_RANKS}")
+    model = model_from_numpy(one["tables"], device="cuda")
+    _same_explicit(ServingEngine(model, device="cuda"), ShardedServingEngine(
+        model, devices=[f"cuda:{r}" for r in range(NCCL_RANKS)]),
+        one["waves"][1], f"{NCCL_RANKS} cards")
+    _rank_shards(torch, seed, one, card, world=NCCL_RANKS, backend="nccl")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3352,6 +3861,7 @@ def main(argv=None) -> int:
                 f"this host has {count}")
         with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
             phase_shard_nccl(torch, dev, args.seed, Path(tmp), smi)
+            phase_shard_serve_nccl(torch, args.seed, Path(tmp), smi)
         log(f"[done] {time.perf_counter() - t0:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -3373,13 +3883,14 @@ def main(argv=None) -> int:
         variants, extras = phase_variants(torch, args.seed, Path(tmp), smi,
                                           f32_rmse)
     probed = phase_probes()
-    served = phase_serve(torch, args.seed, smi)
+    served, serve_ctx = phase_serve(torch, args.seed, smi)
     families, measured = phase_families(torch, dev, args.seed, smi)
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
         piped, pipeline = phase_pipeline(args.seed, Path(tmp), smi)
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
         sharded, shard_k1 = phase_shard(torch, dev, args.seed, Path(tmp),
                                         smi)
+    shard_served = phase_shard_serve(torch, args.seed, serve_ctx, smi)
     for k in sharded:  # the registers of the variant's own instances
         tag = f"<128,{k['shape']['dtype']}"
         k["registers"] = {fn: r for fn, r in registers["sgd_sharded"].items()
@@ -3399,7 +3910,7 @@ def main(argv=None) -> int:
     by_name["eval_error/bfloat16"]["launches"] = \
         variants["eval_error/bfloat16"]
     by_name["ridge_cholesky"]["launches"] += variants["ridge_cholesky"] \
-        + shard_k1
+        + shard_k1 + shard_served
     by_name["sgd_step"]["variants"] = extras
     by_name["row_gather"]["launches"] = probed["row_gather"]
     by_name["smem_gather"]["launches"] = probed["smem_gather"]

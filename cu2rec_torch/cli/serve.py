@@ -1,4 +1,5 @@
-"""``serve`` — warm-pool serving daemon on one GPU.
+"""``serve`` — warm-pool serving daemon on one GPU, or over an item-sharded
+catalog on several (``--devices N``).
 
 The reference serves one user per process launch (predict.cu:72-133); this
 CLI loads the model and uploads the catalog ONCE, then answers JSONL
@@ -14,7 +15,10 @@ Two model sources:
     python -m cu2rec_torch.cli.serve -c cfg -q q.csv -i item_bias.csv \\
         -g global_bias.csv
 
-It runs on the CUDA device unless ``--device cpu`` is given.  Request/
+It runs on the CUDA device unless ``--device cpu`` is given.  ``--devices
+N`` (N ≥ 2) cuts the catalog into N item shards, one process: with
+``--device cuda`` on ``cuda:0 … cuda:N-1`` (it raises on a host of fewer
+cards), with ``--device cpu`` all on the CPU.  Request/
 response protocol is documented in ``serve/daemon.py``; try:
 
     echo '{"id": 1, "op": "fold_in", "items": [3, 7],
@@ -45,8 +49,9 @@ def build_parser():
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to serve on (default: cuda; no fall-back)")
     p.add_argument("--devices", type=int, default=0,
-                   help="number of devices; only 1 (or 0 = the default "
-                   "one) is supported")
+                   help="item-shard the catalog over N devices: cuda:0 … "
+                   "cuda:N-1, or N shards on the CPU with --device cpu "
+                   "(0 or 1 = the one --device)")
     p.add_argument("-k", "--top-k", type=int, default=10)
     p.add_argument("--max-batch", type=int, default=512)
     p.add_argument("--window-ms", type=float, default=4.0)
@@ -92,19 +97,34 @@ def load_model(args, device):
     return model.to(device), None
 
 
+def shard_devices(device, n: int) -> list:
+    """The devices of ``n`` item shards: ``cuda:0 … cuda:n-1`` (raising,
+    with both counts, on a host of fewer cards) or ``n`` times the CPU;
+    ``device`` itself for one shard."""
+    import torch
+
+    if n <= 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise RuntimeError(
+            f"--devices {n} shards the catalog over {n} CUDA devices, and "
+            f"this host has {have}")
+    return [torch.device("cuda", s) for s in range(n)]
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.devices > 1:
-        raise SystemExit(
-            f"--devices {args.devices}: the PyTorch port serves on one GPU; "
-            "multi-GPU serving is ROADMAP Queue 1 item 12b")
 
     from cu2rec_torch.serve.daemon import ServingDaemon, run_socket, run_stdio
-    from cu2rec_torch.serve.engine import ServingEngine
+    from cu2rec_torch.serve.engine import ShardedServingEngine
     from cu2rec_torch.utils.config import Config
     from cu2rec_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    devices = shard_devices(device, args.devices)
     cfg = Config()
     if args.config:
         cfg.read_config(args.config)
@@ -121,14 +141,15 @@ def main(argv=None) -> int:
         train_csr = build_csr(rd, n_users=max(rd.n_users, model.n_users),
                               n_items=max(rd.n_items, model.n_items))
 
-    engine = ServingEngine(model, device=device)
+    engine = ShardedServingEngine(model, devices=devices)
     daemon = ServingDaemon(engine, train_csr=train_csr, cfg=cfg,
                            max_batch=args.max_batch,
                            window_ms=args.window_ms,
                            default_k=args.top_k,
                            completion_workers=args.completion_workers)
     print(f"model: {model.n_users} users x {model.n_items} items, "
-          f"F={model.n_factors}, on {engine.device}",
+          f"F={model.n_factors}, {engine.n_ip} item shard(s) on "
+          f"{', '.join(str(d) for d in engine.devices)}",
           file=sys.stderr, flush=True)
     if args.warm_batch:
         ks = tuple(int(x) for x in args.warm_ks.split(",") if x.strip())

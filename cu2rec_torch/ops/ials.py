@@ -29,7 +29,13 @@ def gramian(T: torch.Tensor) -> torch.Tensor:
 
 def _corrections(T_other, cols, vals, mask, alpha: float):
     """Per slice: Σ (c − 1) q qᵀ and Σ c q over the rated items."""
-    q = T_other[cols].to(torch.float32)              # (B, D, F)
+    return _row_corrections(T_other[cols].to(torch.float32), vals, mask,
+                            alpha)
+
+
+def _row_corrections(q, vals, mask, alpha: float):
+    """The same from the rated items' float32 rows ``q`` (B, D, F), already
+    gathered (an item-sharded catalog assembles them over its shards)."""
     m = mask.to(torch.float32)
     w = alpha * vals * m                              # c − 1, masked
     G = torch.einsum("bdf,bdg->bfg", q * w[..., None], q)
@@ -45,7 +51,14 @@ def _add_reg(G, reg: float) -> torch.Tensor:
 def ials_bucket_system(T_other, G_global, cols, vals, mask, alpha: float,
                        reg: float):
     """(G, rhs) of a regular chunk before the solve."""
-    G, rhs = _corrections(T_other, cols, vals, mask, alpha)
+    return ials_rows_system(T_other[cols].to(torch.float32), G_global, vals,
+                            mask, alpha, reg)
+
+
+def ials_rows_system(q, G_global, vals, mask, alpha: float, reg: float):
+    """(G, rhs) of the systems whose rated items' rows ``q`` (B, D, F) are
+    given: the serving engines' implicit fold-in."""
+    G, rhs = _row_corrections(q, vals, mask, alpha)
     return _add_reg(G_global[None] + G, reg), rhs
 
 

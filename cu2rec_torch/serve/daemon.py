@@ -1,5 +1,6 @@
-"""Warm-pool serving daemon: a long-lived process around the one-GPU
-serving engine with cross-request micro-batching.
+"""Warm-pool serving daemon: a long-lived process around a serving engine
+(one GPU, or a catalog item-sharded over several) with cross-request
+micro-batching.
 
 The reference's serving story is one process launch per user
 (predict.cu:72-133: load Q/item_bias/global_bias, partial-fit, score,
@@ -23,7 +24,8 @@ card) overlaps batch N+1's dispatch.
 
 This module is the TPU package's ``serve/daemon.py`` with the same request
 protocol; only materialization differs (``.cpu().numpy()`` in the
-completion thread), and ``stats`` also names the engine's device.
+completion thread), and ``stats`` also names the engine's lead device
+(``device``) and each shard's (``devices``).
 
 Request protocol (JSONL, one object per line):
 
@@ -224,7 +226,8 @@ class ServingDaemon:
             "n_items": self.engine.n_items,
             "n_factors": self.engine.F,
             "n_shards": self.engine.n_ip,
-            "device": str(self.engine.T_i.device),
+            "device": str(self.engine.device),
+            "devices": [str(d) for d in self.engine.devices],
             "requests": n_req,
             "batches": n_bat,
             "mean_batch": (n_breq / n_bat if n_bat else 0.0),

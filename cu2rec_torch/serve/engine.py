@@ -1,23 +1,44 @@
-"""Serving engine on one GPU: batched recommendations and batched fold-in
-against a frozen catalog — the reference's ``predict`` binary
+"""Serving engines: batched recommendations and batched fold-in against a
+frozen, item-sharded catalog — the reference's ``predict`` binary
 (predict.cu:103-132) as a long-lived service.
 
-The one-device counterpart of the TPU package's ``ShardedServingEngine``
-(serve/engine.py there), with the same methods, padding and results:
+The TPU package's ``ShardedServingEngine`` (serve/engine.py there), with the
+same methods, padding and results:
 
-  * the catalog lives once on the device, as the packed item table
-    (factors + bias per row, ops/packed.py);
-  * ``recommend`` scores a user batch against the catalog in item chunks
-    with a running top-k merge, so the live score tile is bounded whatever
-    the batch size;
+  * the catalog lives once, as the packed item table (factors + bias per
+    row, ops/packed.py), zero-padded to a multiple of ``n_ip`` rows and cut
+    into ``n_ip`` item blocks, shard s holding rows [s·I_loc, (s+1)·I_loc);
+  * ``recommend`` scores a user batch against each shard's block in item
+    chunks with a running top-k merge (the live score tile is bounded
+    whatever the batch size), then merges the shards' (B, k) candidates by
+    global id into one top-k — the merge the reference did with a CPU
+    ``std::sort`` (predict.cu:61);
   * ``fold_in`` learns (p_row, user_bias) for a batch of new users against
     the frozen catalog (is_train=false semantics, sgd.cu:61,70): per
     iteration each user samples one of its ratings from the counter-based
-    stream keyed by batch slot, and only the user rows update;
+    stream keyed by batch slot, each shard writes the rows of the sampled
+    items it owns (zero elsewhere), their sum completes them, and only the
+    user rows update;
   * ``fold_in_implicit`` solves the iALS normal equations for a batch of
-    new users exactly, with kernel K1 (ops/cuda_linalg.py);
+    new users exactly: the Gramian is the shards' YᵀY summed, the rated
+    rows are assembled as in ``fold_in``, and kernel K1 solves
+    (ops/cuda_linalg.py);
   * batches are padded to powers of two, as in the TPU package, and
     ``_programs`` records each padded signature the first time it runs.
+
+The shards are held in one of two ways, behind one shard body:
+
+  * one process, a device for each shard (``devices=[...]``, devices may
+    repeat): the shards' candidates and partial rows move to the first
+    (lead) device as device-to-device copies, where they are joined in
+    shard order;
+  * a ``torch.distributed`` rank for each shard (``mesh=make_mesh(1,
+    n_ip)``, parallel/sharded.py): each rank holds its block only, the
+    candidates are assembled over the ``ip`` axis (``Axis.assemble_``,
+    exact) and the partial rows and Grams summed over it (``Axis.sum_``);
+    every rank returns the same result.
+
+``ServingEngine`` is the one-shard case on one device.
 """
 
 from __future__ import annotations
@@ -28,7 +49,8 @@ import numpy as np
 import torch
 
 from cu2rec_torch.models.state import MFModel
-from cu2rec_torch.ops.ials import _solve_ials_bucket, gramian
+from cu2rec_torch.ops.als import _ridge_finish
+from cu2rec_torch.ops.ials import gramian, ials_rows_system
 from cu2rec_torch.ops.packed import _reg_vectors, pack
 from cu2rec_torch.ops.sgd import Hyper, _key_words, counter_uniform, prng_key
 from cu2rec_torch.ops.topk import _POS_HUGE, NEG_INF
@@ -49,29 +71,139 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-class ServingEngine:
-    """Long-lived serving state on one device (``n_ip`` = 1 item shard)."""
+def chunk_width(n_rows: int, B: int, k: int, override: int | None) -> int:
+    """The catalog chunk width C of a scan over ``n_rows`` items: the live
+    (B, C) score tile stays under ~512 MB (C ≥ 8192), never below k, unless
+    ``override`` sets it."""
+    return min(n_rows, max(k, override if override
+                           else max(8192, (128 << 20) // max(B, 1) // 128
+                                    * 128)))
 
-    n_ip = 1
 
-    def __init__(self, model: MFModel, device=None,
+def shard_topk(pr, ub, mu: float, Y, ib, offset: int, n_real: int, rated,
+               rmask, k: int, C: int):
+    """One item block's masked top-k: ``(vals, ids)`` (B, k), ids global.
+
+    ``Y`` (I_loc, F) and ``ib`` (I_loc,) are the block's factors and
+    biases, its first row the global item ``offset``; global ids at or past
+    ``n_real`` are padding and score ``NEG_INF``, as do the ``rated`` items
+    (B, R) the block holds where ``rmask``.  The block is scanned in chunks
+    of C rows with a running top-k merge; the last chunk starts early
+    (clamped) rather than past the block, and its overlap is masked.  A
+    block of fewer than k rows pads its candidates with ``NEG_INF`` and id
+    0."""
+    B = pr.shape[0]
+    I_loc = Y.shape[0]
+    n_chunks = -(-I_loc // C)
+    k_loc = min(k, C)
+    pad_from = n_real - offset            # first local padding row
+    neg = float(NEG_INF)
+    vals = torch.full((B, k), neg, dtype=torch.float32, device=pr.device)
+    idx = torch.zeros((B, k), dtype=torch.int64, device=pr.device)
+    for c in range(n_chunks):
+        c0 = min(c * C, I_loc - C)
+        sc = pr @ Y[c0:c0 + C].to(torch.float32).T
+        sc = (sc + mu + ub[:, None]
+              + ib[c0:c0 + C].to(torch.float32)[None, :])
+        if c0 < c * C:
+            sc[:, :c * C - c0] = neg
+        if pad_from < c0 + C:
+            sc[:, max(pad_from - c0, 0):] = neg
+        loc = rated - offset - c0
+        in_chunk = rmask & (loc >= 0) & (loc < C)
+        cols = loc.clamp(0, C - 1)
+        sc.scatter_reduce_(1, cols, torch.where(in_chunk, neg, _POS_HUGE),
+                           reduce="amin")
+        v, i = torch.topk(sc, k_loc, dim=1)
+        i = i + (offset + c0)
+        if k_loc < k:
+            v = torch.nn.functional.pad(v, (0, k - k_loc), value=neg)
+            i = torch.nn.functional.pad(i, (0, k - k_loc))
+        vals, idx = merge_topk(torch.cat([vals, v], dim=1),
+                               torch.cat([idx, i], dim=1), k)
+    return vals, idx
+
+
+def merge_topk(vals, ids, k: int):
+    """The top k of candidate scores ``vals`` (B, n) and their ``ids``:
+    a stable descending sort, so that equal scores keep their candidates'
+    order (earlier chunks and lower shards first)."""
+    vals, pos = torch.sort(vals, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(ids, 1, pos[:, :k])
+
+
+def assemble_topk(vals, ids, axis, index: int, k: int):
+    """The top k over the ranks of ``axis`` of each rank's (B, k)
+    candidates (``index`` this rank's place): a zero-filled (2, B, n·k)
+    buffer of 4-byte words, scores as their bits and ids as int32, each
+    rank writing its slot, assembled exactly over the axis."""
+    B = vals.shape[0]
+    buf = torch.zeros((2, B, axis.size * k), dtype=torch.int32,
+                      device=vals.device)
+    buf[0, :, index * k:(index + 1) * k] = vals.contiguous().view(
+        torch.int32)
+    buf[1, :, index * k:(index + 1) * k] = ids.to(torch.int32)
+    axis.assemble_(buf)
+    return merge_topk(buf[0].view(torch.float32), buf[1].to(torch.int64), k)
+
+
+class ShardedServingEngine:
+    """Long-lived serving state over an item-sharded catalog: one process
+    with a device for each shard (``devices``; default every CUDA device),
+    or a rank for each shard (``mesh``, the ``ip`` axis of
+    ``parallel.sharded.make_mesh``)."""
+
+    def __init__(self, model: MFModel, devices=None, mesh=None,
                  chunk_items: int | None = None):
         # ``chunk_items`` overrides the auto-sized catalog chunk width C in
         # the scoring scan (testing/tuning knob; must be >= any k served).
-        # None → the ~512 MB-tile formula in _recommend.
-        self.device = resolve_device(device)
+        # None → the ~512 MB-tile formula of ``chunk_width``.
+        if mesh is not None and devices is not None:
+            raise ValueError("give the engine devices or a mesh, not both")
+        self.mesh = mesh
+        if mesh is not None:
+            self.n_ip = mesh.n_ip
+            held = {mesh.ip_index: mesh.device}
+        else:
+            if devices is None:
+                devices = [torch.device("cuda", i)
+                           for i in range(max(torch.cuda.device_count(), 1))]
+            devs = [resolve_device(d) for d in devices]
+            if not devs:
+                raise ValueError("the engine needs at least one device")
+            self.n_ip = len(devs)
+            held = dict(enumerate(devs))
+        self.device = next(iter(held.values()))   # the lead device
         self.chunk_items = chunk_items
         self.n_items = model.n_items
         self.F = model.n_factors
         self.mu = float(model.global_bias)
         pm = pack(model)
         self.W = pm.width
-        self.T_i = pm.T_i.to(self.device)
+        self.I_pad = -(-self.n_items // self.n_ip) * self.n_ip
+        self.I_loc = self.I_pad // self.n_ip
+        T_i = torch.nn.functional.pad(
+            pm.T_i, (0, 0, 0, self.I_pad - self.n_items))
+        # (global offset of the block's first row, the block on its device)
+        self.shards = [(s * self.I_loc, T_i[s * self.I_loc:(s + 1)
+                                            * self.I_loc].to(d).contiguous())
+                       for s, d in held.items()]
         # Known-user tables stay on the host (numpy): a request's row lookup
         # is a host gather, and the device sees only the padded batch.
         self.P = _host(model.P).astype(np.float32)
         self.user_bias = _host(model.user_bias).astype(np.float32)
         self._programs: dict = {}
+
+    @property
+    def T_i(self) -> torch.Tensor:
+        """The packed block of the first shard this process holds (the
+        whole catalog when ``n_ip`` = 1)."""
+        return self.shards[0][1]
+
+    @property
+    def devices(self) -> list:
+        """The device of each shard this process holds, in shard order."""
+        return [T.device for _, T in self.shards]
 
     def _note(self, key) -> None:
         self._programs.setdefault(key, True)
@@ -82,47 +214,55 @@ class ServingEngine:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,
                                                             dtype)
 
+    def _sum(self, parts) -> torch.Tensor:
+        """The shards' partial tensors summed on the lead device (over the
+        ``ip`` axis in rank mode), in shard order.  Where one shard alone
+        writes an element, the sum is that shard's bits."""
+        if self.mesh is not None:
+            return self.mesh.ip.sum_(parts[0])
+        out = parts[0].to(self.device)
+        for p in parts[1:]:
+            out = out + p.to(self.device)
+        return out
+
+    def _rows(self, ids, F: int | None = None) -> torch.Tensor:
+        """float32 rows (the first ``F`` columns, or all W) of the global
+        item ``ids`` (any shape, on the lead device), assembled over the
+        shards: each writes the rows it owns, zero elsewhere."""
+        parts = []
+        for off, T in self.shards:
+            T = T if F is None else T[:, :F]
+            if self.n_ip == 1:
+                parts.append(T[ids].to(torch.float32))
+                continue
+            loc = ids.to(T.device) - off
+            owned = (loc >= 0) & (loc < self.I_loc)
+            rows = T[loc.clamp(0, self.I_loc - 1)].to(torch.float32)
+            parts.append(torch.where(owned[..., None], rows, 0.0))
+        return self._sum(parts)
+
     # -- recommendation ---------------------------------------------------
     def _recommend(self, pr, ub, rated, rmask, k: int):
-        """Masked top-k over the catalog for a padded batch: a scan over
-        item chunks of width C with a running top-k merge, so peak memory is
-        one (B, C) tile + the (B, k) carry."""
-        B = pr.shape[0]
-        F, I = self.F, self.n_items
-        C = min(I, max(k, self.chunk_items if self.chunk_items
-                       else max(8192, (128 << 20) // max(B, 1) // 128 * 128)))
-        n_chunks = -(-I // C)
-        k_loc = min(k, C)
+        """Masked top-k over the catalog for a padded batch: each shard's
+        block scanned (``shard_topk``), then the shards' candidates merged
+        by global id."""
+        C = chunk_width(self.I_loc, pr.shape[0], k, self.chunk_items)
         rated = self._to_dev(rated, torch.int64)
         rmask = self._to_dev(rmask, torch.bool)
-        neg = float(NEG_INF)
-        vals = torch.full((B, k), neg, dtype=torch.float32,
-                          device=self.device)
-        idx = torch.zeros((B, k), dtype=torch.int64, device=self.device)
-        for c in range(n_chunks):
-            # Clamped start: the last chunk overlaps its predecessor
-            # instead of padding; the overlap is masked so each item scores
-            # in exactly one chunk.
-            c0 = min(c * C, I - C)
-            Tc = self.T_i[c0:c0 + C]
-            sc = pr @ Tc[:, :F].to(torch.float32).T
-            sc = (sc + self.mu + ub[:, None]
-                  + Tc[:, F].to(torch.float32)[None, :])
-            if c0 < c * C:
-                sc[:, :c * C - c0] = neg
-            loc = rated - c0
-            in_chunk = rmask & (loc >= 0) & (loc < C)
-            cols = loc.clamp(0, C - 1)
-            sc.scatter_reduce_(1, cols, torch.where(in_chunk, neg, _POS_HUGE),
-                               reduce="amin")
-            v, i = torch.topk(sc, k_loc, dim=1)
-            i = i + c0
-            if k_loc < k:
-                v = torch.nn.functional.pad(v, (0, k - k_loc), value=neg)
-                i = torch.nn.functional.pad(i, (0, k - k_loc))
-            vals, mpos = torch.topk(torch.cat([vals, v], dim=1), k, dim=1)
-            idx = torch.gather(torch.cat([idx, i], dim=1), 1, mpos)
-        return vals, idx
+        parts = []
+        for off, T in self.shards:
+            d = T.device
+            parts.append(shard_topk(
+                pr.to(d), ub.to(d), self.mu, T[:, :self.F], T[:, self.F],
+                off, self.n_items, rated.to(d), rmask.to(d), k, C))
+        if self.mesh is not None:
+            return assemble_topk(*parts[0], self.mesh.ip,
+                                 self.mesh.ip_index, k)
+        if len(parts) == 1:
+            return parts[0]
+        return merge_topk(torch.cat([v.to(self.device) for v, _ in parts], 1),
+                          torch.cat([i.to(self.device) for _, i in parts], 1),
+                          k)
 
     @staticmethod
     def _pad_rows(p_rows, ub_rows):
@@ -156,7 +296,8 @@ class ServingEngine:
     def recommend_padded(self, p_rows, ub_rows, rated_items, rated_mask,
                          k: int = 10):
         """Dispatch one scoring batch; returns UNTRIMMED (Bp, k) device
-        tensors (scores, item ids) without waiting for the device.
+        tensors (scores, item ids) on the lead device without waiting for
+        the device.
 
         ``p_rows``/``ub_rows`` are numpy arrays or device tensors already
         padded to a pow2 batch (the fold-in output)."""
@@ -216,7 +357,7 @@ class ServingEngine:
             idx = torch.minimum((u01 * lens).to(torch.int64), last)
             it_b = torch.gather(items, 1, idx[:, None])[:, 0]
             rat_b = torch.gather(vals, 1, idx[:, None])[:, 0]
-            row_i = self.T_i[it_b].to(torch.float32)
+            row_i = self._rows(it_b)
             ihat = row_i * factor + biascol
             pred = self.mu + torch.sum(T_u * ihat, dim=-1) + row_i[:, F]
             err = torch.where(has, rat_b - pred, 0.0)
@@ -292,11 +433,12 @@ class ServingEngine:
 
     # -- implicit (iALS) fold-in ------------------------------------------
     def _implicit_gramian(self):
-        """G = YᵀY over the catalog, computed once per engine (the catalog
-        is frozen) and shared by every implicit fold-in solve."""
+        """G = YᵀY over the catalog, the shards' block Grams summed (the
+        padding rows are zero), computed once per engine (the catalog is
+        frozen) and shared by every implicit fold-in solve."""
         G = self._programs.get(("igram",))
         if G is None:
-            G = gramian(self.T_i[:, :self.F])
+            G = self._sum([gramian(T[:, :self.F]) for _, T in self.shards])
             self._programs[("igram",)] = G
         return G
 
@@ -315,8 +457,9 @@ class ServingEngine:
     def fold_in_implicit_padded(self, rated_items, strengths, mask,
                                 alpha: float = 40.0, reg: float = 0.1):
         """Hot-path variant of ``fold_in_implicit``: dispatch only; returns
-        the UNTRIMMED (Bp, F) rows as a device tensor.  The solve is K1 on
-        a CUDA device (``ops.als._ridge_finish``)."""
+        the UNTRIMMED (Bp, F) rows as a device tensor on the lead device.
+        The solve is K1 on a CUDA device (``ops.als._ridge_finish``), on
+        the lead device or on every rank."""
         B, D = np.shape(rated_items)
         Bp, Dp = _pow2_pad(B), _pow2_pad(D)
         items = np.zeros((Bp, Dp), np.int32)
@@ -327,10 +470,10 @@ class ServingEngine:
         m[:B, :D] = _host(mask)
         G = self._implicit_gramian()
         self._note(("ifold", Bp, Dp))
-        return _solve_ials_bucket(
-            self.T_i[:, :self.F], G, self._to_dev(items, torch.int64),
-            self._to_dev(vals), self._to_dev(m, torch.bool),
-            float(np.float32(alpha)), float(np.float32(reg)), solver="auto")
+        q = self._rows(self._to_dev(items, torch.int64), self.F)
+        return _ridge_finish(*ials_rows_system(
+            q, G, self._to_dev(vals), self._to_dev(m, torch.bool),
+            float(np.float32(alpha)), float(np.float32(reg))), "auto")
 
     def fold_in_implicit_and_recommend_padded(self, rated_items, strengths,
                                               mask, alpha: float = 40.0,
@@ -363,8 +506,8 @@ class ServingEngine:
 
     # -- benchmarking ------------------------------------------------------
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in {d for d in self.devices if d.type == "cuda"}:
+            torch.cuda.synchronize(d)
 
     def bench_qps(self, batch_size: int = 512, k: int = 10,
                   n_batches: int = 20, seed: int = 0):
@@ -385,3 +528,11 @@ class ServingEngine:
         self._sync()
         dt = time.perf_counter() - t0
         return batch_size * n_batches / dt
+
+
+class ServingEngine(ShardedServingEngine):
+    """Long-lived serving state on one device (one item shard)."""
+
+    def __init__(self, model: MFModel, device=None,
+                 chunk_items: int | None = None):
+        super().__init__(model, devices=[device], chunk_items=chunk_items)

@@ -122,7 +122,8 @@ def foldin_ranking_eval(engine, input_csr, holdout_csr, cfg=None,
     semantics), recommend k items with only the INPUT items masked, and
     score recall@k / ndcg@k against the user's ``holdout_csr`` items.
 
-    ``engine`` is a ``ServingEngine``; ``cfg`` configures the fold-in
+    ``engine`` is a ``ServingEngine`` or an item-sharded
+    ``ShardedServingEngine``; ``cfg`` configures the fold-in
     partial fit (iterations, lr).  ``mode="implicit"`` takes the one-shot
     exact iALS ridge fold-in (``fold_in_implicit`` with ``alpha``/``reg``,
     kernel K1 on the card) instead of the explicit SGD partial fit; the

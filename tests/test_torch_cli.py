@@ -330,19 +330,19 @@ def test_mf_families_in_bf16_match_the_tpu_package(tmp_path, data_dir,
 @pytest.mark.parametrize("cli,args,what", [
     ("mf", ["--devices", "2", "--device", "cuda"],
      "no CUDA device|trains on 2 CUDA devices"),
-    ("serve", ["--devices", "2", "--device", "cpu"], "item 12b")])
+    ("serve", ["--devices", "2", "--device", "cuda"],
+     "no CUDA device|over 2 CUDA devices")])
 def test_mf_still_refuses_what_is_not_ported(tmp_path, data_dir, cli, args,
                                              what):
-    """``mf --devices 2`` on the card needs two cards and raises, naming
-    both counts, where the host has fewer (here: no card at all); ``serve
-    --devices 2`` is not ported and names the ROADMAP item that ports
-    it."""
+    """``mf --devices 2`` and ``serve --devices 2`` on the card need two
+    cards and raise, naming both counts, where the host has fewer (here: no
+    card at all, so the no-card error)."""
     cfg = tmp_path / "cfg.txt"
     cfg.write_text(FAMILY_CONFIG)
     train = str(data_dir / "test_ratings.csv")
     if cli == "serve":
         from cu2rec_torch.cli.serve import main as serve_main
-        with pytest.raises(SystemExit, match=what):
+        with pytest.raises(RuntimeError, match=what):
             serve_main(["--checkpoint", str(tmp_path / "x.npz")] + args)
         return
     with pytest.raises(RuntimeError, match=what):

@@ -192,12 +192,58 @@ def test_serve_cli_checkpoint_stdio(tmp_path, monkeypatch, capsys):
     assert "warm:" in captured.err
 
 
-def test_serve_cli_rejects_several_devices(tmp_path):
-    from cu2rec_torch.cli.serve import main
+def _cli_responses(main, argv, reqs, monkeypatch, capsys):
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        "\n".join(json.dumps(r) for r in reqs) + "\n"))
+    assert main(argv) == 0
+    captured = capsys.readouterr()
+    return {r["id"]: r for r in (json.loads(line) for line in
+                                 captured.out.splitlines() if line.strip())
+            }, captured.err
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--checkpoint", str(tmp_path / "x.npz"), "--devices", "2",
-              "--device", "cpu"])
+
+def test_serve_cli_rejects_several_devices(tmp_path, monkeypatch, capsys):
+    """``serve --devices 2 --device cpu`` (once refused) cuts the catalog
+    into two item shards on the CPU and answers as the TPU package's CLI
+    does over two devices (tests/test_daemon.py): a known-user recommend
+    and a fold-in from a checkpoint, and a fold-in from -q/-i/-g
+    components, where a recommend by id is an error."""
+    from cu2rec_torch.cli.serve import main
+    from cu2rec_tpu.utils.checkpoint import export_components, save_checkpoint
+
+    rd = read_ratings_csv(str(DATA / "test_ratings.csv"))
+    jmodel = init_model(rd.n_users, rd.n_items, 4, rd.global_bias, seed=5)
+    ckpt = save_checkpoint(str(tmp_path / "m.npz"), jmodel,
+                           Config(n_factors=4, total_iterations=20))
+    by_id, err = _cli_responses(main, [
+        "--checkpoint", ckpt, "--train", str(DATA / "test_ratings.csv"),
+        "--devices", "2", "--device", "cpu", "--window-ms", "0"], [
+        {"id": 1, "op": "recommend", "user": 0, "k": 2},
+        {"id": 2, "op": "fold_in", "items": [0, 1], "ratings": [5.0, 4.0],
+         "k": 2},
+        {"id": 3, "op": "stats"}], monkeypatch, capsys)
+    assert all("error" not in r for r in by_id.values()), by_id
+    # user 0 has a single unrated item; the fold-in user left 3 unrated
+    assert len(by_id[1]["items"]) == 1
+    assert len(by_id[2]["items"]) == 2 and not {0, 1} & set(
+        by_id[2]["items"])
+    assert by_id[3]["n_shards"] == 2
+    assert by_id[3]["devices"] == ["cpu", "cpu"]
+    assert "2 item shard(s)" in err
+
+    export_components(jmodel, str(tmp_path), "toy", 4)
+    by_id, _ = _cli_responses(main, [
+        "-q", str(tmp_path / "toy_f4_q.csv"),
+        "-i", str(tmp_path / "toy_f4_item_bias.csv"),
+        "-g", str(tmp_path / "toy_f4_global_bias.csv"),
+        "--devices", "2", "--device", "cpu", "--window-ms", "0"], [
+        {"id": 1, "op": "fold_in", "items": [0, 1], "ratings": [5.0, 4.0],
+         "k": 3},
+        {"id": 2, "op": "recommend", "user": 0, "k": 3}],
+        monkeypatch, capsys)
+    assert len(by_id[1]["items"]) == 3
+    assert not {0, 1} & set(by_id[1]["items"])
+    assert "error" in by_id[2]  # no known users in this mode
 
 
 def test_serve_cli_item_components_foldin_only(tmp_path, monkeypatch,

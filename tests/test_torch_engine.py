@@ -10,77 +10,17 @@ width F plus biases; as tests/test_serve.py); fold-in rows atol 1e-5 after
 atol 1e-4 (float32 Cholesky, as test_torch_ials.py).  Item ids must match
 wherever the scores are not tied."""
 
-import pathlib
-
 import jax
 import numpy as np
 import pytest
 import torch
 
-from cu2rec_torch.models.state import model_from_numpy
-from cu2rec_torch.serve.engine import ServingEngine
-from cu2rec_tpu.data import build_csr, read_ratings_csv
-from cu2rec_tpu.models.state import MFModel as JModel
+from _torch_serving_util import MODELS, assert_topk_match
+from _torch_serving_util import port_engine as _port
+from _torch_serving_util import toy as _toy
 from cu2rec_tpu.models.state import init_model as j_init
-from cu2rec_tpu.models.state import model_to_numpy
 from cu2rec_tpu.serve.engine import ShardedServingEngine
 from cu2rec_tpu.utils.config import Config
-
-DATA = pathlib.Path(__file__).parent / "data"
-
-
-def _toy():
-    rd = read_ratings_csv(str(DATA / "test_ratings.csv"))
-    csr = build_csr(rd)
-    return j_init(csr.n_users, csr.n_items, 4, rd.global_bias, seed=5), csr
-
-
-def _planted(U=40, I=300, F=16, seed=11):
-    """Block-structured F=16 tables from numpy, and a CSR of 6-12 ratings
-    per user."""
-    import jax.numpy as jnp
-    from cu2rec_tpu.data.csr import csr_from_arrays
-
-    rng = np.random.default_rng(seed)
-    P = rng.normal(0, 0.3, (U, F)).astype(np.float32)
-    Q = rng.normal(0, 0.3, (I, F)).astype(np.float32)
-    P[:, 0] += np.where(np.arange(U) % 2 == 0, 1.0, -1.0)
-    Q[:, 0] += np.where(np.arange(I) < I // 2, 1.0, -1.0)
-    model = JModel(P=jnp.asarray(P), Q=jnp.asarray(Q),
-                   user_bias=jnp.asarray(rng.normal(0, 0.1, U)
-                                         .astype(np.float32)),
-                   item_bias=jnp.asarray(rng.normal(0, 0.1, I)
-                                         .astype(np.float32)),
-                   global_bias=jnp.float32(3.5))
-    deg = rng.integers(6, 13, U)
-    users = np.repeat(np.arange(U), deg)
-    items = np.concatenate([rng.choice(I, d, replace=False) for d in deg])
-    vals = rng.integers(1, 6, len(items)).astype(np.float32)
-    return model, csr_from_arrays(users, items, vals, U, I)
-
-
-MODELS = {"toy": _toy, "planted": _planted}
-
-
-def _port(jmodel, **kw):
-    return ServingEngine(model_from_numpy(model_to_numpy(jmodel), "cpu"),
-                         device="cpu", **kw)
-
-
-def assert_topk_match(v1, i1, v2, i2, rtol=1e-5):
-    """Same real (> -1e30) entries: scores within rtol, ids equal wherever
-    a score is not tied with a neighbour."""
-    v1, i1, v2, i2 = map(np.asarray, (v1, i1, v2, i2))
-    assert v1.shape == v2.shape
-    for b in range(v1.shape[0]):
-        k1, k2 = v1[b] > -1e30, v2[b] > -1e30
-        np.testing.assert_array_equal(k1, k2)
-        a, c = v1[b][k1], v2[b][k2]
-        np.testing.assert_allclose(a, c, rtol=rtol)
-        for j in range(len(a)):
-            near = np.abs(a - a[j]) <= 1e-6 * np.abs(a[j]) + 1e-7
-            if near.sum() == 1:
-                assert i1[b][k1][j] == i2[b][k2][j], (b, j)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))

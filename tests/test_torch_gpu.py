@@ -1203,3 +1203,119 @@ def test_sharded_engine_on_card_matches_cpu(cuda_device, policy):
                  (a.item_bias, b.item_bias)):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
     np.testing.assert_allclose(ea, eb, rtol=1e-6)
+
+
+def _serving_model(device, U=40, I=3001, F=16, seed=11):
+    """Random serving tables (I = 3,001 items: not a multiple of 2 or 4, so
+    the last shard holds padding rows) and a CSR of 6-12 ratings a user."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+    from cu2rec_torch.models.state import model_from_numpy
+
+    rng = np.random.default_rng(seed)
+    d = {"p": rng.normal(0, 0.3, (U, F)), "q": rng.normal(0, 0.3, (I, F)),
+         "user_bias": rng.normal(0, 0.1, U),
+         "item_bias": rng.normal(0, 0.1, I), "global_bias": [3.5]}
+    deg = rng.integers(6, 13, U)
+    csr = csr_from_arrays(np.repeat(np.arange(U), deg),
+                          np.concatenate([rng.choice(I, n, replace=False)
+                                          for n in deg]),
+                          np.ones(deg.sum(), np.float32), U, I)
+    return model_from_numpy(d, device), csr
+
+
+def _serving_inputs(I, seed=3):
+    rng = np.random.default_rng(seed)
+    rated = rng.integers(0, I, (20, 9)).astype(np.int32)
+    vals = (rng.random((20, 9)) * 3).astype(np.float32)
+    return rated, vals, np.ones((20, 9), bool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ip", [2, 4])
+def test_sharded_engine_on_card_matches_cpu_shards(cuda_device, n_ip):
+    """The item-sharded engine with its shards on one card against the same
+    shards on the CPU: recommends, the explicit fold-in from given rows, and
+    the implicit fold-in, whose solve is one K1 launch."""
+    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    model, csr = _serving_model("cpu")
+    gpu = ShardedServingEngine(model.to(cuda_device),
+                               devices=[cuda_device] * n_ip)
+    cpu = ShardedServingEngine(model, devices=["cpu"] * n_ip)
+    assert all(d.type == "cuda" for d in gpu.devices)
+    assert len(gpu.shards) == n_ip
+    users = list(range(16))
+    gv, gi = gpu.recommend_known(users, csr, k=10)
+    cv, ci = cpu.recommend_known(users, csr, k=10)
+    np.testing.assert_allclose(gv, cv, rtol=1e-4)
+    assert np.mean(gi == ci) > 0.95  # ids may swap only at near-ties
+    assert (gi < 3001).all()
+
+    rated, vals, mask = _serving_inputs(3001)
+    n0 = cuda_linalg.LAUNCHES
+    g_rows, _ = gpu.fold_in_implicit(rated, vals, mask)
+    assert cuda_linalg.LAUNCHES == n0 + 1
+    c_rows, _ = cpu.fold_in_implicit(rated, vals, mask)
+    np.testing.assert_allclose(g_rows, c_rows, rtol=RTOL, atol=ATOL)
+    init = (np.zeros((20, 16), np.float32) + 0.01,
+            np.zeros(20, np.float32))
+    gp, gb = gpu.fold_in(rated, vals, mask, init_rows=init)
+    cp, cb = cpu.fold_in(rated, vals, mask, init_rows=init)
+    np.testing.assert_allclose(gp, cp, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gb, cb, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_daemon_stats_name_every_shards_device(cuda_device):
+    from cu2rec_torch.serve.daemon import ServingDaemon
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    model, csr = _serving_model(cuda_device)
+    daemon = ServingDaemon(ShardedServingEngine(
+        model, devices=["cuda:0", "cuda:0"]), train_csr=csr,
+        window_ms=0.0)
+    stats = daemon.submit({"id": 1, "op": "stats"}).result(timeout=60)
+    assert stats["n_shards"] == 2
+    assert stats["devices"] == ["cuda:0", "cuda:0"]
+    assert stats["device"] == "cuda:0"
+
+
+def _serving_rank_job():
+    """A gloo rank sharing the card: the rank-mode engine's implicit fold-in
+    and recommends."""
+    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.parallel.sharded import make_mesh
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    model, csr = _serving_model("cpu")
+    eng = ShardedServingEngine(model, mesh=make_mesh(1, 2))
+    rated, vals, mask = _serving_inputs(3001)
+    n0 = cuda_linalg.LAUNCHES
+    rows = eng.fold_in_implicit(rated, vals, mask)[0]
+    return (rows, cuda_linalg.LAUNCHES - n0,
+            eng.recommend_known(list(range(16)), csr, k=10))
+
+
+@pytest.mark.gpu
+def test_rank_mode_engine_on_gloo_ranks_sharing_the_card(cuda_device):
+    """Two ranks, a shard each, the candidates and rows exchanged as CUDA
+    tensors through gloo: the same on both ranks, K1 launched on each, and
+    the one-process shards' results on the card."""
+    from cu2rec_torch.parallel.distributed import launch
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    ranks = launch(_serving_rank_job, 2, "gloo", "cuda", timeout=300)
+    (r0, n0, (v0, i0)), (r1, n1, (v1, i1)) = ranks
+    np.testing.assert_array_equal(r0, r1)
+    np.testing.assert_array_equal(i0, i1)
+    assert n0 == n1 == 1
+    model, csr = _serving_model(cuda_device)
+    one = ShardedServingEngine(model, devices=[cuda_device] * 2)
+    rated, vals, mask = _serving_inputs(3001)
+    np.testing.assert_allclose(r0, one.fold_in_implicit(rated, vals,
+                                                        mask)[0],
+                               rtol=RTOL, atol=ATOL)
+    ov, oi = one.recommend_known(list(range(16)), csr, k=10)
+    np.testing.assert_allclose(v0, ov, rtol=1e-5)
+    assert np.mean(i0 == oi) > 0.95

@@ -31,6 +31,7 @@ def _port_modules():
 def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert "cu2rec_torch.serve.engine" in mods
+    assert "cu2rec_torch.parallel.serving" in mods
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "sys.modules['jax'] = None\n"
@@ -79,7 +80,7 @@ def test_entry_points_default_to_cuda():
     from cu2rec_torch.cli.serve import build_parser
     from cu2rec_torch.data.csr import csr_from_arrays
     from cu2rec_torch.models.state import init_model
-    from cu2rec_torch.serve.engine import ServingEngine
+    from cu2rec_torch.serve.engine import ServingEngine, ShardedServingEngine
     from cu2rec_torch.train.trainer import SingleChipEngine
     from cu2rec_torch.utils.config import Config
 
@@ -94,6 +95,8 @@ def test_entry_points_default_to_cuda():
     model = init_model(3, 4, 2, 3.0, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedServingEngine(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_model(3, 4, 2, 3.0)
     csr = csr_from_arrays(np.array([0, 1]), np.array([1, 2]),

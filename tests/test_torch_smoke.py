@@ -353,3 +353,41 @@ def test_item_side_time_is_the_busy_time_outside_the_user_kernel():
                                       outside="sgd_user_kernel")
     assert busy == pytest.approx(30e-6) and side == pytest.approx(20e-6)
     assert top[0] == ("collide_long_kernel", 0.018, 1)
+
+
+def test_phase11_response_gate_reads_planted_faults():
+    """Phase 11 holds a sharded response against the one-device one:
+    scores within rtol (plus a response's rounding), items equal wherever
+    the reference's score is not tied; a swapped untied item, a moved
+    score or a missing item fails."""
+    smoke = _smoke()
+    want = {"items": [4, 9, 2, 7], "scores": [3.9, 3.5, 3.5, 3.1]}
+    same = {"items": [4, 2, 9, 7], "scores": [3.9, 3.5, 3.5, 3.1000002]}
+    smoke._same_response(same, want, 1e-5, "tied swap")
+    faults = {
+        "swap": {"items": [9, 4, 2, 7], "scores": [3.9, 3.5, 3.5, 3.1]},
+        "score": {"items": [4, 9, 2, 7], "scores": [3.9, 3.5, 3.5, 3.2]},
+        "short": {"items": [4, 9, 2], "scores": [3.9, 3.5, 3.5]},
+    }
+    for what, got in faults.items():
+        with pytest.raises(smoke.SmokeFailure):
+            smoke._same_response(got, want, 1e-5, what)
+
+
+def test_wave_input_without_a_profiler_sends_each_wave_once():
+    smoke = _smoke()
+    out = smoke._ResponseOutput()
+    waves = [[{"id": "a"}, {"id": "b"}], [{"id": "c"}]]
+    inp = smoke._WaveInput(waves, out, lambda: 0, None, None)
+    lines = []
+    for line in inp:
+        lines.append(json.loads(line))
+        out.write(json.dumps({"id": lines[-1]["id"]}) + "\n")
+    assert [r["id"] for r in lines] == ["a", "b", "c"]
+    assert inp.profiles == [] and len(inp.counts) == 2
+    items, vals, mask = smoke._fold_arrays([
+        {"items": [3, 1], "ratings": [5.0, 4.0]},
+        {"items": [2], "ratings": [1.0]}])
+    np.testing.assert_array_equal(items, [[3, 1], [2, 0]])
+    np.testing.assert_array_equal(mask, [[True, True], [True, False]])
+    np.testing.assert_array_equal(vals, [[5.0, 4.0], [1.0, 0.0]])
