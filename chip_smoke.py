@@ -100,9 +100,13 @@ fatal on failure:
    (``csrc/sgd_sharded.cu``, the kernels split at the collectives) for
    first_wins, twin, mean and sum, float32 and bf16, two steps each
    against the plain local step (float32 within 1e-5, bf16 within one
-   ulp of the operands' scale: the step rounds once), timed with the
-   stream held beside the fused K0a step in the same call and beside its
-   bound (the one-device bytes plus the deltas' traffic); then
+   ulp of the operands' scale: the step rounds once), the item side
+   written directly (dp = 1, no apply launched) against the same step's
+   dT applied, bit for bit, on uniform and power-law items, timed with
+   the stream held beside the fused K0a step in the same call and beside
+   its bound (the one-device step's bytes, which it moves at dp = 1;
+   the bytes at dp > 1 and those of the full-width dT design it
+   replaced beside them); then
    ``ShardedEngine`` three steps of each policy, float32 against the
    one-device engine (tables within 1e-6 / 1e-5 of max(1, |entry|), the
    eval within rtol 1e-5) and bf16 near float32's RMSE; (b) 2 ranks
@@ -138,12 +142,14 @@ It prints the kernels' JSON line, then the nvidia-smi name/power line, then
 
 runs, on a host of four cards, only phases 1-2, the sharded step's time
 at the headline shape on 4 x 1 and 2 x 2 grids beside one card's fused
-step, and phase 10 (b)-(c) under NCCL, one rank a card (the engine on 4 x
-1, 2 x 2 and 1 x 4 grids, the families on 2 x 2), then ``mf --devices 4
+step, with the time of the dT SUM over dp, and phase 10 (b)-(c) under
+NCCL, one rank a card (the engine on 4 x 1, 2 x 2 and 1 x 4 grids, the
+families on 2 x 2), then ``mf --devices 4
 --device cuda`` against ``--devices 1``; then phase 6's waves through
-``serve --devices 1`` and ``serve --devices 4`` (their times, every
-response of the four cards against the one card's) and phase 11 (c) on
-four NCCL ranks, a card each.
+``serve --devices 1`` and ``serve`` with no ``--devices`` (an item shard
+on every card: the stats must say four; their times, every response of
+the four cards against the one card's) and phase 11 (c) on four NCCL
+ranks, a card each.
 """
 
 from __future__ import annotations
@@ -151,6 +157,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2710,14 +2717,52 @@ def _model_diff(torch, a, b) -> float:
                                (b.P, b.Q, b.user_bias, b.item_bias)))
 
 
-def _shard_split_bytes(csr, policy: str, elem: int) -> int:
-    """The sharded step's bytes: the one-device step's, and under every
-    policy but twin the deltas' write and read and the apply's second read
-    of T_i (``csrc/sgd_sharded.cu``)."""
+def _shard_bytes(csr, policy: str, elem: int, dT_cols: int) -> int:
+    """The bytes of the sharded step (``csrc/sgd_sharded.cu``): the
+    one-device step's, and under every policy but twin, where the item
+    side writes a float32 dT of ``dT_cols`` columns (0: none, at dp = 1),
+    dT written and read and the apply's read of T_i over those columns.
+    At dp > 1 the step's dT has ``delta_width(F)`` columns; the design it
+    replaced wrote all 128 at every dp."""
     n = _step_bytes(csr, F, policy, False, True, elem)
     if policy != "twin":
-        n += csr.n_items * 128 * (8 + elem)
+        n += csr.n_items * dT_cols * (8 + elem)
     return n
+
+
+def _direct_is_applied_deltas(torch, pm, drs, key, hp, mesh, policy: str,
+                              label: str) -> None:
+    """At dp = 1 the sharded item side writes the new T_i itself; the same
+    steps' item side written as dT (``_sharded_step(..., deltas=True)``), as
+    ``(T_i.float() + dT)`` rounded to the table type and padded with zero
+    columns, must give the same bits, on each of ``drs``' ratings (uniform
+    and power-law items); and no step may launch the apply."""
+    from cu2rec_torch.ops import cuda_sgd
+
+    wd = cuda_sgd.delta_width(F)
+    ints = torch.int16 if pm.T_i.dtype == torch.bfloat16 else torch.int32
+    kw = dict(n_factors=F, mesh=mesh, n_users_global=U, collision=policy)
+    for skew, dr in drs.items():
+        a0 = cuda_sgd.SHARD_APPLIES.total()
+        for it in (0, 3):
+            got = cuda_sgd.sgd_step_sharded_cuda(pm.T_u, pm.T_i, 3.5, dr, hp,
+                                                 key, it, **kw)[1]
+            dT = cuda_sgd._sharded_step(pm.T_u, pm.T_i, 3.5, dr, hp, key,
+                                        it, **kw, deltas=True)[1]
+            want = torch.zeros_like(pm.T_i)
+            want[:, :wd] = (pm.T_i[:, :wd].float() + dT).to(pm.T_i.dtype)
+            torch.cuda.synchronize()
+            differ = int((got.view(ints) != want.view(ints)).sum())
+            require(differ == 0 and tuple(dT.shape) == (I, wd),
+                    f"{label} {skew} step {it}: the item side written "
+                    f"directly differs from T_i + dT ({tuple(dT.shape)}) "
+                    f"in {differ} entries")
+            del got, dT, want
+        require(cuda_sgd.SHARD_APPLIES.total() == a0,
+                f"{label}: a world of one launched the apply")
+    log(f"[shard] {label}: T_i written directly = T_i + dT ({wd} of 128 "
+        f"columns) rounded, bit for bit, steps 0 and 3 on "
+        f"{' and '.join(drs)} items; no apply launched")
 
 
 def _shard_headline(torch, dev, seed: int, card: str):
@@ -2748,6 +2793,8 @@ def _shard_headline(torch, dev, seed: int, card: str):
             mesh = make_mesh(1, 1)
             csr = _headline_csr(seed)
             dr = to_device(csr, dev, item_major=True)
+            drs = {"uniform": dr, "power-law": to_device(
+                _headline_csr(seed, item_power=SKEW_POWER), dev)}
             key, hp = prng_key(seed), _hp()
             base = _packed_tables(torch, U, I, F, seed, dev)
             site = _tpu_kernel_site("parallel/sharded.py",
@@ -2814,6 +2861,9 @@ def _shard_headline(torch, dev, seed: int, card: str):
                                     f"operands' scale ({above} entries "
                                     f"above 1, {raw} raw ulps)")
                         del got, want
+                    if policy != "twin":
+                        _direct_is_applied_deltas(torch, pm, drs, key, hp,
+                                                  mesh, policy, label)
                     ms = time_ms(lambda: sharded(7, policy), [()], reps=20,
                                  hold=True)
                     fused_ms = time_ms(lambda: packed_step(
@@ -2822,9 +2872,10 @@ def _shard_headline(torch, dev, seed: int, card: str):
                     plain_ms = time_ms(lambda: plain(7, policy), [()],
                                        reps=3)
                     elem = 4 if dtype == "float32" else 2
+                    wd = cuda_sgd.delta_width(F)
                     e = _entry(f"sgd_sharded/{dtype}/{policy}", site, worst,
                                ms, plain_ms,
-                               _shard_split_bytes(csr, policy, elem),
+                               _shard_bytes(csr, policy, elem, 0),
                                5 * 128 * (U + I), None,
                                {"U": U, "I": I, "F": F, "W": 128,
                                 "nnz": N_HEADLINE, "grid": [1, 1],
@@ -2832,18 +2883,21 @@ def _shard_headline(torch, dev, seed: int, card: str):
                                semantics="_local_step_packed",
                                source="sgd_sharded")
                     e["fused_ms"] = fused_ms
-                    e["fused_bound_ms"] = _bound(
-                        _step_bytes(csr, F, policy, False, True, elem),
-                        5 * 128 * (U + I))[0]
+                    full = _shard_bytes(csr, policy, elem, 128)
                     log(f"[shard] {label}: the split step {ms:.4f} ms "
                         f"held, the fused K0a step {fused_ms:.4f} ms in the "
-                        f"same call ({ms - fused_ms:+.4f} ms), bound "
-                        f"{e['bound_ms']:.4f} ms against the fused step's "
-                        f"{e['fused_bound_ms']:.4f} ms; max_abs_err "
-                        f"{worst:.3e} on {card}")
+                        f"same call ({ms - fused_ms:+.4f} ms, "
+                        f"{(ms / fused_ms - 1) * 100:+.1f}%), bound "
+                        f"{e['bound_ms']:.4f} ms (the one-device step's "
+                        f"bytes; at dp > 1 "
+                        f"{_shard_bytes(csr, policy, elem, wd) / 1e6:.2f} "
+                        f"MB; the full-width dT design moved "
+                        f"{full / 1e6:.2f} MB, a bound of "
+                        f"{_bound(full, 5 * 128 * (U + I))[0]:.4f} ms); "
+                        f"max_abs_err {worst:.3e} on {card}")
                     entries.append(e)
                 del pm
-            del dr
+            del dr, drs
             torch.cuda.empty_cache()
 
             # The main path: the engine through a few steps.
@@ -2851,6 +2905,7 @@ def _shard_headline(torch, dev, seed: int, card: str):
             model = unpack(base)
             f32_eval = {}
             cuda_sgd.SHARD_LAUNCHES.clear()
+            cuda_sgd.SHARD_APPLIES.clear()
             for dtype in ("float32", "bfloat16"):
                 for policy in SHARD_POLICIES:
                     cfg = _shard_cfg(seed, policy, dtype)
@@ -2889,6 +2944,9 @@ def _shard_headline(torch, dev, seed: int, card: str):
                         f"({rel:.2e} relative)")
             launches = {f"{_dtype_name(k[0])}/{k[1]}": n
                         for k, n in cuda_sgd.SHARD_LAUNCHES.items()}
+            require(not cuda_sgd.SHARD_APPLIES,
+                    f"a world of one launched the apply: "
+                    f"{dict(cuda_sgd.SHARD_APPLIES)}")
         finally:
             dist.destroy_process_group()
     del csr, test, base
@@ -2947,6 +3005,7 @@ def _grid_rank(n_dp: int, n_ip: int, train, test, model_d, seed: int):
                            for g, w in zip(got, want))
     torch.cuda.synchronize()
     cuda_sgd.SHARD_LAUNCHES.clear()
+    cuda_sgd.SHARD_APPLIES.clear()
     torch.cuda.reset_peak_memory_stats(mesh.device)
     runs = {}
     for policy, eng in engines.items():
@@ -2958,6 +3017,7 @@ def _grid_rank(n_dp: int, n_ip: int, train, test, model_d, seed: int):
     return {"rank": mesh.rank, "errs": errs, "runs": runs,
             "launches": {f"{_dtype_name(k[0])}/{k[1]}": n
                          for k, n in cuda_sgd.SHARD_LAUNCHES.items()},
+            "applies": cuda_sgd.SHARD_APPLIES.total(),
             "memory": torch.cuda.max_memory_allocated(mesh.device)}
 
 
@@ -3000,6 +3060,12 @@ def _shard_grids(torch, dev, seed: int, data, card: str,
                         f"by {err}")
             for k, n in r["launches"].items():
                 launches[k] = launches.get(k, 0) + n
+            # The engine's steps of the three policies with item deltas:
+            # through dT and the apply exactly when dp > 1.
+            want_applies = 3 * SHARD_STEPS if n_dp > 1 else 0
+            require(r["applies"] == want_applies,
+                    f"{n_dp}x{n_ip} rank {r['rank']}: {r['applies']} "
+                    f"applies, want {want_applies}")
         for policy in SHARD_POLICIES:
             comps, ev = ranks[0]["runs"][policy]
             got = model_from_numpy(comps, "cpu")
@@ -3224,6 +3290,7 @@ def _nccl_step_rank(grid, seed: int, policies, n_steps: int):
     out = {}
     for policy in policies:
         eng = ShardedEngine(csr, test, _shard_cfg(seed, policy), mesh=mesh)
+        rows = eng.I_loc
         st = eng.run(eng.prepare(model), _hp(), 0, 3)
         torch.cuda.synchronize()
         barrier()
@@ -3253,7 +3320,35 @@ def _nccl_step_rank(grid, seed: int, policies, n_steps: int):
         out[policy] = (start.elapsed_time(end) / n_steps, host, enqueue,
                        profile)
         del eng, st
+    out["dT"] = _dt_sum_times(torch, mesh, rows) if mesh.n_dp > 1 else None
     return out
+
+
+def _dt_sum_times(torch, mesh, rows: int, reps: int = 20, turns: int = 4):
+    """The SUM over dp of a rank's item deltas as the sharded step sends
+    it, dT's live columns (I_loc, delta_width(F)) float32: ``turns`` turns
+    of ``reps`` SUMs between CUDA events, each after a barrier: (bytes,
+    [ms a SUM, one a turn])."""
+    from cu2rec_torch.ops.cuda_sgd import delta_width
+    from cu2rec_torch.parallel.distributed import barrier
+
+    buf = torch.zeros((rows, delta_width(F)), dtype=torch.float32,
+                      device=mesh.device)
+    for _ in range(3):
+        mesh.dp.sum_(buf)
+    times = []
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            mesh.dp.sum_(buf)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return buf.numel() * 4, times
 
 
 def _nccl_timing(torch, dev, seed: int, card: str):
@@ -3294,6 +3389,15 @@ def _nccl_timing(torch, dev, seed: int, card: str):
                 f"updates/s; one card's fused step {one[policy]:.4f} ms "
                 f"({U / one[policy] * 1e3:.4g}/s); {seen}; each card "
                 f"{card}")
+        if ranks[0]["dT"] is not None:
+            # Each turn's time on the slowest rank.
+            n_bytes, turns = ranks[0]["dT"]
+            t = [max(r["dT"][1][k] for r in ranks) for k in range(len(turns))]
+            log(f"[nccl] {grid[0]}x{grid[1]}: the dT SUM over dp, "
+                f"{n_bytes / 1e6:.2f} MB, ms a SUM in turns (20 SUMs a turn "
+                f"between CUDA events, the slowest rank): median "
+                f"{statistics.median(t):.4f} ("
+                + ", ".join(f"{x:.4f}" for x in t) + f"); each card {card}")
 
 
 def phase_shard_nccl(torch, dev, seed: int, workdir: Path, card: str):
@@ -3780,10 +3884,10 @@ def phase_shard_serve(torch, seed: int, ctx, card: str) -> int:
     return k1
 
 
-def _serve_cli_waves(data, seed: int, n: int, card: str):
+def _serve_cli_waves(data, seed: int, n: int | None, card: str):
     """``--nccl``: phase 6's waves through ``serve --devices n --device
-    cuda`` over ``_make_data``'s files, no profiler: the context of
-    ``_same_waves``."""
+    cuda`` (n None: no ``--devices``, an item shard on every card) over
+    ``_make_data``'s files, no profiler: the context of ``_same_waves``."""
     from cu2rec_torch.cli.serve import main as serve_main
     from cu2rec_torch.ops import cuda_linalg
 
@@ -3796,13 +3900,16 @@ def _serve_cli_waves(data, seed: int, n: int, card: str):
     t0 = time.perf_counter()
     try:
         rc = serve_main(["--checkpoint", ckpt, "--train", train, "--device",
-                         "cuda", "--devices", str(n), "--window-ms", "20",
-                         "--warm-batch", "512", "--warm-width", "64"])
+                         "cuda", "--window-ms", "20", "--warm-batch", "512",
+                         "--warm-width", "64"]
+                        + ([] if n is None else ["--devices", str(n)]))
     finally:
         sys.stdin, sys.stdout = saved
-    require(rc == 0, f"serve --devices {n} exited with {rc}")
+    what = "serve" if n is None else f"serve --devices {n}"
+    require(rc == 0, f"{what} exited with {rc}")
     lat, rps = _wave_times(waves, inp, out)
-    log(f"[nccl] serve --devices {n} --device cuda: recommend "
+    log(f"[nccl] {what} --device cuda ({out.resp['stats']['n_shards']} "
+        f"shards): recommend "
         f"{lat[0] * 1e3:.1f} ms, explicit fold-in {lat[1] * 1e3:.1f} ms, "
         f"implicit fold-in {lat[2] * 1e3:.1f} ms a wave, {rps:.1f} "
         f"requests/s; {time.perf_counter() - t0:.1f} s with the model's "
@@ -3813,16 +3920,22 @@ def _serve_cli_waves(data, seed: int, n: int, card: str):
 
 def phase_shard_serve_nccl(torch, seed: int, workdir: Path, card: str):
     """``--nccl``'s phase 11: phase 6's waves through ``serve --devices 1``
-    and ``--devices 4`` (every response of the four cards against the one
-    card's), and the rank-mode engine on NCCL_RANKS NCCL ranks, a card
-    each, against the one-process shards over the four cards."""
+    and ``serve`` with no ``--devices``, which must shard over every card
+    (every response of the four cards against the one card's), and the
+    rank-mode engine on NCCL_RANKS NCCL ranks, a card each, against the
+    one-process shards over the four cards."""
     from cu2rec_torch.models.state import model_from_numpy
     from cu2rec_torch.serve.engine import ServingEngine, ShardedServingEngine
 
     data = _make_data(seed, workdir)
     one = _serve_cli_waves(data, seed, 1, card)
-    four = _serve_cli_waves(data, seed, NCCL_RANKS, card)
-    _same_waves(four["resp"], one, f"serve --devices {NCCL_RANKS}")
+    four = _serve_cli_waves(data, seed, None, card)
+    n_cards = torch.cuda.device_count()
+    for run, want in ((one, 1), (four, n_cards)):
+        got = run["resp"]["stats"]["n_shards"]
+        require(got == want, f"serve on {n_cards} cards: {got} shards, "
+                f"want {want}")
+    _same_waves(four["resp"], one, f"serve on {n_cards} cards")
     model = model_from_numpy(one["tables"], device="cuda")
     _same_explicit(ServingEngine(model, device="cuda"), ShardedServingEngine(
         model, devices=[f"cuda:{r}" for r in range(NCCL_RANKS)]),

@@ -13,8 +13,8 @@ given.  ``--dtype bfloat16`` trains bf16 tables (float32 arithmetic);
 item updates together, in a fixed order.  ``--devices N > 1`` trains on N
 ranks of a dp grid (``parallel/``), each a process this command starts:
 with ``--device cuda`` N NCCL ranks, one card each (it raises where the
-host has fewer cards), with ``--device cpu`` N gloo ranks.  Rank 0 prints,
-exports the CSVs and writes the checkpoint.
+host has fewer cards), with ``--device cpu`` N gloo ranks.  Rank 0 prints
+and exports the CSVs; every rank writes the checkpoint.
 
 Output contract preserved: the five component CSVs are written next to the
 train file as ``{base}_f{factors}_{p,q,user_bias,item_bias,global_bias}.csv``

@@ -15,10 +15,11 @@ Two model sources:
     python -m cu2rec_torch.cli.serve -c cfg -q q.csv -i item_bias.csv \\
         -g global_bias.csv
 
-It runs on the CUDA device unless ``--device cpu`` is given.  ``--devices
-N`` (N ≥ 2) cuts the catalog into N item shards, one process: with
-``--device cuda`` on ``cuda:0 … cuda:N-1`` (it raises on a host of fewer
-cards), with ``--device cpu`` all on the CPU.  Request/
+It runs on the CUDA devices unless ``--device cpu`` is given.  The
+catalog is cut into one item shard a device, in one process: with
+``--device cuda`` on every card of the host, or with ``--devices N`` on
+``cuda:0 … cuda:N-1`` (it raises on a host of fewer cards); with
+``--device cpu`` one shard on the CPU, or N shards there.  Request/
 response protocol is documented in ``serve/daemon.py``; try:
 
     echo '{"id": 1, "op": "fold_in", "items": [3, 7],
@@ -51,7 +52,7 @@ def build_parser():
     p.add_argument("--devices", type=int, default=0,
                    help="item-shard the catalog over N devices: cuda:0 … "
                    "cuda:N-1, or N shards on the CPU with --device cpu "
-                   "(0 or 1 = the one --device)")
+                   "(0 = all: every CUDA device, or the one CPU device)")
     p.add_argument("-k", "--top-k", type=int, default=10)
     p.add_argument("--max-batch", type=int, default=512)
     p.add_argument("--window-ms", type=float, default=4.0)
@@ -100,9 +101,13 @@ def load_model(args, device):
 def shard_devices(device, n: int) -> list:
     """The devices of ``n`` item shards: ``cuda:0 … cuda:n-1`` (raising,
     with both counts, on a host of fewer cards) or ``n`` times the CPU;
-    ``device`` itself for one shard."""
+    ``device`` itself for one shard.  ``n`` 0 means every device, as in
+    the TPU package's ``serve``: every CUDA device of the host, or the
+    one CPU device."""
     import torch
 
+    if n == 0 and device.type == "cuda":
+        n = torch.cuda.device_count()
     if n <= 1:
         return [device]
     if device.type == "cpu":

@@ -15,19 +15,28 @@
 //      buffer (then a MIN over dp), under mean and sum counts the pairs
 //      whose item the shard owns (mean then sums a copy over dp for its
 //      denominators);
-//   3. sgd_shard_items: the item side.  first_wins writes each item's delta
-//      into a float32 (I, W) buffer dT, nonzero where the winner is one of
-//      the shard's users; mean and sum add the shard's pairs' deltas into
-//      dT in ascending user order, in float32 from zero (the counting sort
-//      and the collision kernels of sgd_step.cuh); twin writes the new item
-//      rows itself, from the raters' rows;
-//   4. after a SUM of dT over dp, sgd_shard_apply: T_i + dT rounded once
-//      to the table type (the TPU package's (T_i + psum(dT)).astype(dt)).
-// The sampling and the election are counter functions of global ids, so a
-// shard draws what one device draws.  The bytes over the one-device step
-// are dT's write, its read and the apply's pass over T_i; a collective
-// between two kernels also ends the overlap of programmatic dependent
-// launch there (`early` 0).
+//   3. sgd_shard_items: the item side.  first_wins takes each item's delta,
+//      nonzero where the winner is one of the shard's users; mean and sum
+//      add the shard's pairs' deltas in ascending user order, in float32
+//      from zero (the counting sort and the collision kernels of
+//      sgd_step.cuh); twin writes the new item rows itself, from the
+//      raters' rows.  At dp = 1 no collective follows: the item side
+//      writes T_i + the delta, rounded once, into T_i_out itself.  At
+//      dp > 1 it writes the delta's live columns into a float32 (I, Wd)
+//      buffer dT, Wd = delta_width(F) (F + 1 rounded up to 4: 104 of
+//      the 128 columns at F = 100);
+//   4. at dp > 1, after a SUM of dT over dp, sgd_shard_apply: T_i + dT
+//      over the live columns rounded once to the table type, zero past
+//      them (the TPU package's (T_i + psum(dT)).astype(dt), whose padding
+//      columns are zero in T_i and in dT).
+// Both ways give the same bits: the delta (or the run's sum) is the same
+// float32, and T_i + it is one __fadd_rn and one rounding in either.  The
+// sampling and the election are counter functions of global ids, so a
+// shard draws what one device draws.  What bounds the split step is what
+// bounds the fused one (memory bytes), plus at dp > 1 dT's write and read
+// and the apply's second read of T_i's live columns (I · Wd · (8 + elem)
+// bytes); a collective between two kernels also ends the overlap of
+// programmatic dependent launch there (`early` 0).
 #include "sgd_step.cuh"
 
 namespace {
@@ -69,13 +78,50 @@ assemble_rows_kernel(const int* indptr, const int* ids, int n,
   store_row<L>(row_ptr<L>(out, r), gl, x);
 }
 
-// out[k] = T_i[k] + dT[k], rounded once to the table type.
+// Four entries of a table row as float32, and back rounded to nearest
+// even (what store_row does).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = __ldcs(reinterpret_cast<const uint2*>(p));
+  const float2 a = bf16x2_to_float2(w.x), b = bf16x2_to_float2(w.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(float2_to_bf16x2(v.x, v.y), float2_to_bf16x2(v.z, v.w));
+}
+
+// out (I, W) = T_i + dT over the columns < wd (dT is (I, wd)), each entry
+// rounded once to the table type, and zero past them: T_i's padding is
+// not read.  A thread a float4 of the row, streamed (each byte is read
+// once).
 template <typename T>
 __global__ void __launch_bounds__(256)
-apply_delta_kernel(const T* T_i, const float* dT, T* out, long long n) {
+apply_delta_kernel(const T* T_i, const float* dT, T* out, int I, int W,
+                   int wd) {
+  const int q = W / 4;  // float4s a row
+  const long long n = static_cast<long long>(I) * q;
   for (long long k = blockIdx.x * 256LL + threadIdx.x; k < n;
-       k += static_cast<long long>(gridDim.x) * 256)
-    out[k] = from_float<T>(to_float<T>(T_i[k]) + dT[k]);
+       k += static_cast<long long>(gridDim.x) * 256) {
+    const long long r = k / q;
+    const int c = 4 * static_cast<int>(k - r * q);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < wd) {
+      const float4 t = load4(T_i + r * W + c);
+      const float4 d = __ldcs(reinterpret_cast<const float4*>(dT + r * wd + c));
+      x = make_float4(__fadd_rn(t.x, d.x), __fadd_rn(t.y, d.y),
+                      __fadd_rn(t.z, d.z), __fadd_rn(t.w, d.w));
+    }
+    store4(out + r * W + c, x);
+  }
 }
 
 template <typename Kernel>
@@ -98,7 +144,8 @@ int shard_users(const Step& a, int mode, bool early, cudaStream_t s) {
                                  a, early));
 }
 
-template <class L>
+// kDirect: the item side writes T_i_out itself (no dT), else dT.
+template <class L, bool kDirect>
 int shard_items(const Step& a, int mode, bool early, cudaStream_t s,
                 int* ws) {
   constexpr int kRows = kWarps * L::kRowsPerWarp;
@@ -106,10 +153,11 @@ int shard_items(const Step& a, int mode, bool early, cudaStream_t s,
   cudaError_t e;
   if (mode == kMean || mode == kSum) {
     const Runs r = runs_in(ws, a.U, a.I);
-    e = mode == kMean ? launch_runs<L, true, true>(a, r, s)
-                      : launch_runs<L, false, true>(a, r, s);
+    e = mode == kMean ? launch_runs<L, true, true, kDirect>(a, r, s)
+                      : launch_runs<L, false, true, kDirect>(a, r, s);
   } else if (mode == kFirstWins) {
-    e = launch_step_kernel(sgd_item_kernel<L, 0, true>, blocks, s, a, early);
+    e = launch_step_kernel(sgd_item_kernel<L, 0, true, kDirect>, blocks, s,
+                           a, early);
   } else {
     e = launch_step_kernel(sgd_item_kernel<L, 1, true>, blocks, s, a, early);
   }
@@ -218,9 +266,11 @@ int sgd_shard_users(const void* T_u, void* T_u_out, const void* T_i,
 
 // The shard's item side, after the user kernel (and the collectives that
 // follow it): first_wins (best reduced over dp) and mean/sum write the
-// deltas dT (I, W) float32, twin writes T_i_out, its raters' rows from
-// raters (I, W) assembled over dp, or at dp = 1 from T_u.  denom (mean):
-// each item's pairs over the grid, or null at dp = 1.
+// deltas' live columns dT (I, delta_width(F)) float32 when dT is given
+// (dp > 1), else T_i_out, each row T_i + its delta rounded once; twin
+// writes T_i_out, its raters' rows from raters (I, W) assembled over dp,
+// or at dp = 1 from T_u.  denom (mean): each item's pairs over the grid,
+// or null at dp = 1.
 int sgd_shard_items(const void* T_u, const void* T_i, void* T_i_out,
                     float* dT, const void* raters, const int* it_indptr,
                     const int* it_users, const float* it_vals, int* best,
@@ -234,7 +284,7 @@ int sgd_shard_items(const void* T_u, const void* T_i, void* T_i_out,
       mode < kFirstWins || bad_mode(mode, ws, counts) ||
       (mode == kFirstWins && (best == nullptr || w_rating == nullptr)) ||
       (mode == kTwinMirror && (T_i_out == nullptr || it_indptr == nullptr)) ||
-      (mode != kTwinMirror && dT == nullptr))
+      (dT == nullptr && T_i_out == nullptr))
     return cudaErrorInvalidValue;
   Step a = shard_step(T_u, T_i, U, I, F, mu, lr, k0, k1, it, start_user,
                       user_offset, item_offset, n_users_global, mode, ws,
@@ -252,24 +302,31 @@ int sgd_shard_items(const void* T_u, const void* T_i, void* T_i_out,
   a.reg_ib = reg_ib;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_row(W, elem, [&](auto layout) {
-    return shard_items<decltype(layout)>(a, mode, early != 0, s, ws);
+    using L = decltype(layout);
+    return dT == nullptr
+               ? shard_items<L, true>(a, mode, early != 0, s, ws)
+               : shard_items<L, false>(a, mode, early != 0, s, ws);
   });
 }
 
-// T_i_out = T_i + dT over n entries, rounded once to the table type.
-int sgd_shard_apply(const void* T_i, const float* dT, void* T_i_out,
-                    long long n, int elem, void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+// T_i_out (I, W) = T_i + dT (I, delta_width(F)) over dT's columns, rounded
+// once to the table type, zero past them.
+int sgd_shard_apply(const void* T_i, const float* dT, void* T_i_out, int I,
+                    int W, int F, int elem, void* stream) {
+  if (I <= 0 || W % 4 != 0 || F < 0 || delta_width(F) > W)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long want = (n + 2047) / 2048;  // about 8 entries a thread
+  const long long want = (static_cast<long long>(I) * (W / 4) + 1023) / 1024;
   const int blocks = want < 65535 ? static_cast<int>(want) : 65535;
+  const int wd = delta_width(F);
   if (elem == kFloat32)
     apply_delta_kernel<float><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(T_i), dT, static_cast<float*>(T_i_out), n);
+        static_cast<const float*>(T_i), dT, static_cast<float*>(T_i_out), I,
+        W, wd);
   else if (elem == kBfloat16)
     apply_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
         static_cast<const __nv_bfloat16*>(T_i), dT,
-        static_cast<__nv_bfloat16*>(T_i_out), n);
+        static_cast<__nv_bfloat16*>(T_i_out), I, W, wd);
   else
     return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());

@@ -194,7 +194,9 @@ struct Step {
                        // or null: gathered from T_i (ip = 1)
   const void* raters;  // twin: the sampled raters' rows assembled over dp
                        // (I, W), or null: gathered from T_u (dp = 1)
-  float* dT;           // the item deltas (I, W) float32
+  float* dT;           // the item deltas' live columns (I, delta_width(F))
+                       // float32, or null: the item side writes T_i_out
+                       // itself (dp = 1, no SUM to wait for)
   const int* denom;    // mean: each item's pairs over the grid, or null:
                        // the shard's own
   int user_offset, item_offset, n_users_global;
@@ -332,14 +334,47 @@ __device__ __forceinline__ void delta_row(float4 (&d)[L::V],
   }
 }
 
-// Lane gl's float4s into a float32 row of the layout's width (the item
-// deltas of a shard).
+// The columns of a shard's item deltas dT: the factors and the bias
+// (F + 1), rounded up to whole float4s.  The packed row's other columns
+// are padding, zero in T_i by the layout's contract and never changed by
+// a delta, so neither dT nor the SUM over dp carries them.
+__host__ __device__ __forceinline__ int delta_width(int F) {
+  return (F + 4) & ~3;
+}
+
+// Lane gl's float4s that hold a column < wd into a float32 row of wd
+// columns (a row of dT).
 template <class L>
-__device__ __forceinline__ void store_f32(float* row, int gl,
-                                          const float4 (&x)[L::V]) {
+__device__ __forceinline__ void store_delta(float* row, int gl,
+                                            const float4 (&x)[L::V],
+                                            int wd) {
 #pragma unroll
   for (int k = 0; k < L::V; ++k)
-    *reinterpret_cast<float4*>(row + L::col(gl, k)) = x[k];
+    if (L::col(gl, k) < wd)
+      *reinterpret_cast<float4*>(row + L::col(gl, k)) = x[k];
+}
+
+// x += d in float32, as the apply adds a row of dT to T_i: __fadd_rn, so
+// that the add never contracts with the multiply that made d.
+template <class L>
+__device__ __forceinline__ void add_row(float4 (&x)[L::V],
+                                        const float4 (&d)[L::V]) {
+#pragma unroll
+  for (int k = 0; k < L::V; ++k)
+    x[k] = make_float4(__fadd_rn(x[k].x, d[k].x), __fadd_rn(x[k].y, d[k].y),
+                       __fadd_rn(x[k].z, d[k].z), __fadd_rn(x[k].w, d[k].w));
+}
+
+// A shard's item row written directly (dp = 1): x over the columns < wd,
+// rounded once to the table type, zero past them, as the apply writes the
+// row of T_i + dT.
+template <class L>
+__device__ __forceinline__ void store_live(typename L::Elem* row, int gl,
+                                           float4 (&x)[L::V], int wd) {
+#pragma unroll
+  for (int k = 0; k < L::V; ++k)
+    if (L::col(gl, k) >= wd) x[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  store_row<L>(row, gl, x);
 }
 
 // The first row of the calling warp: rows are numbered warp by warp, 32 / G
@@ -481,16 +516,20 @@ sgd_user_kernel(const Step a) {
 
 // kMode: 0 first_wins (election), 1 twin with the item-major mirror,
 // 2 twin lean (through the item-major → flat permutation).  kShard (modes
-// 0 and 1): a shard's items.  Under first_wins it writes each item's delta
-// into dT, nonzero only where the winner (elected over the grid) is one of
-// the shard's users, whose pre-step row and sampled rating it holds; under
+// 0 and 1): a shard's items.  Under first_wins it computes each item's
+// delta, nonzero only where the winner (elected over the grid) is one of
+// the shard's users, whose pre-step row and sampled rating it holds, and
+// writes its live columns into dT, or under kDirect (no dT) the row
+// T_i + delta rounded once into T_i_out (add_row, store_live); under
 // twin it draws the rater on the global stream (n_users_global +
 // item_offset + i) and reads the rater's row from the rows assembled over
 // dp when they are given, both after its wait.
-template <class L, int kMode, bool kShard = false>
+template <class L, int kMode, bool kShard = false, bool kDirect = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sgd_item_kernel(const Step a) {
   static_assert(!kShard || kMode < 2, "a shard's twin takes the mirror");
+  static_assert(!kDirect || (kShard && kMode == 0),
+                "only a shard's first_wins has a delta to write directly");
   constexpr int G = L::G, NG = L::kRowsPerWarp, W = L::kWidth;
   const int lane = threadIdx.x & 31;
   const int gl = lane & (G - 1);
@@ -569,7 +608,13 @@ sgd_item_kernel(const Step a) {
 #pragma unroll
       for (int k = 0; k < L::V; ++k) d[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    store_f32<L>(a.dT + static_cast<size_t>(i) * W, gl, d);
+    const int wd = delta_width(a.F);
+    if constexpr (kDirect) {
+      add_row<L>(x, d);
+      store_live<L>(row_ptr<L>(a.T_i_out, i), gl, x, wd);
+    } else {
+      store_delta<L>(a.dT + static_cast<size_t>(i) * wd, gl, d, wd);
+    }
   } else {
     if (partner >= 0)
       update_row<L>(x, o, rating, gl, lane, a.F, a.mu, a.lr, a.reg_q,
@@ -882,11 +927,15 @@ __device__ __forceinline__ void unpack_held(const Held<L>& h,
 // and errors loaded before the first of them is added.  Launched early
 // behind the long-run kernel; it waits for it at its end, so that the step
 // ends when both have.  kShard: the run's deltas are summed in float32
-// from zero into dT (the shard's item deltas), mean dividing by the item's
-// pairs over the grid when they are given.
-template <class L, bool kMean, bool kShard = false>
+// from zero (mean dividing by the item's pairs over the grid when they are
+// given), and the sum goes into dT, or under kDirect (no dT) T_i + the
+// sum, rounded once, into T_i_out (add_row after the run's last add,
+// store_live).  kDirect is a template flag, so that the dT kernel holds
+// no more registers than it needs.
+template <class L, bool kMean, bool kShard = false, bool kDirect = false>
 __global__ void __launch_bounds__(kThreads, kCollideMinBlocks)
 collide_item_kernel(const Step a, const Runs r) {
+  static_assert(!kDirect || kShard, "only a shard writes its deltas");
   // What a delta and each sum round to.
   using T = typename std::conditional<kShard, float,
                                       typename L::Elem>::type;
@@ -949,15 +998,24 @@ collide_item_kernel(const Step a, const Runs r) {
           }
         }
       }
+      if constexpr (kDirect) add_row<L>(acc, pre);  // T_i + Σ
     }
     if (mine) {
       if constexpr (kShard) {
-        if (n == 0) {
+        const int wd = delta_width(a.F);
+        if (n == 0) {  // no delta: the row T_i + 0, or dT zero
 #pragma unroll
           for (int k = 0; k < L::V; ++k)
-            acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+            acc[k] = kDirect ? make_float4(__fadd_rn(acc[k].x, 0.f),
+                                           __fadd_rn(acc[k].y, 0.f),
+                                           __fadd_rn(acc[k].z, 0.f),
+                                           __fadd_rn(acc[k].w, 0.f))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
         }
-        store_f32<L>(a.dT + static_cast<size_t>(i) * W, gl, acc);
+        if constexpr (kDirect)
+          store_live<L>(row_ptr<L>(a.T_i_out, i), gl, acc, wd);
+        else
+          store_delta<L>(a.dT + static_cast<size_t>(i) * wd, gl, acc, wd);
       } else {
         store_row<L>(row_ptr<L>(a.T_i_out, i), gl, acc);
       }
@@ -1026,10 +1084,13 @@ int map_words(int U) {
 // and of tile t + 2's users, while warp 0 adds tile t - 1's deltas in user
 // order, a lane a column, eight at a time into registers so that each add
 // waits only on the one before it, rounding after each add.  kShard: as
-// in collide_item_kernel, float32 sums from zero into dT.
-template <class L, bool kMean, bool kShard = false>
+// in collide_item_kernel, float32 sums from zero into dT, or under
+// kDirect T_i + the sum rounded once into T_i_out: the block that adds a
+// slice's whole run adds T_i after the run's last add, once.
+template <class L, bool kMean, bool kShard = false, bool kDirect = false>
 __global__ void __launch_bounds__(kLongThreads, 1)
 collide_long_kernel(const Step a, const Runs r) {
+  static_assert(!kDirect || kShard, "only a shard writes its deltas");
   using T = typename L::Elem;
   // What a delta and each sum round to.
   using R = typename std::conditional<kShard, float, T>::type;
@@ -1108,11 +1169,16 @@ collide_long_kernel(const Step a, const Runs r) {
       __syncthreads();
     }
     if (kShard && warp == 0) {
-      float* out = a.dT + static_cast<size_t>(i) * W;
-      out[c] = live ? acc : 0.f;
-      if (slice == live_slices - 1)  // the slices past column F: no delta
-        for (int k = slice + 1; k < kSlices; ++k)
-          out[k * kSliceCols + lane] = 0.f;
+      if constexpr (kDirect) {
+        T* out = row_ptr<L>(a.T_i_out, i);
+        out[c] = from_float<T>(live ? __fadd_rn(pre, acc) : 0.f);
+        if (slice == live_slices - 1)  // the slices past column F: zero
+          for (int k = slice + 1; k < kSlices; ++k)
+            out[k * kSliceCols + lane] = from_float<T>(0.f);
+      } else {
+        const int wd = delta_width(a.F);
+        if (c < wd) a.dT[static_cast<size_t>(i) * wd + c] = live ? acc : 0.f;
+      }
     } else if (warp == 0) {
       T* out = row_ptr<L>(a.T_i_out, i);
       const T* in = row_ptr<L>(a.T_i, i);
@@ -1205,10 +1271,10 @@ cudaError_t launch_order(const Runs& r, int U, cudaStream_t s, bool early) {
 }
 
 // The scan, the placement and the item side, after the user kernel.
-template <class L, bool kMean, bool kShard = false>
+template <class L, bool kMean, bool kShard = false, bool kDirect = false>
 cudaError_t launch_runs(const Step& a, const Runs& r, cudaStream_t s) {
-  auto long_kernel = collide_long_kernel<L, kMean, kShard>;
-  auto item_kernel = collide_item_kernel<L, kMean, kShard>;
+  auto long_kernel = collide_long_kernel<L, kMean, kShard, kDirect>;
+  auto item_kernel = collide_item_kernel<L, kMean, kShard, kDirect>;
   static int item_blocks = 0;  // resident blocks of the item kernel an SM
   if (item_blocks == 0) {
     cudaError_t e = cudaFuncSetAttribute(

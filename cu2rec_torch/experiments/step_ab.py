@@ -5,11 +5,16 @@ and twin steps as the trainer's loop runs them (``packed_run_steps``: CUDA
 events, the host's enqueue time) and with the stream held (the card's time
 alone); the ``mean`` and ``sum`` steps in float32 and bf16 with the stream
 held, and float32 ``mean`` and bf16 ``sum`` on power-law items
-(``chip_smoke.py``'s skewed ratings); kernel K0b over all ratings.  Each run also records a digest of
-each mean/sum variant's tables after 3 steps from the same start, and the
-registers and spills of every function of ``csrc/sgd_step.cu`` from its
-``-Xptxas -v`` build report; the summary says whether each variant's
-tables are the same bits in both checkouts.
+(``chip_smoke.py``'s skewed ratings); kernel K0b over all ratings; and
+K0a's sharded mode on a grid of one (``sgd_step_sharded_cuda``, every
+policy in float32 and bf16, and bf16 ``mean`` and ``sum`` at F = 300,
+rows of 384 columns; the stream held).  Each run also records a digest of
+each mean/sum variant's tables and of each sharded variant's after 3
+steps from the same start, and the registers and spills of every
+function of ``csrc/sgd_step.cu`` and ``csrc/sgd_sharded.cu`` from their
+``-Xptxas -v`` build reports;
+the summary says whether each variant's tables are the same bits in both
+checkouts.
 
     python -m cu2rec_torch.experiments.step_ab A_DIR B_DIR [--reps 5]
         [--out FILE]
@@ -49,7 +54,8 @@ from cu2rec_torch.ops.packed import PackedModel, packed_run_steps, packed_step
 from cu2rec_torch.ops.sgd import INT32_MAX, prng_key
 
 reps = int(sys.argv[1])
-build(("sgd_step", "eval_error"))
+WIDE_F = 300  # rows of 384 columns
+build(("sgd_step", "sgd_sharded", "eval_error"))
 dev = torch.device("cuda")
 csr = smoke._headline_csr(0)
 pm = smoke._packed_tables(torch, smoke.U, smoke.I, smoke.F, 0, dev)
@@ -101,7 +107,36 @@ for name, tables, collision in (("float32/mean/skewed", pm, "mean"),
                                 ("bfloat16/sum/skewed", pm16, "sum")):
     rec[name] = {"held_ms": held(tables, skew, collision)}
     rec["digests"][name] = digest(tables, skew, collision)
-del skew, pm16
+del skew
+from cu2rec_torch.ops import cuda_sgd
+from cu2rec_torch.parallel.sharded import make_mesh
+rec["registers_sharded"] = {fn: [regs, spill] for fn, regs, spill, _ in
+                            smoke._ptxas_report(build_log("sgd_sharded"))}
+mesh = make_mesh(1, 1, dev)
+drt = to_device(csr, dev, item_major=True)
+torch.cuda.synchronize()
+def sharded(name, T_u, T_i, n_factors, collision):
+    kw = dict(n_factors=n_factors, mesh=mesh, n_users_global=smoke.U,
+              collision=collision)
+    step = lambda: cuda_sgd.sgd_step_sharded_cuda(
+        T_u, T_i, 3.5, drt, smoke._hp(), prng_key(1), 7, **kw)
+    rec[name] = {"held_ms": time_ms(step, [()], reps=50, hold=True)}
+    out = cuda_sgd.sharded_run_steps(T_u, T_i, 3.5, drt, smoke._hp(),
+                                     prng_key(1), 0, 3, **kw)
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    rec["digests"][name] = h.hexdigest()[:16]
+for dtype, tables in (("float32", pm), ("bfloat16", pm16)):
+    for collision in ("first_wins", "twin", "mean", "sum"):
+        sharded(f"sharded/{dtype}/{collision}", tables.T_u, tables.T_i,
+                smoke.F, collision)
+del pm16
+wide = smoke._packed_tables(torch, smoke.U, smoke.I, WIDE_F, 0, dev)
+wide = (wide.T_u.bfloat16(), wide.T_i.bfloat16())
+for collision in ("mean", "sum"):
+    sharded(f"sharded/bfloat16/{collision}/W384", *wide, WIDE_F, collision)
+del drt, wide
 args = (pm.T_u, pm.T_i, 3.5, dr.row_ids, dr.indices, dr.data, smoke.F)
 rec["eval_error"] = {"held_ms": time_ms(cuda_loss.packed_error_sums_cuda,
                                         [args], reps=20)}
@@ -112,7 +147,11 @@ print(json.dumps(rec), flush=True)
 # The timed records of a run, each a dict of times.
 TIMED = ("first_wins", "twin", "float32/mean", "float32/sum",
          "bfloat16/mean", "bfloat16/sum", "float32/mean/skewed",
-         "bfloat16/sum/skewed", "eval_error")
+         "bfloat16/sum/skewed", "eval_error") + tuple(
+             f"sharded/{dtype}/{collision}"
+             for dtype in ("float32", "bfloat16")
+             for collision in ("first_wins", "twin", "mean", "sum")) + (
+                 "sharded/bfloat16/mean/W384", "sharded/bfloat16/sum/W384")
 
 
 def _run(root: Path, reps: int) -> dict:

@@ -216,6 +216,9 @@ SHARD_KERNEL = "sgd_sharded"
 # kernels launch), by (table dtype, policy), the policy "users" for a step
 # with the items frozen.
 SHARD_LAUNCHES: Counter = Counter()
+# The steps among them whose item side went through dT, its SUM over dp and
+# the apply kernel (dp > 1), by (table dtype, policy).
+SHARD_APPLIES: Counter = Counter()
 
 _shard_lib = None
 
@@ -238,7 +241,7 @@ def _load_shard():
         lib.sgd_shard_items.argtypes = (
             [P] * 13 + [I] * 4 + [F] * 4 + [U] * 3 + [I] * 7 + [P])
         lib.sgd_shard_items.restype = ctypes.c_int
-        lib.sgd_shard_apply.argtypes = [P, P, P, ctypes.c_longlong, I, P]
+        lib.sgd_shard_apply.argtypes = [P, P, P, I, I, I, I, P]
         lib.sgd_shard_apply.restype = ctypes.c_int
         _shard_lib = lib
     return _shard_lib
@@ -247,6 +250,15 @@ def _load_shard():
 def _rc(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def delta_width(n_factors: int) -> int:
+    """The columns of a shard's item deltas ``dT``: the factors and the
+    bias (F + 1) rounded up to whole float4s (``csrc/sgd_step.cuh``'s
+    ``delta_width``).  The packed row's padding columns are zero in
+    ``T_i`` and never get a delta, so ``dT`` and its SUM over dp leave them
+    out: 104 of 128 columns at F = 100."""
+    return (int(n_factors) + 4) // 4 * 4
 
 
 def sgd_step_sharded_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float,
@@ -268,7 +280,32 @@ def sgd_step_sharded_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float,
     ``it_indptr``/``it_users``/``it_vals``).  ``n_users_global`` is the
     unpadded user count (the election's modulus).  ``best`` and ``counts``
     as for ``sgd_step_cuda``, of I_loc entries.  Its plain version is
-    ``parallel/sharded.py::_local_step_packed``."""
+    ``parallel/sharded.py::_local_step_packed``.
+
+    At dp = 1 the item side writes the new ``T_i`` itself; at dp > 1 it
+    writes the deltas' live columns ``dT`` (I_loc, ``delta_width(F)``),
+    sums them over dp and applies them (``SHARD_APPLIES``)."""
+    return _sharded_step(T_u, T_i, mu, dev, hp, key, iteration,
+                         n_factors=n_factors, mesh=mesh,
+                         n_users_global=n_users_global,
+                         train_items=train_items, collision=collision,
+                         rotation=rotation, best=best, counts=counts)
+
+
+def _sharded_step(T_u, T_i, mu, dev, hp, key, iteration, *, n_factors,
+                  mesh, n_users_global, train_items=True,
+                  collision="first_wins", rotation=250, best=None,
+                  counts=None, deltas=False):
+    """``sgd_step_sharded_cuda``.  ``deltas``, for the checks that hold the
+    two item sides against each other: the item side writes ``dT``
+    (I_loc, ``delta_width(F)``) float32 at any dp and the step returns
+    ``(T_u, dT)`` before the SUM over dp and the apply.  At dp = 1,
+    ``(T_i.float() + dT)`` rounded to the table type and padded with zero
+    columns is, bit for bit, the ``T_i`` the step writes directly.  Such a
+    call is not a step: ``SHARD_LAUNCHES`` does not count it.  Not for
+    twin, whose item side has no deltas."""
+    if deltas and (collision == "twin" or not train_items):
+        raise ValueError("only an item side with deltas can return them")
     device = T_u.device
     if device.type != "cuda":
         raise ValueError(f"sgd_step_sharded_cuda takes CUDA tensors, got "
@@ -359,28 +396,35 @@ def sgd_step_sharded_cuda(T_u: torch.Tensor, T_i: torch.Tensor, mu: float,
         if mode < 0:
             SHARD_LAUNCHES[T_u.dtype, "users"] += 1
             return T_u_out, T_i
-        T_i_out = torch.empty_like(T_i)
-        dT = denom = None
-        if mode != 1:
-            dT = torch.empty((I, W), dtype=torch.float32, device=device)
+        # At dp = 1 no SUM follows the item side, which then writes T_i_out
+        # itself; at dp > 1 it writes the deltas' live columns into dT.
+        T_i_out = dT = denom = None
+        if mode != 1 and (deltas or mesh.n_dp > 1):
+            dT = torch.empty((I, delta_width(F)), dtype=torch.float32,
+                             device=device)
+        if not deltas:
+            T_i_out = torch.empty_like(T_i)
         if mode == 0:
             mesh.dp.min_(best)
         if mode == 3 and mesh.n_dp > 1:
             denom = mesh.dp.sum_(counts.clone())
         _rc(lib.sgd_shard_items(
-            T_u.data_ptr(), T_i.data_ptr(), _ptr(T_i_out if mode == 1
-                                                 else None),
-            _ptr(dT), _ptr(raters), _ptr(dev.it_indptr), _ptr(dev.it_users),
-            _ptr(dev.it_vals), _ptr(best), _ptr(w_rating), _ptr(ws),
-            _ptr(counts), _ptr(denom), U, I, W, F, mu, hp.learning_rate,
-            hp.Q_reg, hp.item_bias_reg, k0, k1, it, start_user, user_offset,
-            item_offset, n_users_global, mode, elem,
-            int(mesh.n_dp == 1 or mode == 1), stream), "sgd_shard_items")
+            T_u.data_ptr(), T_i.data_ptr(),
+            _ptr(T_i_out if dT is None else None), _ptr(dT), _ptr(raters),
+            _ptr(dev.it_indptr), _ptr(dev.it_users), _ptr(dev.it_vals),
+            _ptr(best), _ptr(w_rating), _ptr(ws), _ptr(counts), _ptr(denom),
+            U, I, W, F, mu, hp.learning_rate, hp.Q_reg, hp.item_bias_reg,
+            k0, k1, it, start_user, user_offset, item_offset,
+            n_users_global, mode, elem, int(mesh.n_dp == 1 or mode == 1),
+            stream), "sgd_shard_items")
+        if deltas:
+            return T_u_out, dT
         if dT is not None:
             mesh.dp.sum_(dT)
             _rc(lib.sgd_shard_apply(T_i.data_ptr(), dT.data_ptr(),
-                                    T_i_out.data_ptr(), T_i.numel(), elem,
+                                    T_i_out.data_ptr(), I, W, F, elem,
                                     stream), "sgd_shard_apply")
+            SHARD_APPLIES[T_u.dtype, collision] += 1
     SHARD_LAUNCHES[T_u.dtype, collision] += 1
     return T_u_out, T_i_out
 

@@ -156,6 +156,9 @@ def _rank_main(fn, rank: int, world: int, backend: str, device_type: str,
         if dev.type == "cpu":
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         initialize(backend, init_method, world, rank, dev)
+        # No rank leaves before every rank has joined: a rank that ended
+        # at once would close its links while another still connects.
+        barrier(dev)
         result = fn(*args, **kwargs)
         tmp = os.path.join(out_dir, f"result.{rank}.tmp")
         with open(tmp, "wb") as f:

@@ -58,21 +58,24 @@ def save_checkpoint(path: str, model: MFModel, cfg: Config,
     Write-then-rename: a concurrent reader, or a crash mid-write, sees
     either the previous complete checkpoint or the new one.  In a world of
     several ranks every rank calls it with the full model (the engines'
-    ``finalize`` assembles it on every rank); rank 0 writes, and no rank
-    returns before the file is in place, so that a rank may load it at
-    once."""
+    ``finalize`` assembles it on every rank) and every rank writes it, as
+    the TPU package's processes do: ranks on hosts that share no
+    filesystem each get a complete checkpoint, and on a shared one the
+    renames of identical bytes are atomic, the last one winning.  Each
+    rank writes its own ``{final}.tmp.{rank}.{pid}`` (a pid is unique on
+    one host only), and no rank returns before every rank's file is in
+    place, so that a rank may load it at once."""
     from cu2rec_torch.parallel.distributed import barrier, process_info
 
     final = path if path.endswith(".npz") else path + ".npz"
     rank, _world = process_info()
-    if rank == 0:
-        comps = model_to_numpy(model)
-        meta = {"config": dataclasses.asdict(cfg), "extra": extra or {}}
-        tmp = f"{final}.tmp.{os.getpid()}"
-        with open(tmp, "wb") as f:
-            np.savez_compressed(f, meta=np.frombuffer(
-                json.dumps(meta).encode(), dtype=np.uint8), **comps)
-        os.replace(tmp, final)
+    comps = model_to_numpy(model)
+    meta = {"config": dataclasses.asdict(cfg), "extra": extra or {}}
+    tmp = f"{final}.tmp.{rank}.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, meta=np.frombuffer(
+            json.dumps(meta).encode(), dtype=np.uint8), **comps)
+    os.replace(tmp, final)
     barrier()
     return final
 

@@ -349,6 +349,31 @@ def test_mf_still_refuses_what_is_not_ported(tmp_path, data_dir, cli, args,
         tmf.main(["-c", str(cfg), train, train] + args)
 
 
+@pytest.mark.parametrize("device,n,cards,want", [
+    ("cuda", 0, 4, ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]),
+    ("cuda", 0, 1, ["cuda"]),
+    ("cuda", 1, 4, ["cuda"]),
+    ("cuda", 2, 4, ["cuda:0", "cuda:1"]),
+    ("cpu", 0, 4, ["cpu"]),
+    ("cpu", 1, 0, ["cpu"]),
+    ("cpu", 3, 0, ["cpu", "cpu", "cpu"])])
+def test_serve_shards_over_every_device_by_default(monkeypatch, device, n,
+                                                   cards, want):
+    """``serve`` with no ``--devices`` (0) shards the catalog over every
+    device, as the TPU package's ``serve`` over ``jax.devices()``: every
+    CUDA device of the host (``torch.cuda.device_count``, patched here),
+    or the one CPU device; ``--devices 1`` serves on the one ``--device``
+    and ``--devices N`` on N of them."""
+    import torch
+
+    from cu2rec_torch.cli.serve import build_parser, shard_devices
+
+    assert build_parser().parse_args([]).devices == 0
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    got = shard_devices(torch.device(device), n)
+    assert got == [torch.device(d) for d in want]
+
+
 def test_mf_devices_two_trains_als_on_the_cpu(tmp_path, data_dir,
                                               monkeypatch):
     """``--algo als --devices 2 --device cpu``: two gloo ranks solve the

@@ -200,14 +200,64 @@ def test_two_process_als_sweeps(story):
 
 
 def test_checkpoint_resumed_in_fresh_processes_is_byte_identical(story):
-    """The checkpoint written at iteration 5 by rank 0 (after every rank
-    assembled the model), resumed by a fresh pair of processes: only the
+    """The checkpoint written at iteration 5 by every rank (after every
+    rank assembled the model), resumed by a fresh pair of processes: only the
     remaining eval point runs, with the uninterrupted run's loss, and P and
     Q have the uninterrupted run's sha256."""
     first, resumed = story
     assert sorted(resumed[0]["losses"]) == [10]
     assert resumed[0]["losses"][10] == first[0]["losses"][10]
     assert resumed[0]["digest"] == first[0]["digest"]
+
+
+def _checkpoint_job(root: str, model_d):
+    """One rank of the checkpoint test: the same model saved to a
+    directory of the rank's own, which only this rank makes (a host of its
+    own), then by both ranks to one shared path; each file loaded back
+    here.  Returns what each load found."""
+    import os
+
+    from cu2rec_torch.models.state import model_from_numpy, model_to_numpy
+    from cu2rec_torch.parallel.distributed import process_info
+    from cu2rec_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    rank, _world = process_info()
+    model = model_from_numpy(model_d, "cpu")
+    cfg = _sgd_cfg()
+    os.makedirs(f"{root}/rank{rank}")
+    found = {}
+    for what, path in (("own", f"{root}/rank{rank}/model"),
+                       ("shared", f"{root}/shared/model.npz")):
+        final = save_checkpoint(path, model, cfg)
+        got, got_cfg, _extra = load_checkpoint(final, device="cpu")
+        comps = model_to_numpy(got)
+        found[what] = (final, got_cfg == cfg,
+                       all(np.array_equal(comps[k], model_d[k])
+                           for k in model_d))
+    return found
+
+
+def test_every_rank_writes_a_complete_checkpoint(tmp_path):
+    """Every rank writes the checkpoint, as every process of the TPU
+    package does: a rank that passes a directory only it can see (a host
+    with no shared filesystem) finds its complete file there, and both
+    ranks passing one path leave one file, equal to the model, and no
+    temporary file."""
+    import os
+
+    from cu2rec_torch.models.state import model_from_numpy, model_to_numpy
+
+    # The port's own arrays of the TPU package's initial model.
+    model_d = model_to_numpy(model_from_numpy(_toy()[2], "cpu"))
+    os.makedirs(tmp_path / "shared")
+    ranks = launch(_checkpoint_job, 2, "gloo", "cpu",
+                   args=(str(tmp_path), model_d), timeout=RANK_TIMEOUT)
+    for rank, found in enumerate(ranks):
+        final, same_cfg, same_model = found["own"]
+        assert final == f"{tmp_path}/rank{rank}/model.npz"
+        assert same_cfg and same_model, rank
+        assert found["shared"][1:] == (True, True), rank
+    assert os.listdir(tmp_path / "shared") == ["model.npz"]
 
 
 def _fail_on_rank_one():

@@ -13,6 +13,8 @@ well-conditioned systems, summed in another order on the card); recommend
 scores rtol 1e-4 (the card's float32 matmul blocks its sums differently).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1087,7 +1089,8 @@ def _shard_steps(mesh, csr, F, policy, dtype, steps=3, train_items=True):
     """The sharded kernel step against the plain local step of this
     rank's blocks, step by step from the same blocks: the largest
     difference (float32), or of bf16 ulps of the operands' scale (bf16:
-    the step rounds once)."""
+    the step rounds once).  The item side goes through dT and the apply
+    only at dp > 1 (``SHARD_APPLIES``)."""
     from cu2rec_torch.ops import cuda_sgd
     from cu2rec_torch.ops.sgd import Hyper
     from cu2rec_torch.parallel.sharded import (
@@ -1101,8 +1104,10 @@ def _shard_steps(mesh, csr, F, policy, dtype, steps=3, train_items=True):
     hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
     d = eng.train_dev
     worst = 0.0
+    split = train_items and policy != "twin" and mesh.n_dp > 1
     for it in range(steps):
         n0 = cuda_sgd.SHARD_LAUNCHES.total()
+        a0 = cuda_sgd.SHARD_APPLIES.total()
         got = cuda_sgd.sgd_step_sharded_cuda(
             T_u, T_i, float(mu), d, hp, eng.key, it, n_factors=F, mesh=mesh,
             n_users_global=eng.n_users, train_items=train_items,
@@ -1113,6 +1118,7 @@ def _shard_steps(mesh, csr, F, policy, dtype, steps=3, train_items=True):
             train_items=train_items, collision=policy)
         torch.cuda.synchronize()
         assert cuda_sgd.SHARD_LAUNCHES.total() == n0 + 1
+        assert cuda_sgd.SHARD_APPLIES.total() == a0 + int(split)
         for g, w, p in zip(got, want, (T_u, T_i)):
             assert g.dtype == p.dtype
             if dtype == "float32":
@@ -1125,19 +1131,95 @@ def _shard_steps(mesh, csr, F, policy, dtype, steps=3, train_items=True):
     return worst
 
 
+def _csr_args(csr):
+    return (csr.indptr, csr.indices, csr.data, csr.n_users, csr.n_items)
+
+
+@functools.lru_cache(maxsize=None)
+def _dp2_shard_errs(F, dtype):
+    """Each policy's worst kernel-against-plain difference over two gloo
+    ranks sharing the card as a (2, 1) grid, at F and dtype."""
+    from cu2rec_torch.parallel.distributed import launch
+
+    ranks = launch(_gpu_grid_job, 2, "gloo", "cuda",
+                   args=(2, 1, _csr_args(_ratings(301, 97, seed=F)), F,
+                         dtype), timeout=300)
+    return {p: max(r[p] for r in ranks) for p in SHARD_POLICIES}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_dp", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("policy", SHARD_POLICIES)
 @pytest.mark.parametrize("F", WIDTH_FS)
-def test_sharded_step_kernel_matches_plain(cuda_device, F, policy, dtype):
-    """A grid of one rank, every row width: the split kernels against the
-    plain local step, float32 within 1e-5, bf16 within one ulp of the
-    operands' scale."""
+def test_sharded_step_kernel_matches_plain(cuda_device, F, policy, dtype,
+                                           n_dp):
+    """Every row width, on a grid of one rank (dp = 1: the item side
+    writes the new rows itself) and on two gloo ranks sharing the card
+    (dp = 2: the deltas' live columns summed over dp and applied): the
+    split kernels against the plain local step, float32 within 1e-5, bf16
+    within one ulp of the operands' scale."""
     from cu2rec_torch.parallel.sharded import make_mesh
 
-    worst = _shard_steps(make_mesh(1, 1, cuda_device),
-                         _ratings(301, 97, seed=F), F, policy, dtype)
+    if n_dp == 1:
+        worst = _shard_steps(make_mesh(1, 1, cuda_device),
+                             _ratings(301, 97, seed=F), F, policy, dtype)
+    else:
+        worst = _dp2_shard_errs(F, dtype)[policy]
     assert worst <= (1e-5 if dtype == "float32" else 1.0)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("policy", ["first_wins", "mean", "sum"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", WIDTH_FS)
+def test_sharded_item_side_written_directly_is_the_applied_deltas(
+        cuda_device, F, dtype, policy, hot):
+    """At dp = 1 the item side writes the new T_i itself, and allocates no
+    dT and launches no apply.  The same step's item side written as dT
+    (``_sharded_step(..., deltas=True)``, what dp > 1 sums) gives, as
+    ``(T_i.float() + dT)`` rounded to the table type and padded with zero
+    columns, the same bits: uniform items, and a hot item of ~1,000 pairs
+    that the long-run kernel adds a slice of columns a block."""
+    from cu2rec_torch.ops import cuda_sgd
+    from cu2rec_torch.ops.sgd import Hyper
+    from cu2rec_torch.parallel.sharded import ShardedEngine, make_mesh
+    from cu2rec_torch.utils.config import Config
+
+    U, I = (3001, 97) if hot else (301, 97)
+    csr = _hot_ratings(U, I, seed=F) if hot else _ratings(U, I, seed=F)
+    mesh = make_mesh(1, 1, cuda_device)
+    cfg = Config(n_factors=F, collision_policy=policy, dtype=dtype, seed=3)
+    eng = ShardedEngine(csr, csr, cfg, mesh=mesh)
+    T_u, T_i, mu = eng.init_model(eng.n_users, eng.n_items, 3.5)
+    hp = Hyper(0.05, 0.02, 0.03, 0.04, 0.05)
+    wd = cuda_sgd.delta_width(F)
+    kw = dict(n_factors=F, mesh=mesh, n_users_global=eng.n_users,
+              collision=policy)
+    for it in range(3):
+        n0 = cuda_sgd.SHARD_LAUNCHES.total()
+        a0 = cuda_sgd.SHARD_APPLIES.total()
+        got = cuda_sgd.sgd_step_sharded_cuda(T_u, T_i, float(mu),
+                                             eng.train_dev, hp, eng.key, it,
+                                             **kw)
+        T_u2, dT = cuda_sgd._sharded_step(
+            T_u, T_i, float(mu), eng.train_dev, hp, eng.key, it, **kw,
+            deltas=True)
+        torch.cuda.synchronize()
+        assert cuda_sgd.SHARD_LAUNCHES.total() == n0 + 1
+        assert cuda_sgd.SHARD_APPLIES.total() == a0
+        assert dT.shape == (T_i.shape[0], wd) and dT.dtype == torch.float32
+        want = torch.zeros_like(T_i)
+        want[:, :wd] = (T_i[:, :wd].float() + dT).to(T_i.dtype)
+        assert torch.equal(_bits(got[1]), _bits(want)), it
+        assert torch.equal(_bits(got[0]), _bits(T_u2)), it
+        assert (got[1] != T_i).any(), it
+        T_u, T_i = got
 
 
 @pytest.mark.gpu
@@ -1150,7 +1232,7 @@ def test_sharded_step_kernel_users_only(cuda_device):
     assert worst <= 1e-5
 
 
-def _gpu_grid_job(n_dp, n_ip, csr_args):
+def _gpu_grid_job(n_dp, n_ip, csr_args, F=100, dtype="float32"):
     """One gloo rank sharing the card: every policy's kernel steps against
     the plain steps over the grid's collectives."""
     from cu2rec_torch.data.csr import CSRRatings
@@ -1158,26 +1240,28 @@ def _gpu_grid_job(n_dp, n_ip, csr_args):
 
     mesh = make_mesh(n_dp, n_ip)
     csr = CSRRatings(*csr_args)
-    return {p: _shard_steps(mesh, csr, 100, p, "float32")
+    return {p: _shard_steps(mesh, csr, F, p, dtype)
             for p in SHARD_POLICIES}
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n_dp,n_ip", [(2, 1), (1, 2), (2, 2)])
 def test_sharded_step_kernel_on_gloo_ranks_sharing_the_card(cuda_device,
-                                                            n_dp, n_ip):
+                                                            n_dp, n_ip,
+                                                            dtype):
     """The assembly over ip, the election's MIN over dp, twin's raters and
-    the deltas' SUM between ranks: each rank's kernel steps within 1e-5 of
-    its plain steps."""
+    the deltas' SUM between ranks (dT and the apply at dp = 2, the rows
+    written directly at dp = 1): each rank's kernel steps within 1e-5 of
+    its plain steps (bf16: one ulp of the operands' scale)."""
     from cu2rec_torch.parallel.distributed import launch
 
-    csr = _ratings(301, 97, seed=5)
     ranks = launch(_gpu_grid_job, n_dp * n_ip, "gloo", "cuda",
-                   args=(n_dp, n_ip, (csr.indptr, csr.indices, csr.data,
-                                      csr.n_users, csr.n_items)),
-                   timeout=300)
+                   args=(n_dp, n_ip, _csr_args(_ratings(301, 97, seed=5)),
+                         100, dtype), timeout=300)
     for errs in ranks:
-        assert all(e <= 1e-5 for e in errs.values()), errs
+        assert all(e <= (1e-5 if dtype == "float32" else 1.0)
+                   for e in errs.values()), errs
 
 
 @pytest.mark.gpu

@@ -592,6 +592,43 @@ def test_mf_devices_two_on_the_cpu_matches_one_device(tmp_path, data_dir,
                                    atol=1e-6, err_msg=c)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("F", [3, 4, 31, 100])
+def test_item_updates_live_in_the_delta_width_columns(F, policy, dtype):
+    """Why K0a's sharded mode writes, sums and applies only
+    ``delta_width(F)`` columns of the item deltas (F + 1 rounded up to 4,
+    within the packed width): through three steps of the plain sharded
+    step, its oracle, on a grid of one, every column of T_i and T_u past
+    the bias stays zero (T_i's padding is zero and gets no delta), while
+    the live columns change."""
+    from cu2rec_torch.ops.cuda_sgd import delta_width
+    from cu2rec_torch.ops.packed import packed_width
+    from cu2rec_torch.parallel.sharded import _local_step_packed
+
+    wd = delta_width(F)
+    assert wd % 4 == 0 and F + 1 <= wd <= min(F + 4, packed_width(F))
+    rng = np.random.default_rng(F + 1)
+    keys = np.unique(rng.integers(0, 60 * 17, 500))
+    csr = csr_from_arrays((keys // 17).astype(np.int32),
+                          (keys % 17).astype(np.int32),
+                          (rng.integers(1, 11, len(keys)) / 2.0)
+                          .astype(np.float32), 60, 17, use_native=False)
+    cfg = Config(n_factors=F, collision_policy=policy, dtype=dtype, seed=3)
+    mesh = make_mesh(1, 1, "cpu")
+    eng = ShardedEngine(csr, csr, cfg, mesh=mesh)
+    T_u, T_i, mu = eng.init_model(eng.n_users, eng.n_items, 3.5)
+    T_i0, d = T_i, eng.train_dev
+    for it in range(3):
+        T_u, T_i = _local_step_packed(
+            T_u, T_i, mu, d.indptr, d.indices, d.data, _hp(), eng.key, it,
+            eng.n_users, F, d.it_indptr, d.it_users, d.it_vals, mesh=mesh,
+            train_items=True, collision=policy)
+        assert T_i.dtype == getattr(torch, dtype)
+        assert not T_i[:, F + 1:].any() and not T_u[:, F + 1:].any(), it
+    assert (T_i[:, :F + 1] != T_i0[:, :F + 1]).any(1).sum() > 8
+
+
 # -- the unpacked step and eval (one device) ------------------------------
 
 def _unpacked_data(dtype: str):
