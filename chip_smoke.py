@@ -31,7 +31,16 @@ fatal on failure:
    events beside its bound; the step loop as the trainer runs it, with the
    host's enqueue time a step beside the profiler's kernel time a step
    (which shows whether the host sets the pace), and beside a plain copy
-   of ``T_u``;
+   of ``T_u``; then K0c (the explicit serving fold-in, every iteration in
+   one launch) at phase 11 (b)'s probe shape (1,000,000 items, F=64, 512
+   users x 32 ratings, 100 iterations) and at phase 6's explicit wave
+   (27,000 items, F=100, 256 users x 8-64 ratings), float32 and bf16
+   catalogs, sampled directly and (probe, float32) through rows assembled
+   once: one iteration within 1e-6 of its plain version, the fold-in
+   within 1e-5 of max(1, |entry|), a plain run with the iteration counter
+   shifted by one rejected; timed with the stream held beside the byte
+   bound of the rows it samples and the dependent-chain floor (every slot
+   sampling one cached row);
 5. the entry points, each with the launch counts set to 0 before it and
    read after it: ``mf`` trains a planted rank-20 model at the headline
    widths (1,000,000 train and 100,000 test ratings as CSVs, 300
@@ -43,7 +52,8 @@ fatal on failure:
    ``--seed``): one recommend of 512 known users, 256 explicit fold-ins,
    256 implicit fold-ins and a stats request, each checked (k items, rated
    items excluded, scores against a float64 reference for a sample), with
-   the kernels' launch counts read across the run.  Each wave is timed
+   the kernels' launch counts read across the run (K1 by the implicit
+   wave only, K0c by the explicit wave only).  Each wave is timed
    without a profiler, then sent again under ``torch.profiler``; that
    replay gives the card's busy time and its top kernels;
 7. families: ALS, iALS and BPR at the headline widths.  ALS trains 5
@@ -125,13 +135,16 @@ fatal on failure:
    implicit fold-in within 1e-3 of phase 6's responses, the explicit
    wave's rows (in one batch) within 1e-6 of one device's and the
    implicit rows within K1's tolerance, K1 launched by the implicit wave
-   only; each wave's latency and requests/s beside phase 6's; (b) the TPU
-   package's serving probe shape (1,000,000 items, F=64, batch 512, k=10,
-   fold-ins of 32 ratings and 100 iterations) over 1, 2 and 4 shards:
-   recommend users/s, a fold-in batch's time and 32 users' top-10 against
-   a float64 reference; (c) two gloo ranks sharing the card, a shard each:
-   the ranks bit-equal, the rank-mode engine against the one-process
-   shards, ``sharded_ranking_eval`` equal to ``ranking_eval``; (d) ``serve
+   only and K0c by the explicit wave only (one launch a fold-in batch,
+   after one assembly of the rows over the shards); each wave's latency
+   and requests/s beside phase 6's; (b) the TPU package's serving probe
+   shape (1,000,000 items, F=64, batch 512, k=10, fold-ins of 32 ratings
+   and 100 iterations) over 1, 2 and 4 shards: recommend users/s, a
+   fold-in batch's time (one K0c launch each) and device time, and 32
+   users' top-10 against a float64 reference; (c) two gloo ranks sharing
+   the card, a shard each: the ranks bit-equal, the rank-mode engine
+   against the one-process shards, ``sharded_ranking_eval`` equal to
+   ``ranking_eval``, one K0c launch a fold-in on each rank; (d) ``serve
    --devices 2 --device cuda`` on a one-card host raises the fewer-cards
    error.
 
@@ -770,6 +783,183 @@ def phase_train_kernels(torch, dev, seed: int):
     return entries
 
 
+# K0c, the explicit serving fold-in, at phase 11 (b)'s probe shape and at
+# phase 6's explicit wave: (label, items, F, batch, widest rating list,
+# fewest ratings a user, iterations).  After one iteration the kernel's rows
+# are within FOLD_ONE_ATOL of its plain version's (a few float32
+# roundings); after the whole fold-in within FOLD_RTOL of max(1, |entry|),
+# K0a's step tolerance: each iteration may contract a multiply-add the plain
+# version rounds twice.
+FOLD_CASES = (("probe", 1_000_000, 64, 512, 32, 32, 100),
+              ("phase 6", I, F, 256, 64, 8, 100))
+FOLD_ONE_ATOL, FOLD_RTOL = 1e-6, 1e-5
+# Input sets K0c's timing cycles through: 8 batches' sampled rows (8.4 MB
+# each at the probe shape) exceed the 50 MB L2, as a wave finds them cold.
+FOLD_SETS = 8
+
+
+def _fold_inputs(torch, dev, seed: int, n_items: int, n_f: int, B: int,
+                 D: int, lo: int, dtype, n_sets: int):
+    """A random catalog of ``n_items`` packed rows in ``dtype`` and
+    ``n_sets`` batches (T_u, table, index, vals, lens) over it, made on the
+    card from the seed: each user's lens in [lo, D], its index item ids,
+    its rows N(0, 1/F) as the engine's default init draws them."""
+    from cu2rec_torch.ops.packed import packed_width
+
+    W = packed_width(n_f)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.zeros((n_items, W), device=dev)
+    table[:, :n_f + 1] = 0.1 * torch.randn((n_items, n_f + 1),
+                                           generator=gen, device=dev)
+    table = table.to(dtype)
+    sets = []
+    for _ in range(n_sets):
+        T_u = torch.zeros((B, W), device=dev)
+        T_u[:, :n_f + 1] = torch.randn((B, n_f + 1), generator=gen,
+                                       device=dev) / n_f
+        index = torch.randint(0, n_items, (B, D), generator=gen,
+                              device=dev, dtype=torch.int32)
+        vals = torch.randint(1, 11, (B, D), generator=gen,
+                             device=dev).float() / 2
+        lens = torch.randint(lo, D + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        sets.append((T_u, table, index, vals, lens))
+    return sets
+
+
+def _sampled_rows(torch, key, index, lens, n_steps: int) -> int:
+    """The distinct table rows a fold-in of ``n_steps`` iterations samples
+    (the draws of ``fold_in_steps``)."""
+    from cu2rec_torch.ops.sgd import counter_uniform
+
+    slots = torch.arange(index.shape[0], device=index.device)
+    index, lens = index.long(), lens.long()
+    rows = []
+    for t in range(n_steps):
+        pos = torch.minimum((counter_uniform(key, t, slots) * lens).long(),
+                            (lens - 1).clamp(min=0))
+        rows.append(torch.gather(index, 1, pos[:, None])[lens > 0])
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
+def _shifted_plain(args, mu, hp, key, n_steps: int, n_f: int):
+    """The planted fault: ``fold_in_steps`` with its iteration counter
+    shifted by one (iteration t draws as t + 1 does)."""
+    from cu2rec_torch.serve import engine
+
+    draw = engine.counter_uniform
+    engine.counter_uniform = lambda k, t, ids: draw(k, t + 1, ids)
+    try:
+        return engine.fold_in_steps(*args, mu, hp, key, n_steps, n_f)
+    finally:
+        engine.counter_uniform = draw
+
+
+def _fold_err(torch, got, want) -> float:
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def phase_foldin_kernel(torch, dev, seed: int, card: str):
+    """K0c against its plain version (``serve/engine.py::fold_in_steps``)
+    in every case of FOLD_CASES, float32 and bf16 catalogs, the catalog
+    sampled directly (one shard) and, at the probe shape, through the rows
+    assembled once (several shards): one iteration within FOLD_ONE_ATOL,
+    the whole fold-in within FOLD_RTOL of max(1, |entry|), and a plain run
+    whose iteration counter is shifted by one rejected; each timed with
+    CUDA events (the stream held) beside the plain version, the byte bound
+    of the rows it samples and the dependent-chain floor (every slot
+    sampling one cached row).  Returns the kernel's entry."""
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.ops.cuda_foldin import fold_in_cuda
+    from cu2rec_torch.ops.sgd import prng_key
+    from cu2rec_torch.serve.engine import fold_in_steps
+
+    hp, key, mu = _hp(), prng_key(seed + 14), 3.5
+    entry, cases = None, {}
+    for label, n_items, n_f, B, D, lo, n_steps in FOLD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            sets = _fold_inputs(torch, dev, seed, n_items, n_f, B, D, lo,
+                                dtype, FOLD_SETS)
+            sources = [("direct", sets)]
+            if label == "probe" and dtype == torch.float32:
+                assembled = []
+                for T_u, table, index, vals, lens in sets[:1]:
+                    rows = table[index.reshape(-1).long()].float()
+                    flat = torch.arange(B * D, dtype=torch.int32,
+                                        device=dev).reshape(B, D)
+                    assembled.append((T_u, rows, flat, vals, lens))
+                sources.append(("assembled", assembled))
+            for source, batches in sources:
+                args = batches[0]
+                one = _fold_err(torch, fold_in_cuda(*args, mu, hp, key, 1,
+                                                    n_f),
+                                fold_in_steps(*args, mu, hp, key, 1, n_f))
+                got = fold_in_cuda(*args, mu, hp, key, n_steps, n_f)
+                want = fold_in_steps(*args, mu, hp, key, n_steps, n_f)
+                err = _fold_err(torch, got, want)
+                fault = _fold_err(torch, got, _shifted_plain(
+                    args, mu, hp, key, n_steps, n_f))
+                empty = args[4] == 0
+                tag = f"{label} {_dtype_name(dtype)} {source}"
+                require(one <= FOLD_ONE_ATOL, f"foldin {tag}: one iteration "
+                        f"differs from the plain version by {one:.3e}")
+                require(err <= FOLD_RTOL, f"foldin {tag}: {n_steps} "
+                        f"iterations differ from the plain version by "
+                        f"{err:.3e} of max(1, |entry|)")
+                require(fault > FOLD_RTOL, f"foldin {tag}: the check does "
+                        f"not reject a counter shifted by one ({fault:.3e})")
+                require(torch.equal(got[empty], args[0][empty])
+                        and bool(torch.isfinite(got).all()),
+                        f"foldin {tag}: empty slots moved or rows not finite")
+                run = (lambda *a, n=n_steps, f=n_f:
+                       fold_in_cuda(*a, mu, hp, key, n, f))
+                ms = time_ms(run, batches, reps=40, hold=True)
+                plain_ms = time_ms(lambda *a, n=n_steps, f=n_f: fold_in_steps(
+                    *a, mu, hp, key, n, f), batches[:1], reps=2, warm=1)
+                T_u, table, index, vals, lens = args
+                floor_ms = time_ms(run, [(T_u, table[:1].contiguous(),
+                                          torch.zeros_like(index), vals,
+                                          lens)], reps=40, hold=True)
+                elem = table.element_size()
+                distinct = statistics.mean(
+                    _sampled_rows(torch, key, b[2], b[4], n_steps)
+                    for b in batches)
+                W = T_u.shape[1]
+                n_bytes = (2 * B * W * 4 + 2 * B * D * 4 + B * 4
+                           + distinct * (n_f + 1) * elem)
+                n_ops = 6 * (n_f + 1) * n_steps * int((lens > 0).sum())
+                bound_ms, bound_by = _bound(n_bytes, n_ops)
+                case = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "floor_ms": floor_ms, "one_err": one, "err": err,
+                        "fault_err": fault, "items": n_items, "F": n_f, "B": B, "Dp": D,
+                        "n_steps": n_steps}
+                cases[tag] = case
+                log(f"[foldin] {tag} ({n_items} items, F={n_f}, B={B}, Dp="
+                    f"{D}, {n_steps} iterations): {ms:.4f} ms (the stream "
+                    f"held, {len(batches)} sets), {ms * 1e3 / n_steps:.3f} "
+                    f"us an iteration; the chain floor (every slot sampling "
+                    f"one cached row) {floor_ms:.4f} ms; plain {plain_ms:.3f}"
+                    f" ms; bound {bound_ms:.4f} ms ({bound_by}: "
+                    f"{n_bytes / 1e6:.2f} MB, {distinct:.0f} distinct rows "
+                    f"sampled); one iteration within {one:.3e}, the whole "
+                    f"fold-in within {err:.3e} of max(1, |entry|), the "
+                    f"shifted counter off by {fault:.3e} (rejected); {card}")
+                if entry is None:
+                    entry = _entry(
+                        "foldin", _tpu_kernel_site(
+                            "serve/engine.py", "    def _foldin_program"),
+                        float((got - want).abs().max()), ms, plain_ms,
+                        n_bytes, n_ops, None,
+                        {"items": n_items, "F": n_f, "W": W, "B": B,
+                         "Dp": D, "n_steps": n_steps, "dtype": "float32",
+                         "source": source}, semantics="_foldin_program")
+                    entry["floor_ms"] = floor_ms
+            del sets, sources
+        torch.cuda.empty_cache()
+    entry["cases"] = cases
+    return [entry]
+
+
 # -- phase 5: train, predict and probe through the entry points -------------
 
 def _planted(seed: int, workdir: Path):
@@ -1036,6 +1226,30 @@ def _union_us(spans) -> float:
     return busy_us
 
 
+def _launch_counts():
+    """(K1's launches, K0c's launches) so far in this process: the probe
+    ``_WaveInput`` reads as each wave starts and ends."""
+    from cu2rec_torch.ops import cuda_foldin, cuda_linalg
+
+    return cuda_linalg.LAUNCHES, cuda_foldin.LAUNCHES
+
+
+def _wave_launches(inp, label: str):
+    """(K1, K0c) launches by serving wave (recommend, explicit fold-in,
+    implicit fold-in) from ``_launch_counts`` probes: K1 by the implicit
+    fold-ins only, K0c by the explicit fold-ins only."""
+    k1, k0c = ([b[i] - a[i] for a, b in inp.counts[:3]] for i in (0, 1))
+    require(k1[2] > 0, f"{label}: ridge_cholesky was not launched by the "
+            "implicit fold-ins")
+    require(k1[0] == k1[1] == 0, f"{label}: ridge_cholesky launched outside "
+            "the implicit fold-ins")
+    require(k0c[1] > 0, f"{label}: foldin was not launched by the explicit "
+            "fold-ins")
+    require(k0c[0] == k0c[2] == 0, f"{label}: foldin launched outside the "
+            "explicit fold-ins")
+    return k1, k0c
+
+
 def _device_breakdown(torch, prof, top: int = 6, outside: str | None = None):
     """(device busy seconds, [(kernel, ms, calls)] by device time) from one
     wave's profile: the union of the CUDA kernel intervals.  With
@@ -1167,7 +1381,7 @@ def _wave_times(waves, inp, out):
 
 def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
     from cu2rec_torch.cli.serve import main as serve_main
-    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.ops import cuda_foldin, cuda_linalg
 
     rng = np.random.default_rng(seed + 1)
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
@@ -1178,12 +1392,12 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
             f"{N_RATINGS} train ratings ({time.perf_counter() - t0:.1f} s)")
         rec_users, waves = _requests(rng)
         out = _ResponseOutput()
-        inp = _WaveInput(waves, out, lambda: cuda_linalg.LAUNCHES,
+        inp = _WaveInput(waves, out, _launch_counts,
                          lambda: _new_profile(torch),
                          lambda prof: _has_device_time(torch, prof))
         saved = sys.stdin, sys.stdout
         sys.stdin, sys.stdout = inp, out
-        cuda_linalg.LAUNCHES = 0
+        cuda_linalg.LAUNCHES = cuda_foldin.LAUNCHES = 0
         t0 = time.perf_counter()
         try:
             # A 20 ms batching window (default 4) so that each wave of
@@ -1194,7 +1408,8 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
                              "--warm-batch", "512", "--warm-width", "64"])
         finally:
             sys.stdin, sys.stdout = saved
-        launches = cuda_linalg.LAUNCHES
+        launches = {"ridge_cholesky": cuda_linalg.LAUNCHES,
+                    "foldin": cuda_foldin.LAUNCHES}
         wall = time.perf_counter() - t0
     require(rc == 0, f"serve exited with {rc}")
 
@@ -1208,11 +1423,7 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
     stats = out.resp["stats"]
     require(stats["device"].startswith("cuda"),
             f"the engine's tables are on {stats['device']}")
-    per_wave = [b - a for a, b in inp.counts]
-    require(per_wave[2] > 0, "ridge_cholesky was not launched by the "
-            "implicit fold-ins")
-    require(per_wave[0] == per_wave[1] == 0,
-            "ridge_cholesky launched outside the implicit fold-ins")
+    per_wave, k0c_wave = _wave_launches(inp, "serve")
 
     Q = tables["q"].astype(np.float64)
     ib = tables["item_bias"].astype(np.float64)
@@ -1258,9 +1469,10 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
         f"{float(np.median(lat)) * 1e3:.1f} ms; {rps:.1f} requests/s "
         f"(serving waves only, no profiler; {wall:.1f} s with model load "
         f"and the profiled replays) on {card}")
-    log(f"[serve] ridge_cholesky launches: {launches} in the run "
-        f"(warm-up ladder and replays included), per wave {per_wave[:3]} "
-        f"(recommend, explicit, implicit); stats: {json.dumps(stats)}")
+    log(f"[serve] launches in the run (warm-up ladder and replays "
+        f"included): {launches}; by wave (recommend, explicit, implicit) "
+        f"ridge_cholesky {per_wave}, foldin {k0c_wave}; stats: "
+        f"{json.dumps(stats)}")
     for what, (prof, t0, attempt), wave, wave_s in zip(
             ("recommend", "explicit fold-in", "implicit fold-in"),
             inp.profiles, waves, lat):
@@ -3474,6 +3686,9 @@ RESPONSE_ATOL = 1e-6
 PROBE_I, PROBE_F, PROBE_B, PROBE_K = 1_000_000, 64, 512, 10
 PROBE_ITERS, PROBE_RATINGS = 100, 32
 PROBE_SHARDS = (1, 2, 4)
+# Timed fold-in batches a shard count (after one warm-up; one more runs
+# under the profiler).
+PROBE_FOLDS = 5
 # (c) the ranks' ranking eval: the first users with a held-out list.
 SERVE_EVAL_USERS = 2048
 
@@ -3544,15 +3759,20 @@ def _same_waves(resp, ctx, label: str) -> None:
 
 def _same_explicit(ref, engine, wave, label: str) -> None:
     """The explicit fold-in wave in one batch (phase 6's 100 iterations)
-    through ``engine`` against the one-device ``ref``: the same rows within
-    1e-6 (each sampled row is one shard's bits), then the same
-    recommends."""
+    through ``engine`` against the one-device ``ref``: one K0c launch each,
+    the same rows within 1e-6 (each sampled row is one shard's bits), then
+    the same recommends."""
+    from cu2rec_torch.ops import cuda_foldin
     from cu2rec_torch.utils.config import Config
 
     cfg = Config(n_factors=F, total_iterations=100, is_train=False)
     items, vals, mask = _fold_arrays(wave)
+    n0 = cuda_foldin.LAUNCHES
     (p, ub), (p0, ub0) = (e.fold_in(items, vals, mask, cfg)
                           for e in (engine, ref))
+    require(cuda_foldin.LAUNCHES - n0 == 2, f"{label}: an explicit fold-in "
+            f"batch is not one foldin launch ({cuda_foldin.LAUNCHES - n0} "
+            "for two)")
     err = max(np.abs(p - p0).max(), np.abs(ub - ub0).max())
     require(err <= 1e-6, f"{label}: explicit fold-in rows differ by {err}")
     got, want = (e.recommend(p0, ub0, items, mask, k=10)
@@ -3566,9 +3786,9 @@ def _same_explicit(ref, engine, wave, label: str) -> None:
 def _daemon_waves(engine, ctx, label: str):
     """Phase 6's waves through a ``ServingDaemon`` over ``engine`` with
     phase 6's settings (20 ms window, the ladder warmed to 512 x 64), no
-    profiler: (responses, wave latencies, requests/s, K1 launches by
-    wave, the whole run's K1 launches, warm-up seconds)."""
-    from cu2rec_torch.ops import cuda_linalg
+    profiler: (responses, wave latencies, requests/s, K1 and K0c
+    launches by wave, the whole run's (K1, K0c) launches, warm-up
+    seconds)."""
     from cu2rec_torch.serve.daemon import ServingDaemon, run_stdio
     from cu2rec_torch.utils.config import Config
 
@@ -3577,22 +3797,17 @@ def _daemon_waves(engine, ctx, label: str):
                                                         ctx["train_items"]),
                            cfg=cfg, max_batch=512, window_ms=20.0,
                            default_k=10, completion_workers=4)
-    n0 = cuda_linalg.LAUNCHES
+    n0 = _launch_counts()
     t0 = time.perf_counter()
     daemon.warm(max_batch=512, max_width=64, ks=(10,))
     warm_s = time.perf_counter() - t0
     out = _ResponseOutput()
-    inp = _WaveInput(ctx["waves"], out, lambda: cuda_linalg.LAUNCHES, None,
-                     None)
+    inp = _WaveInput(ctx["waves"], out, _launch_counts, None, None)
     require(run_stdio(daemon, inp, out) == 0, f"{label}: the daemon failed")
-    per_wave = [b - a for a, b in inp.counts]
-    require(per_wave[2] > 0, f"{label}: ridge_cholesky was not launched by "
-            "the implicit fold-ins")
-    require(per_wave[0] == per_wave[1] == 0, f"{label}: ridge_cholesky "
-            "launched outside the implicit fold-ins")
+    per_wave = _wave_launches(inp, label)
     lat, rps = _wave_times(ctx["waves"], inp, out)
-    return (out.resp, lat, rps, per_wave[:3], cuda_linalg.LAUNCHES - n0,
-            warm_s)
+    run = tuple(b - a for a, b in zip(n0, _launch_counts()))
+    return out.resp, lat, rps, per_wave, run, warm_s
 
 
 def _headline_shards(torch, ctx, card: str) -> int:
@@ -3612,7 +3827,7 @@ def _headline_shards(torch, ctx, card: str) -> int:
         engine = ShardedServingEngine(model, devices=["cuda:0"] * n)
         resp, lat, rps, per_wave, launches, warm_s = _daemon_waves(
             engine, ctx, f"{n} shards")
-        k1 += launches
+        k1 += launches[0]
         _same_waves(resp, ctx, f"{n} shards")
         _same_explicit(ref, engine, ctx["waves"][1], f"{n} shards")
         rows, _ = engine.fold_in_implicit(items, vals, mask, 40.0, 0.1)
@@ -3625,7 +3840,8 @@ def _headline_shards(torch, ctx, card: str) -> int:
             f"a wave, {rps:.1f} requests/s (phase 6, one shard: "
             f"{lat6[0] * 1e3:.1f} / {lat6[1] * 1e3:.1f} / "
             f"{lat6[2] * 1e3:.1f} ms, {ctx['rps']:.1f} requests/s); warm-up "
-            f"{warm_s:.1f} s; ridge_cholesky {per_wave} by wave, {launches} "
+            f"{warm_s:.1f} s; ridge_cholesky {per_wave[0]}, foldin "
+            f"{per_wave[1]} by wave, {launches} (ridge_cholesky, foldin) "
             f"in the run; the recommends within rtol {SHARD_SCORE_RTOL:g} "
             f"and the implicit fold-ins within {RTOL:g} of phase 6's, the "
             f"explicit wave's rows within 1e-6 of one device's in one "
@@ -3639,9 +3855,11 @@ def _headline_shards(torch, ctx, card: str) -> int:
 def _probe_shards(torch, seed: int, card: str) -> None:
     """Phase 11 (b): the TPU package's serving probe shape over
     PROBE_SHARDS item shards on the card: recommend users/s
-    (``bench_qps``) and a fold-in batch's time, 32 users' top-10 against a
-    float64 reference."""
+    (``bench_qps``), a fold-in batch's time (the median of PROBE_FOLDS, one
+    K0c launch each) and its device time under the profiler, 32 users'
+    top-10 against a float64 reference."""
     from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops import cuda_foldin
     from cu2rec_torch.serve.engine import ShardedServingEngine
     from cu2rec_torch.utils.config import Config
 
@@ -3696,9 +3914,31 @@ def _probe_shards(torch, seed: int, card: str) -> None:
         busy_s, kernels = _device_breakdown(torch, prof, top=4)
         eng.fold_in(f_items, f_vals, f_mask, cfg)          # warm-up
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.fold_in(f_items, f_vals, f_mask, cfg)
-        fold_s = time.perf_counter() - t0
+        fold_times = []
+        n0 = cuda_foldin.LAUNCHES
+        for _ in range(PROBE_FOLDS):
+            t0 = time.perf_counter()
+            eng.fold_in(f_items, f_vals, f_mask, cfg)
+            fold_times.append(time.perf_counter() - t0)
+        launched = cuda_foldin.LAUNCHES - n0
+        require(launched == PROBE_FOLDS, f"probe, {n} shards: {launched} "
+                f"foldin launches for {PROBE_FOLDS} fold-in batches")
+        fold_s = statistics.median(fold_times)
+        fprof, fold_host_s = _profiled(
+            torch, lambda: eng.fold_in(f_items, f_vals, f_mask, cfg),
+            lambda: _new_profile(torch))
+        fold_busy_s, fold_top = _device_breakdown(torch, fprof, top=4)
+        log(f"[shard-serve] probe shape, {n} item shard(s): fold-in batch "
+            f"of {PROBE_B} x {PROBE_RATINGS} ratings, {PROBE_ITERS} "
+            f"iterations, by the host clock to the rows on the host: median "
+            f"{fold_s * 1e3:.3f} ms of {PROBE_FOLDS} "
+            f"({min(fold_times) * 1e3:.3f}-{max(fold_times) * 1e3:.3f}); "
+            f"one foldin launch a batch; "
+            f"under the profiler: device busy {fold_busy_s * 1e3:.3f} ms of "
+            f"{fold_host_s * 1e3:.3f} ms ({fold_busy_s / fold_host_s:.1%}), "
+            "top kernels: " + "; ".join(
+                f"{k[:48]} {ms:.3f} ms x{c}" for k, ms, c in fold_top)
+            + f"; {card}")
         log(f"[shard-serve] probe shape ({PROBE_I} items, F={PROBE_F}, "
             f"batch {PROBE_B}, k={PROBE_K}) over {n} item shard(s) on one "
             f"card: recommend {qps:.1f} users/s (20 batches, host clock "
@@ -3739,12 +3979,13 @@ def _serve_rank_job(seed: int, test_args):
     """A rank of an item-sharded grid (1 x world) on the card: the
     rank-mode engine over phase 6's catalog (the recommend wave, the
     implicit and explicit fold-in waves, each run once and then timed to a
-    synchronize) and ``sharded_ranking_eval``; K1's launches on the rank."""
+    synchronize) and ``sharded_ranking_eval``; K1's and K0c's launches on
+    the rank."""
     import torch
 
     from cu2rec_torch.data.csr import CSRRatings
     from cu2rec_torch.models.state import model_from_numpy
-    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.ops import cuda_foldin, cuda_linalg
     from cu2rec_torch.parallel.distributed import barrier
     from cu2rec_torch.parallel.serving import sharded_ranking_eval
     from cu2rec_torch.parallel.sharded import make_mesh
@@ -3766,7 +4007,7 @@ def _serve_rank_job(seed: int, test_args):
                                                  40.0, 0.1)[0],
     }
     out, ms = {}, {}
-    n0 = cuda_linalg.LAUNCHES
+    n0, f0 = cuda_linalg.LAUNCHES, cuda_foldin.LAUNCHES
     for name, op in ops.items():
         op()
         barrier()
@@ -3774,6 +4015,7 @@ def _serve_rank_job(seed: int, test_args):
         out[name] = op()
         ms[name] = (time.perf_counter() - t0) * 1e3
     out["k1"] = cuda_linalg.LAUNCHES - n0
+    out["k0c"] = cuda_foldin.LAUNCHES - f0
     out["eval"] = sharded_ranking_eval(mesh, model, csr,
                                        CSRRatings(*test_args), k=10,
                                        max_users=SERVE_EVAL_USERS)
@@ -3787,7 +4029,8 @@ def _rank_shards(torch, seed: int, ctx, card: str, world: int = 2,
     card, or NCCL ranks a card each), against the one-process shards: the
     ranks bit-equal, the recommends and fold-ins within phase 11 (a)'s
     tolerances, ``sharded_ranking_eval`` equal to ``ranking_eval`` within
-    1e-6.  Returns K1's launches on the ranks."""
+    1e-6, each explicit fold-in one K0c launch a rank.  Returns (K1's
+    launches on the ranks, K0c's)."""
     from cu2rec_torch.models.state import model_from_numpy
     from cu2rec_torch.parallel.distributed import launch
     from cu2rec_torch.serve.engine import ShardedServingEngine
@@ -3836,6 +4079,9 @@ def _rank_shards(torch, seed: int, ctx, card: str, world: int = 2,
                 f"{backend} ranks: sharded {m} {r0['eval'][m]} against "
                 f"ranking_eval's {want[m]}")
     require(all(r["k1"] > 0 for r in ranks), "a rank launched no K1")
+    require(all(r["k0c"] == 2 for r in ranks), "a rank's two explicit "
+            "fold-ins were not two foldin launches: "
+            f"{[r['k0c'] for r in ranks]}")
     times = {k: max(r["ms"][k] for r in ranks) for k in ranks[0]["ms"]}
     what = ("gloo stages each CUDA all_reduce through the host: a check, "
             "not a timing of the card" if backend == "gloo"
@@ -3847,8 +4093,9 @@ def _rank_shards(torch, seed: int, ctx, card: str, world: int = 2,
         f"host clock ({what}); {wall:.1f} s with the ranks' start; "
         f"recall@10 {r0['eval']['recall']:.6f}, NDCG@10 "
         f"{r0['eval']['ndcg']:.6f} = ranking_eval's; K1 "
-        f"{[r['k1'] for r in ranks]} by rank; {card}")
-    return sum(r["k1"] for r in ranks)
+        f"{[r['k1'] for r in ranks]}, foldin {[r['k0c'] for r in ranks]} by "
+        f"rank; {card}")
+    return sum(r["k1"] for r in ranks), sum(r["k0c"] for r in ranks)
 
 
 def _serve_cli_shards(torch) -> None:
@@ -3872,16 +4119,22 @@ def _serve_cli_shards(torch) -> None:
                            f"of {n} card(s)")
 
 
-def phase_shard_serve(torch, seed: int, ctx, card: str) -> int:
-    """Phase 11: sharded serving on one card.  Returns K1's launches."""
+def phase_shard_serve(torch, seed: int, ctx, card: str) -> dict:
+    """Phase 11: sharded serving on one card.  Returns K1's and K0c's
+    launches."""
+    from cu2rec_torch.ops import cuda_foldin
+
     t0 = time.perf_counter()
+    cuda_foldin.LAUNCHES = 0
     k1 = _headline_shards(torch, ctx, card)
     _probe_shards(torch, seed, card)
-    k1 += _rank_shards(torch, seed, ctx, card)
+    k0c = cuda_foldin.LAUNCHES
+    ranks = _rank_shards(torch, seed, ctx, card)
     _serve_cli_shards(torch)
-    log(f"[shard-serve] ridge_cholesky launches {k1}; the phase took "
+    launches = {"ridge_cholesky": k1 + ranks[0], "foldin": k0c + ranks[1]}
+    log(f"[shard-serve] launches {launches}; the phase took "
         f"{time.perf_counter() - t0:.1f} s")
-    return k1
+    return launches
 
 
 def _serve_cli_waves(data, seed: int, n: int | None, card: str):
@@ -3889,12 +4142,11 @@ def _serve_cli_waves(data, seed: int, n: int | None, card: str):
     cuda`` (n None: no ``--devices``, an item shard on every card) over
     ``_make_data``'s files, no profiler: the context of ``_same_waves``."""
     from cu2rec_torch.cli.serve import main as serve_main
-    from cu2rec_torch.ops import cuda_linalg
 
     tables, ckpt, train, indptr, train_items = data
     _, waves = _requests(np.random.default_rng(seed + 1))
     out = _ResponseOutput()
-    inp = _WaveInput(waves, out, lambda: cuda_linalg.LAUNCHES, None, None)
+    inp = _WaveInput(waves, out, _launch_counts, None, None)
     saved = sys.stdin, sys.stdout
     sys.stdin, sys.stdout = inp, out
     t0 = time.perf_counter()
@@ -3983,6 +4235,7 @@ def main(argv=None) -> int:
     kernels = phase_kernels(torch, dev)
     kernels += phase_train_kernels(torch, dev, args.seed)
     kernels += phase_variant_kernels(torch, dev, args.seed)
+    kernels += phase_foldin_kernel(torch, dev, args.seed, smi)
     by_name = {k["name"]: k for k in kernels}
     for k in kernels:
         k["registers"] = registers[Path(k["source"]).stem]
@@ -4014,7 +4267,8 @@ def main(argv=None) -> int:
     by_name["sgd_step"]["pipeline"] = pipeline
     by_name["eval_error"]["launches"] = trained["eval_error"] + \
         families["eval_error"] + piped["eval_error"]
-    by_name["ridge_cholesky"]["launches"] = served + predicted["implicit"] \
+    by_name["ridge_cholesky"]["launches"] = served["ridge_cholesky"] \
+        + predicted["implicit"] \
         + families["ridge_cholesky"]
     by_name["ridge_cholesky"]["families"] = measured
     for key, n in variants.items():
@@ -4023,7 +4277,8 @@ def main(argv=None) -> int:
     by_name["eval_error/bfloat16"]["launches"] = \
         variants["eval_error/bfloat16"]
     by_name["ridge_cholesky"]["launches"] += variants["ridge_cholesky"] \
-        + shard_k1 + shard_served
+        + shard_k1 + shard_served["ridge_cholesky"]
+    by_name["foldin"]["launches"] = served["foldin"] + shard_served["foldin"]
     by_name["sgd_step"]["variants"] = extras
     by_name["row_gather"]["launches"] = probed["row_gather"]
     by_name["smem_gather"]["launches"] = probed["smem_gather"]

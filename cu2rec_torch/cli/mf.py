@@ -101,8 +101,7 @@ def _launch_ranks(args, argv) -> int:
         raise RuntimeError(
             f"--devices {n} trains on {n} CUDA devices, one a rank, and "
             f"this host has {torch.cuda.device_count()}")
-    launch(_rank_main, n, "gloo" if device.type == "cpu" else "nccl",
-           device.type, args=(argv,))
+    launch(_rank_main, n, device=device, args=(argv,))
     return 0
 
 

@@ -1,10 +1,14 @@
-"""What the probes (and ``chip_smoke.py``) share: CUDA-event timing and
-the JSON record stream."""
+"""What the probes (and ``chip_smoke.py``) share: CUDA-event timing, the
+JSON record stream, and the A B B A turns of two checkouts on one card."""
 
 from __future__ import annotations
 
 import json
+import statistics
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -68,3 +72,48 @@ class Records:
             with open(self.out, "a") as fh:
                 for r in self.records:
                     fh.write(json.dumps(r) + "\n")
+
+
+def checkout_run(root: Path, code: str, *argv: str,
+                 timeout: float = 900) -> dict:
+    """``python -c code argv...`` from the root of a checkout, so that it
+    imports that checkout's ``cu2rec_torch`` and builds its kernels; the
+    JSON object its last line of standard output holds."""
+    proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=root,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise SystemExit(f"the run in {root} failed (rc {proc.returncode}):"
+                         f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def abba(a: Path, b: Path, run) -> list[dict]:
+    """``run(root)`` in checkout a, then b, b and a, each record printed as
+    it comes and labelled with its checkout ("a" or "b")."""
+    runs = []
+    for label, root in (("a", a), ("b", b), ("b", b), ("a", a)):
+        rec = {"checkout": label, "root": str(root.resolve()),
+               **run(root.resolve())}
+        print(json.dumps(rec), flush=True)
+        runs.append(rec)
+    return runs
+
+
+def _median(values: list):
+    """The median of numbers; of dicts or lists of them, entry by entry."""
+    if isinstance(values[0], dict):
+        return {k: _median([v[k] for v in values]) for k in values[0]}
+    if isinstance(values[0], list):
+        return [_median(list(col)) for col in zip(*values)]
+    return statistics.median(values)
+
+
+def medians(runs: list[dict], keys) -> dict:
+    """Each checkout's median of each record key in ``keys`` that its runs
+    hold, over its runs (``abba``'s records)."""
+    out = {}
+    for label in ("a", "b"):
+        mine = [r for r in runs if r["checkout"] == label]
+        out[label] = {key: _median([r[key] for r in mine])
+                      for key in keys if key in mine[0]}
+    return out

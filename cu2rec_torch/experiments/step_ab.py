@@ -33,10 +33,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
-import sys
 from pathlib import Path
+
+from cu2rec_torch.experiments.common import abba, checkout_run, medians
 
 # What each run executes, from the root of its checkout.
 RUN = r"""
@@ -155,12 +154,7 @@ TIMED = ("first_wins", "twin", "float32/mean", "float32/sum",
 
 
 def _run(root: Path, reps: int) -> dict:
-    proc = subprocess.run([sys.executable, "-c", RUN, str(reps)], cwd=root,
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise SystemExit(f"step_ab: the run in {root} failed "
-                         f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    return checkout_run(root, RUN, str(reps))
 
 
 def main(argv=None) -> int:
@@ -170,20 +164,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
-    runs = []
-    for label, root in (("a", args.a), ("b", args.b), ("b", args.b),
-                        ("a", args.a)):
-        rec = {"checkout": label, "root": str(root.resolve()),
-               **_run(root.resolve(), args.reps)}
-        print(json.dumps(rec), flush=True)
-        runs.append(rec)
-    summary = {}
-    for label in ("a", "b"):
-        mine = [r for r in runs if r["checkout"] == label]
-        summary[label] = {
-            what: {key: statistics.median(r[what][key] for r in mine)
-                   for key in mine[0][what]}
-            for what in TIMED if what in mine[0]}
+    runs = abba(args.a, args.b, lambda root: _run(root, args.reps))
+    summary = medians(runs, TIMED)
     digests = {label: [r.get("digests", {}) for r in runs
                        if r["checkout"] == label] for label in ("a", "b")}
     same_bits = {name: all(d.get(name) == digest

@@ -40,6 +40,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from cu2rec_torch.utils.device import resolve_device
+
 BACKENDS = ("gloo", "nccl")
 # Seconds ``launch`` waits for its ranks before it stops them, when the
 # caller gives no limit (None: as long as they run).
@@ -183,7 +185,7 @@ def _stop(procs) -> None:
             p.join()
 
 
-def launch(fn, world: int, backend: str = "gloo", device="cpu",
+def launch(fn, world: int, backend: str | None = None, device=None,
            args: tuple = (), kwargs: dict | None = None,
            timeout: float | None = None) -> list:
     """Run ``fn(*args, **kwargs)`` in ``world`` new processes (the ``spawn`` start
@@ -191,24 +193,26 @@ def launch(fn, world: int, backend: str = "gloo", device="cpu",
     rendezvous; returns each rank's result, rank by rank (each must
     pickle).
 
-    ``device`` "cpu" puts every rank on the CPU; "cuda" gives rank r the
-    card ``cuda:(r % device_count)`` under NCCL, which then needs ``world``
-    cards, and ``cuda:0`` to every rank under gloo.  On the card the
-    kernels are built here first, so that the ranks never build into the
-    shared build directory at once.  If a rank fails, or the ranks
-    outlast ``timeout`` seconds (default ``LAUNCH_TIMEOUT``), the others
-    are stopped and ``launch`` raises with the failed rank's
+    ``device`` resolves as the port's entry points resolve it
+    (``utils/device.py::resolve_device``): None or "cuda" runs the ranks
+    on the card and raises where there is none; "cpu" puts every rank on
+    the CPU.  ``backend`` None takes NCCL on the card and gloo on the CPU.
+    On the card NCCL gives rank r the card ``cuda:(r % device_count)``,
+    and then needs ``world`` cards; gloo gives every rank ``cuda:0``.  On
+    the card the kernels are built here first, so that the ranks never
+    build into the shared build directory at once.  If a rank fails, or
+    the ranks outlast ``timeout`` seconds (default ``LAUNCH_TIMEOUT``),
+    the others are stopped and ``launch`` raises with the failed rank's
     traceback."""
     import multiprocessing as mp
 
-    device_type = torch.device(device).type
+    device_type = resolve_device(device).type
+    if backend is None:
+        backend = "nccl" if device_type == "cuda" else "gloo"
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     if device_type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run the ranks on the CPU")
         n_cards = torch.cuda.device_count()
         if backend == "nccl" and n_cards < world:
             raise RuntimeError(

@@ -16,9 +16,11 @@ same methods, padding and results:
   * ``fold_in`` learns (p_row, user_bias) for a batch of new users against
     the frozen catalog (is_train=false semantics, sgd.cu:61,70): per
     iteration each user samples one of its ratings from the counter-based
-    stream keyed by batch slot, each shard writes the rows of the sampled
-    items it owns (zero elsewhere), their sum completes them, and only the
-    user rows update;
+    stream keyed by batch slot, and only the user rows update
+    (``fold_in_steps``; on the card all iterations are one launch of
+    kernel K0c, ops/cuda_foldin.py).  Over several shards the rows of
+    every rated item are assembled once a fold-in, each shard writing the
+    rows it owns (zero elsewhere) and their sum completing them;
   * ``fold_in_implicit`` solves the iALS normal equations for a batch of
     new users exactly: the Gramian is the shards' YᵀY summed, the rated
     rows are assembled as in ``fold_in``, and kernel K1 solves
@@ -145,6 +147,44 @@ def assemble_topk(vals, ids, axis, index: int, k: int):
     buf[1, :, index * k:(index + 1) * k] = ids.to(torch.int32)
     axis.assemble_(buf)
     return merge_topk(buf[0].view(torch.float32), buf[1].to(torch.int64), k)
+
+
+def fold_in_steps(T_u, table, index, vals, lens, mu: float, hp: Hyper,
+                  key, n_steps: int, F: int) -> torch.Tensor:
+    """``n_steps`` fold-in SGD iterations of the packed (Bp, W) float32
+    user rows ``T_u`` against a frozen row table: the plain version of
+    kernel K0c (``ops/cuda_foldin.py``), the body of the TPU package's
+    ``ShardedServingEngine._foldin_program`` loop.
+
+    ``table`` (R, W) float32 or bf16, its rows read as float32; ``index``
+    (Bp, Dp) integer, slot b's position d naming the row
+    ``table[index[b, d]]``; ``vals`` (Bp, Dp) float32 ratings; ``lens``
+    (Bp,) the valid positions of each slot, front-packed.  At iteration t
+    slot b draws position ``min(⌊u·len⌋, len − 1)``, u =
+    ``counter_uniform(key, t, b)``, and takes one SGD step of its row
+    towards the sampled row (the item side frozen); a slot with ``len`` 0
+    is left unchanged.  Returns new rows; ``T_u`` is not changed."""
+    W = T_u.shape[1]
+    device = T_u.device
+    index = index.to(torch.int64)
+    lens = lens.to(torch.int64)
+    factor, biascol, reg_u, _ = _reg_vectors(hp, F, W, device)
+    has = lens > 0
+    last = (lens - 1).clamp(min=0)
+    slots = torch.arange(T_u.shape[0], device=device)
+    lr = hp.learning_rate
+    for t in range(n_steps):
+        u01 = counter_uniform(key, t, slots)
+        idx = torch.minimum((u01 * lens).to(torch.int64), last)
+        it_b = torch.gather(index, 1, idx[:, None])[:, 0]
+        rat_b = torch.gather(vals, 1, idx[:, None])[:, 0]
+        row_i = table[it_b].to(torch.float32)
+        ihat = row_i * factor + biascol
+        pred = mu + torch.sum(T_u * ihat, dim=-1) + row_i[:, F]
+        err = torch.where(has, rat_b - pred, 0.0)
+        du = lr * (err[:, None] * ihat - reg_u * T_u)
+        T_u = torch.where(has[:, None], T_u + du, T_u)
+    return T_u
 
 
 class ShardedServingEngine:
@@ -342,28 +382,26 @@ class ShardedServingEngine:
     def _fold_in(self, T_u, items, vals, lens, hp: Hyper, key,
                  n_steps: int):
         """``n_steps`` fold-in SGD iterations of the packed (Bp, W) user
-        rows ``T_u`` against the frozen catalog."""
-        F, W = self.F, self.W
-        items = self._to_dev(items, torch.int64)
-        vals = self._to_dev(vals)
-        lens = self._to_dev(lens, torch.int64)
-        factor, biascol, reg_u, _ = _reg_vectors(hp, F, W, self.device)
-        has = lens > 0
-        last = (lens - 1).clamp(min=0)
-        slots = torch.arange(T_u.shape[0], device=self.device)
-        lr = hp.learning_rate
-        for t in range(n_steps):
-            u01 = counter_uniform(key, t, slots)
-            idx = torch.minimum((u01 * lens).to(torch.int64), last)
-            it_b = torch.gather(items, 1, idx[:, None])[:, 0]
-            rat_b = torch.gather(vals, 1, idx[:, None])[:, 0]
-            row_i = self._rows(it_b)
-            ihat = row_i * factor + biascol
-            pred = self.mu + torch.sum(T_u * ihat, dim=-1) + row_i[:, F]
-            err = torch.where(has, rat_b - pred, 0.0)
-            du = lr * (err[:, None] * ihat - reg_u * T_u)
-            T_u = torch.where(has[:, None], T_u + du, T_u)
-        return T_u
+        rows ``T_u`` against the frozen catalog: ``fold_in_steps`` on the
+        CPU, kernel K0c (one launch) on the card.  One shard samples its
+        block by item id; over several, the rows of every rated item are
+        assembled once (``_rows``: one sum over the shards, or one
+        all_reduce over ``ip``) and the fold-in samples that (Bp·Dp, W)
+        table by position."""
+        from cu2rec_torch.ops.cuda_foldin import fold_in_cuda
+
+        Bp, Dp = np.shape(items)
+        items = self._to_dev(items, torch.int32)
+        if self.n_ip == 1:
+            table, index = self.T_i, items
+        else:
+            table = self._rows(items).reshape(Bp * Dp, self.W)
+            index = torch.arange(Bp * Dp, dtype=torch.int32,
+                                 device=self.device).reshape(Bp, Dp)
+        run = fold_in_cuda if T_u.device.type == "cuda" else fold_in_steps
+        return run(T_u, table, index, self._to_dev(vals),
+                   self._to_dev(lens, torch.int32), self.mu, hp, key,
+                   n_steps, self.F)
 
     def fold_in(self, rated_items, ratings, mask, cfg: Config | None = None,
                 key=None, init_rows=None):
@@ -397,6 +435,13 @@ class ShardedServingEngine:
                                      order, axis=1)
         ratings_c = np.take_along_axis(_host(ratings).astype(np.float32),
                                        order, axis=1)
+        # K0c reads the catalog at these ids unchecked: hold them here, on
+        # the host, before any launch.
+        live = rated_c[np.take_along_axis(m, order, axis=1)]
+        if live.size and (live.min() < 0 or live.max() >= self.n_items):
+            raise ValueError(f"fold-in item ids must lie in [0, "
+                             f"{self.n_items}); got {live.min()}.."
+                             f"{live.max()}")
         items = np.zeros((Bp, Dp), np.int32)
         vals = np.zeros((Bp, Dp), np.float32)
         lens = np.zeros(Bp, np.int32)

@@ -15,6 +15,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from cu2rec_torch.data.csr import CSRRatings
 from cu2rec_torch.parallel.distributed import launch
@@ -277,3 +278,15 @@ def test_a_failed_rank_makes_launch_raise():
     assert "rank one gives up" in str(err.value)
     with pytest.raises(ValueError, match="NCCL takes CUDA devices"):
         launch(_fail_on_rank_one, 2, "nccl", "cpu")
+
+
+def test_launch_runs_on_the_card_by_default():
+    """``launch(fn, world)`` with no device resolves as the port's entry
+    points do: on the card, and where there is none it raises the no-card
+    error before any rank starts; ``device="cpu"`` takes gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        launch(_fail_on_rank_one, 2)
+    with pytest.raises(RuntimeError, match="rank 1 failed"):
+        launch(_fail_on_rank_one, 2, device="cpu", timeout=RANK_TIMEOUT)

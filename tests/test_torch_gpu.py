@@ -1403,3 +1403,105 @@ def test_rank_mode_engine_on_gloo_ranks_sharing_the_card(cuda_device):
     ov, oi = one.recommend_known(list(range(16)), csr, k=10)
     np.testing.assert_allclose(v0, ov, rtol=1e-5)
     assert np.mean(i0 == oi) > 0.95
+
+
+# -- K0c, the explicit serving fold-in ----------------------------------------
+
+def _foldin_inputs(device, F, dtype, Bp, Dp, n_rows, seed, source):
+    """(T_u, table, index, vals, lens) on ``device``: a catalog of
+    ``n_rows`` packed rows in ``dtype``, sampled directly by item id
+    ("direct") or through the (Bp·Dp, W) float32 rows assembled from it
+    ("assembled"); lens holey (zeros between full and partial slots)."""
+    from cu2rec_torch.ops.packed import packed_width
+
+    W = packed_width(F)
+    rng = np.random.default_rng(seed)
+    T_i = np.zeros((n_rows, W), np.float32)
+    T_i[:, :F + 1] = rng.normal(0, 0.1, (n_rows, F + 1))
+    T_u = np.zeros((Bp, W), np.float32)
+    T_u[:, :F + 1] = rng.normal(0, 0.1, (Bp, F + 1))
+    items = rng.integers(0, n_rows, (Bp, Dp)).astype(np.int32)
+    vals = (rng.integers(1, 11, (Bp, Dp)) / 2).astype(np.float32)
+    lens = rng.integers(0, Dp + 1, Bp).astype(np.int32)
+    lens[::3] = 0
+    lens[1] = Dp
+    table = torch.from_numpy(T_i).to(device, dtype)
+    index = torch.from_numpy(items).to(device)
+    if source == "assembled":
+        table = table[index.reshape(-1).long()].to(torch.float32)
+        index = torch.arange(Bp * Dp, dtype=torch.int32,
+                             device=device).reshape(Bp, Dp)
+    return (torch.from_numpy(T_u).to(device), table.contiguous(), index,
+            torch.from_numpy(vals).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", ["direct", "assembled"])
+@pytest.mark.parametrize("Dp,n_steps", [(1, 7), (32, 1), (32, 100)])
+def test_foldin_kernel_matches_plain(cuda_device, F, dtype, source, Dp,
+                                     n_steps):
+    """K0c against ``fold_in_steps`` on the same inputs: rows within
+    1e-5 of max(1, |entry|) (the kernel contracts multiply-adds and sums
+    the dot in another order), slots with no ratings bit for bit."""
+    from cu2rec_torch.ops import cuda_foldin
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+    from cu2rec_torch.serve.engine import fold_in_steps
+
+    hp = Hyper(0.05, 0.02, 0.02, 0.03, 0.02)
+    args = _foldin_inputs(cuda_device, F, dtype, 37, Dp, 5000, F + Dp,
+                          source)
+    n0 = cuda_foldin.LAUNCHES
+    got = cuda_foldin.fold_in_cuda(*args, 3.5, hp, prng_key(42), n_steps, F)
+    torch.cuda.synchronize()
+    assert cuda_foldin.LAUNCHES == n0 + 1
+    want = fold_in_steps(*args, 3.5, hp, prng_key(42), n_steps, F)
+    err = (got - want).abs() / want.abs().clamp(min=1.0)
+    assert float(err.max()) <= 1e-5
+    empty = args[4] == 0
+    assert torch.equal(got[empty], args[0][empty])
+    assert not torch.equal(got[~empty], args[0][~empty])
+
+
+@pytest.mark.gpu
+def test_foldin_kernel_rejects_what_it_cannot_take(cuda_device):
+    from cu2rec_torch.ops.cuda_foldin import fold_in_cuda
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    hp = Hyper(0.05, 0.02, 0.02, 0.02, 0.02)
+    T_u, table, index, vals, lens = _foldin_inputs(
+        cuda_device, 16, torch.float32, 8, 4, 50, 0, "direct")
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        fold_in_cuda(T_u.cpu(), table, index, vals, lens, 3.5, hp,
+                     prng_key(0), 3, 16)
+    with pytest.raises(ValueError, match="on cpu"):
+        fold_in_cuda(T_u, table.cpu(), index, vals, lens, 3.5, hp,
+                     prng_key(0), 3, 16)
+    with pytest.raises(TypeError, match="int32"):
+        fold_in_cuda(T_u, table, index.long(), vals, lens, 3.5, hp,
+                     prng_key(0), 3, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ip", [1, 2])
+def test_engine_fold_in_on_card_is_one_foldin_launch(cuda_device, n_ip):
+    """One ``fold_in`` on a CUDA engine is one K0c launch (over two shards
+    after one assembly of the rows), and matches the CPU engine."""
+    from cu2rec_torch.ops import cuda_foldin
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    model, _ = _serving_model(cuda_device)
+    cpu_model, _ = _serving_model("cpu")
+    gpu = ShardedServingEngine(model, devices=[cuda_device] * n_ip)
+    cpu = ShardedServingEngine(cpu_model, devices=["cpu"] * n_ip)
+    rated, vals, mask = _serving_inputs(3001)
+    init = (np.zeros((20, 16), np.float32) + 0.01,
+            np.zeros(20, np.float32))
+    n0 = cuda_foldin.LAUNCHES
+    gp, gb = gpu.fold_in(rated, vals, mask, init_rows=init)
+    assert cuda_foldin.LAUNCHES == n0 + 1
+    cp, cb = cpu.fold_in(rated, vals, mask, init_rows=init)
+    np.testing.assert_allclose(gp, cp, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gb, cb, rtol=0, atol=1e-4)

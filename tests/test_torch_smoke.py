@@ -311,6 +311,34 @@ def test_step_ab_runs_each_checkout_in_turn_and_takes_medians(
     assert median["b"]["eval_error"]["held_ms"] == 5.0
 
 
+def test_serve_ab_runs_each_checkout_in_turn_and_takes_medians(
+        monkeypatch, tmp_path, capsys):
+    """``experiments/serve_ab.py`` runs A B B A through the shared turns and
+    reports, per checkout, the median of each wave's latency and of the
+    requests/s over its runs."""
+    from cu2rec_torch.experiments import serve_ab
+
+    calls = []
+
+    def run(root):
+        calls.append(root.name)
+        t = float(len(calls)) ** 2
+        return {"lat_ms": [t, 2 * t, 3 * t], "rps": 10 * t, "card": "x",
+                "log": []}
+
+    monkeypatch.setattr(serve_ab, "_run", run)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    assert serve_ab.main([str(tmp_path / "a"), str(tmp_path / "b")]) == 0
+    assert calls == ["a", "b", "b", "a"]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(ln)["checkout"] for ln in lines[:4]] == \
+        ["a", "b", "b", "a"]
+    median = json.loads(lines[-1])["median"]
+    assert median["a"] == {"lat_ms": [8.5, 17.0, 25.5], "rps": 85.0}
+    assert median["b"] == {"lat_ms": [6.5, 13.0, 19.5], "rps": 65.0}
+
+
 @pytest.mark.parametrize("skewed", [False, True])
 def test_phase9_run_order_check_rejects_planted_faults(monkeypatch, skewed):
     """Phase 9's check of a mean/sum step's runs, on the CPU at a small
@@ -391,3 +419,51 @@ def test_wave_input_without_a_profiler_sends_each_wave_once():
     np.testing.assert_array_equal(items, [[3, 1], [2, 0]])
     np.testing.assert_array_equal(mask, [[True, True], [True, False]])
     np.testing.assert_array_equal(vals, [[5.0, 4.0], [1.0, 0.0]])
+
+
+# ---- K0c (the explicit serving fold-in): its checks' helpers on the CPU ---
+
+def test_wave_launches_hold_each_kernel_to_its_wave():
+    """K1 only in the implicit wave and K0c only in the explicit wave: any
+    other placement fails the smoke."""
+    smoke = _smoke()
+    good = [((0, 0), (0, 0)), ((0, 0), (0, 1)), ((0, 1), (3, 1)),
+            ((3, 1), (3, 1))]
+    inp = SimpleNamespace(counts=good)
+    assert smoke._wave_launches(inp, "x") == ([0, 0, 3], [0, 1, 0])
+    for bad, what in (([((0, 0), (0, 0)), ((0, 0), (0, 0)),
+                        ((0, 0), (3, 0))], "foldin was not launched"),
+                      ([((0, 0), (0, 1)), ((0, 1), (0, 2)),
+                        ((0, 2), (3, 2))], "foldin launched outside"),
+                      ([((0, 0), (0, 0)), ((0, 0), (0, 1)),
+                        ((0, 1), (0, 1))], "ridge_cholesky was not")):
+        with pytest.raises(smoke.SmokeFailure, match=what):
+            smoke._wave_launches(SimpleNamespace(counts=bad), "x")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_foldin_check_rejects_a_shifted_counter(dtype):
+    """The K0c phase's inputs on the CPU: the plain fold-in agrees with
+    itself, a run whose iteration counter is shifted by one falls outside
+    FOLD_RTOL, and the distinct sampled rows are those the draws name."""
+    from cu2rec_torch.ops.sgd import prng_key
+    from cu2rec_torch.serve.engine import fold_in_steps
+
+    smoke = _smoke()
+    sets = smoke._fold_inputs(torch, torch.device("cpu"), 0, 500, 16, 12,
+                              8, 2, dtype, 2)
+    assert len(sets) == 2
+    args = sets[0]
+    assert args[1].dtype == dtype and args[1].shape == (500, 64)
+    assert bool(((args[4] >= 2) & (args[4] <= 8)).all())
+    key = prng_key(3)
+    want = fold_in_steps(*args, 3.5, smoke._hp(), key, 40, 16)
+    assert smoke._fold_err(torch, want, want) == 0.0
+    shifted = smoke._shifted_plain(args, 3.5, smoke._hp(), key, 40, 16)
+    assert smoke._fold_err(torch, want, shifted) > smoke.FOLD_RTOL
+    assert smoke._fold_err(torch, want, fold_in_steps(
+        *args, 3.5, smoke._hp(), key, 40, 16)) == 0.0   # restored
+    one = (args[0], args[1], args[2][:, :1].contiguous(),
+           args[3][:, :1].contiguous(), torch.ones_like(args[4]))
+    assert smoke._sampled_rows(torch, key, one[2], one[4], 5) == \
+        torch.unique(one[2]).numel()
