@@ -32,15 +32,17 @@ fatal on failure:
    host's enqueue time a step beside the profiler's kernel time a step
    (which shows whether the host sets the pace), and beside a plain copy
    of ``T_u``; then K0c (the explicit serving fold-in, every iteration in
-   one launch) at phase 11 (b)'s probe shape (1,000,000 items, F=64, 512
-   users x 32 ratings, 100 iterations) and at phase 6's explicit wave
-   (27,000 items, F=100, 256 users x 8-64 ratings), float32 and bf16
-   catalogs, sampled directly and (probe, float32) through rows assembled
-   once: one iteration within 1e-6 of its plain version, the fold-in
-   within 1e-5 of max(1, |entry|), a plain run with the iteration counter
-   shifted by one rejected; timed with the stream held beside the byte
-   bound of the rows it samples and the dependent-chain floor (every slot
-   sampling one cached row);
+   one launch, the request's masked arrays read as they arrive) at phase
+   11 (b)'s probe shape (1,000,000 items, F=64, 512 users x 32 ratings,
+   100 iterations), at phase 6's explicit wave (27,000 items, F=100, 256
+   users x 8-64 ratings) and on masks with holes (256 users x 100
+   columns, every eighth user none), float32 and bf16 catalogs, sampled
+   directly and (float32) through rows assembled once: one
+   iteration within 1e-6 of its plain version, the fold-in within 1e-5 of
+   max(1, |entry|), a plain run with the iteration counter shifted by one
+   rejected; timed with the stream held beside the byte bound of what it
+   reads and the dependent-chain floor (every slot sampling its own row,
+   kept in L2);
 5. the entry points, each with the launch counts set to 0 before it and
    read after it: ``mf`` trains a planted rank-20 model at the headline
    widths (1,000,000 train and 100,000 test ratings as CSVs, 300
@@ -140,8 +142,10 @@ fatal on failure:
    and requests/s beside phase 6's; (b) the TPU package's serving probe
    shape (1,000,000 items, F=64, batch 512, k=10, fold-ins of 32 ratings
    and 100 iterations) over 1, 2 and 4 shards: recommend users/s, a
-   fold-in batch's time (one K0c launch each) and device time, and 32
-   users' top-10 against a float64 reference; (c) two gloo ranks sharing
+   fold-in batch's time (one K0c launch each), the host time of each of
+   its stages (pack, copy in, init, assemble, launch, copy out) and its
+   device time, and 32 users' top-10 against a float64 reference; (c)
+   two gloo ranks sharing
    the card, a shard each: the ranks bit-equal, the rank-mode engine
    against the one-process shards, ``sharded_ranking_eval`` equal to
    ``ranking_eval``, one K0c launch a fold-in on each rank; (d) ``serve
@@ -259,7 +263,7 @@ def _kernel_name(mangled: str) -> str:
     args = (k[2] or "").split("Ev")[0]
     names = {"13__nv_bfloat16": "bfloat16", "f": "float32"}
     found = [t[1] or names[t[0]] for t in re.finditer(
-        r"L[ib](\d+)E|13__nv_bfloat16|(?<=E)f(?=E)", args)]
+        r"L[ib](\d+)E|13__nv_bfloat16|(?<=E)f(?=E|L)", args)]
     return k[1] + (f"<{','.join(found)}>" if found else "")
 
 
@@ -783,15 +787,16 @@ def phase_train_kernels(torch, dev, seed: int):
     return entries
 
 
-# K0c, the explicit serving fold-in, at phase 11 (b)'s probe shape and at
-# phase 6's explicit wave: (label, items, F, batch, widest rating list,
-# fewest ratings a user, iterations).  After one iteration the kernel's rows
-# are within FOLD_ONE_ATOL of its plain version's (a few float32
-# roundings); after the whole fold-in within FOLD_RTOL of max(1, |entry|),
-# K0a's step tolerance: each iteration may contract a multiply-add the plain
-# version rounds twice.
-FOLD_CASES = (("probe", 1_000_000, 64, 512, 32, 32, 100),
-              ("phase 6", I, F, 256, 64, 8, 100))
+# K0c, the explicit serving fold-in, at phase 11 (b)'s probe shape, at
+# phase 6's explicit wave and on a request with holes in its mask: (label,
+# items, F, batch, widest rating list, fewest ratings a user, iterations,
+# holes).  After one iteration the kernel's rows are within FOLD_ONE_ATOL
+# of its plain version's (a few float32 roundings); after the whole fold-in
+# within FOLD_RTOL of max(1, |entry|), K0a's step tolerance: each iteration
+# may contract a multiply-add the plain version rounds twice.
+FOLD_CASES = (("probe", 1_000_000, 64, 512, 32, 32, 100, False),
+              ("phase 6", I, F, 256, 64, 8, 100, False),
+              ("holey", I, F, 256, 100, 0, 100, True))
 FOLD_ONE_ATOL, FOLD_RTOL = 1e-6, 1e-5
 # Input sets K0c's timing cycles through: 8 batches' sampled rows (8.4 MB
 # each at the probe shape) exceed the 50 MB L2, as a wave finds them cold.
@@ -799,11 +804,13 @@ FOLD_SETS = 8
 
 
 def _fold_inputs(torch, dev, seed: int, n_items: int, n_f: int, B: int,
-                 D: int, lo: int, dtype, n_sets: int):
+                 D: int, lo: int, dtype, n_sets: int, holey: bool = False):
     """A random catalog of ``n_items`` packed rows in ``dtype`` and
-    ``n_sets`` batches (T_u, table, index, vals, lens) over it, made on the
-    card from the seed: each user's lens in [lo, D], its index item ids,
-    its rows N(0, 1/F) as the engine's default init draws them."""
+    ``n_sets`` batches (T_u, table, index, vals, mask) over it, made on the
+    card from the seed: each user's index item ids, its rows N(0, 1/F) as
+    the engine's default init draws them, its mask the first len in [lo,
+    D] columns or, ``holey``, about 60% of its columns in no order, every
+    eighth user none, the ids where it is off past the catalog."""
     from cu2rec_torch.ops.packed import packed_width
 
     W = packed_width(n_f)
@@ -821,19 +828,26 @@ def _fold_inputs(torch, dev, seed: int, n_items: int, n_f: int, B: int,
                               device=dev, dtype=torch.int32)
         vals = torch.randint(1, 11, (B, D), generator=gen,
                              device=dev).float() / 2
-        lens = torch.randint(lo, D + 1, (B,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        sets.append((T_u, table, index, vals, lens))
+        if holey:
+            mask = torch.rand((B, D), generator=gen, device=dev) < 0.6
+            mask[3::8] = False
+            index = torch.where(mask, index, n_items + 7)
+        else:
+            lens = torch.randint(lo, D + 1, (B, 1), generator=gen,
+                                 device=dev)
+            mask = torch.arange(D, device=dev)[None, :] < lens
+        sets.append((T_u, table, index, vals, mask))
     return sets
 
 
-def _sampled_rows(torch, key, index, lens, n_steps: int) -> int:
+def _sampled_rows(torch, key, index, mask, n_steps: int) -> int:
     """The distinct table rows a fold-in of ``n_steps`` iterations samples
     (the draws of ``fold_in_steps``)."""
     from cu2rec_torch.ops.sgd import counter_uniform
+    from cu2rec_torch.serve.engine import compact_ratings
 
+    index, _, lens = compact_ratings(index.long(), index, mask)
     slots = torch.arange(index.shape[0], device=index.device)
-    index, lens = index.long(), lens.long()
     rows = []
     for t in range(n_steps):
         pos = torch.minimum((counter_uniform(key, t, slots) * lens).long(),
@@ -862,13 +876,14 @@ def _fold_err(torch, got, want) -> float:
 def phase_foldin_kernel(torch, dev, seed: int, card: str):
     """K0c against its plain version (``serve/engine.py::fold_in_steps``)
     in every case of FOLD_CASES, float32 and bf16 catalogs, the catalog
-    sampled directly (one shard) and, at the probe shape, through the rows
-    assembled once (several shards): one iteration within FOLD_ONE_ATOL,
+    sampled directly (one shard) and, for a float32 catalog, through the
+    rows assembled once (several shards; an id past the catalog a row of
+    zeros, as ``_rows`` assembles it): one iteration within FOLD_ONE_ATOL,
     the whole fold-in within FOLD_RTOL of max(1, |entry|), and a plain run
     whose iteration counter is shifted by one rejected; each timed with
     CUDA events (the stream held) beside the plain version, the byte bound
-    of the rows it samples and the dependent-chain floor (every slot
-    sampling one cached row).  Returns the kernel's entry."""
+    of what it reads and the dependent-chain floor (every slot sampling
+    its own row, which stays in L2).  Returns the kernel's entry."""
     from cu2rec_torch.experiments.common import time_ms
     from cu2rec_torch.ops.cuda_foldin import fold_in_cuda
     from cu2rec_torch.ops.sgd import prng_key
@@ -876,18 +891,20 @@ def phase_foldin_kernel(torch, dev, seed: int, card: str):
 
     hp, key, mu = _hp(), prng_key(seed + 14), 3.5
     entry, cases = None, {}
-    for label, n_items, n_f, B, D, lo, n_steps in FOLD_CASES:
+    for label, n_items, n_f, B, D, lo, n_steps, holey in FOLD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             sets = _fold_inputs(torch, dev, seed, n_items, n_f, B, D, lo,
-                                dtype, FOLD_SETS)
+                                dtype, FOLD_SETS, holey)
             sources = [("direct", sets)]
-            if label == "probe" and dtype == torch.float32:
+            if dtype == torch.float32:
                 assembled = []
-                for T_u, table, index, vals, lens in sets[:1]:
-                    rows = table[index.reshape(-1).long()].float()
+                for T_u, table, index, vals, mask in sets[:1]:
+                    ids = index.reshape(-1).long()
+                    rows = torch.where((ids < n_items)[:, None], table[
+                        ids.clamp(max=n_items - 1)].float(), 0.0)
                     flat = torch.arange(B * D, dtype=torch.int32,
                                         device=dev).reshape(B, D)
-                    assembled.append((T_u, rows, flat, vals, lens))
+                    assembled.append((T_u, rows, flat, vals, mask))
                 sources.append(("assembled", assembled))
             for source, batches in sources:
                 args = batches[0]
@@ -899,7 +916,7 @@ def phase_foldin_kernel(torch, dev, seed: int, card: str):
                 err = _fold_err(torch, got, want)
                 fault = _fold_err(torch, got, _shifted_plain(
                     args, mu, hp, key, n_steps, n_f))
-                empty = args[4] == 0
+                empty = ~args[4].any(dim=1)
                 tag = f"{label} {_dtype_name(dtype)} {source}"
                 require(one <= FOLD_ONE_ATOL, f"foldin {tag}: one iteration "
                         f"differs from the plain version by {one:.3e}")
@@ -916,30 +933,33 @@ def phase_foldin_kernel(torch, dev, seed: int, card: str):
                 ms = time_ms(run, batches, reps=40, hold=True)
                 plain_ms = time_ms(lambda *a, n=n_steps, f=n_f: fold_in_steps(
                     *a, mu, hp, key, n, f), batches[:1], reps=2, warm=1)
-                T_u, table, index, vals, lens = args
-                floor_ms = time_ms(run, [(T_u, table[:1].contiguous(),
-                                          torch.zeros_like(index), vals,
-                                          lens)], reps=40, hold=True)
+                T_u, table, index, vals, mask = args
+                own = torch.arange(B, dtype=torch.int32, device=dev)[
+                    :, None].expand(B, D).contiguous()
+                floor_ms = time_ms(run, [(T_u, table, own, vals, mask)],
+                                   reps=40, hold=True)
                 elem = table.element_size()
                 distinct = statistics.mean(
                     _sampled_rows(torch, key, b[2], b[4], n_steps)
                     for b in batches)
                 W = T_u.shape[1]
-                n_bytes = (2 * B * W * 4 + 2 * B * D * 4 + B * 4
+                n_bytes = (2 * B * W * 4 + 2 * B * D * 4 + B * D
                            + distinct * (n_f + 1) * elem)
-                n_ops = 6 * (n_f + 1) * n_steps * int((lens > 0).sum())
+                n_ops = 6 * (n_f + 1) * n_steps * int((~empty).sum())
                 bound_ms, bound_by = _bound(n_bytes, n_ops)
                 case = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "floor_ms": floor_ms, "one_err": one, "err": err,
-                        "fault_err": fault, "items": n_items, "F": n_f, "B": B, "Dp": D,
-                        "n_steps": n_steps}
+                        "fault_err": fault, "items": n_items, "F": n_f,
+                        "B": B, "Dp": D, "n_steps": n_steps}
                 cases[tag] = case
                 log(f"[foldin] {tag} ({n_items} items, F={n_f}, B={B}, Dp="
-                    f"{D}, {n_steps} iterations): {ms:.4f} ms (the stream "
-                    f"held, {len(batches)} sets), {ms * 1e3 / n_steps:.3f} "
+                    f"{D}, {n_steps} iterations, "
+                    f"{int(empty.sum())} empty slots): {ms:.4f} ms (the "
+                    f"stream held, {len(batches)} sets), "
+                    f"{ms * 1e3 / n_steps:.3f} "
                     f"us an iteration; the chain floor (every slot sampling "
-                    f"one cached row) {floor_ms:.4f} ms; plain {plain_ms:.3f}"
-                    f" ms; bound {bound_ms:.4f} ms ({bound_by}: "
+                    f"its own row, kept in L2) {floor_ms:.4f} ms; plain "
+                    f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
                     f"{n_bytes / 1e6:.2f} MB, {distinct:.0f} distinct rows "
                     f"sampled); one iteration within {one:.3e}, the whole "
                     f"fold-in within {err:.3e} of max(1, |entry|), the "
@@ -3852,15 +3872,74 @@ def _headline_shards(torch, ctx, card: str) -> int:
     return k1
 
 
-def _probe_shards(torch, seed: int, card: str) -> None:
-    """Phase 11 (b): the TPU package's serving probe shape over
-    PROBE_SHARDS item shards on the card: recommend users/s
-    (``bench_qps``), a fold-in batch's time (the median of PROBE_FOLDS, one
-    K0c launch each) and its device time under the profiler, 32 users'
-    top-10 against a float64 reference."""
-    from cu2rec_torch.models.state import model_from_numpy
+# The host stages of a fold-in batch, in the order it runs them (see
+# _fold_stages).
+FOLD_STAGES = ("pack", "copy in", "init", "assemble", "launch", "copy out")
+
+
+def _fold_stages(eng, fold_args, cfg, reps: int) -> list:
+    """``reps`` batches of ``eng.fold_in(*fold_args, cfg)``, each a dict of
+    host ms: its ``total`` (to the rows on the host) and each of
+    FOLD_STAGES, from timers around the engine's methods (those of this
+    tree or of an older one):
+      pack: ``fold_in_padded`` outside the others (the request onto the
+        host, the range check);
+      copy in: ``_upload``, and ``_fold_in`` outside ``_rows`` and the
+        kernel's wrapper (where an older tree copies the arrays);
+      init: ``_default_init`` (the draw and its copy);
+      assemble: ``_rows`` (several shards);
+      launch: ``cuda_foldin.fold_in_cuda`` (its checks and the launch);
+      copy out: ``fold_in`` outside ``fold_in_padded`` (the copy back,
+        waiting for the card)."""
     from cu2rec_torch.ops import cuda_foldin
-    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    spent: dict = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    names = [n for n in ("fold_in_padded", "_default_init", "_upload",
+                         "_fold_in", "_rows") if hasattr(eng, n)]
+    kernel = cuda_foldin.fold_in_cuda
+    for n in names:
+        setattr(eng, n, timed(n, getattr(eng, n)))
+    cuda_foldin.fold_in_cuda = timed("launch", kernel)
+    batches = []
+    try:
+        for _ in range(reps):
+            spent.clear()
+            t0 = time.perf_counter()
+            eng.fold_in(*fold_args, cfg)
+            total = time.perf_counter() - t0
+            g = spent.get
+            stages = {
+                "pack": g("fold_in_padded", 0) - g("_default_init", 0)
+                - g("_upload", 0) - g("_fold_in", 0),
+                "copy in": g("_upload", 0) + g("_fold_in", 0)
+                - g("_rows", 0) - g("launch", 0),
+                "init": g("_default_init", 0), "assemble": g("_rows", 0),
+                "launch": g("launch", 0),
+                "copy out": total - g("fold_in_padded", 0)}
+            batches.append({"total": total * 1e3,
+                            **{k: v * 1e3 for k, v in stages.items()}})
+    finally:
+        for n in names:
+            delattr(eng, n)
+        cuda_foldin.fold_in_cuda = kernel
+    return batches
+
+
+def _probe_catalog(torch, seed: int):
+    """The probe shape's random tables (from the seed), its model on the
+    card, a fold-in batch of PROBE_B users x PROBE_RATINGS ratings (ids,
+    ratings, a full mask) and its config."""
+    from cu2rec_torch.models.state import model_from_numpy
     from cu2rec_torch.utils.config import Config
 
     rng = np.random.default_rng(seed + 11)
@@ -3871,7 +3950,73 @@ def _probe_shards(torch, seed: int, card: str) -> None:
         "item_bias": rng.normal(0, 0.3, PROBE_I).astype(np.float32),
         "global_bias": np.array([3.5], np.float32),
     }
-    model = model_from_numpy(tables, device="cuda")
+    fold = (rng.integers(0, PROBE_I, (PROBE_B, PROBE_RATINGS)).astype(
+                np.int32),
+            rng.uniform(1, 5, (PROBE_B, PROBE_RATINGS)).astype(np.float32),
+            np.ones((PROBE_B, PROBE_RATINGS), bool))
+    cfg = Config(total_iterations=PROBE_ITERS, learning_rate=0.05,
+                 n_factors=PROBE_F)
+    return tables, model_from_numpy(tables, device="cuda"), fold, cfg
+
+
+def _probe_fold(torch, eng, fold, cfg) -> dict:
+    """A probe fold-in batch on ``eng``: the first (cold: the engine's
+    first batch of this size, the process's host buffers not yet pooled
+    where it is the first engine), PROBE_FOLDS timed batches
+    (``_fold_stages``; one K0c launch each, or the check fails), and one
+    more under the profiler: the cold batch's and the batches' host ms,
+    each stage's median, the device busy ms and its top kernels."""
+    from cu2rec_torch.ops import cuda_foldin
+
+    cuda_foldin._load()            # the cold batch times no library load
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.fold_in(*fold, cfg)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    n0 = cuda_foldin.LAUNCHES
+    batches = _fold_stages(eng, fold, cfg, PROBE_FOLDS)
+    launched = cuda_foldin.LAUNCHES - n0
+    require(launched == PROBE_FOLDS, f"probe, {eng.n_ip} shards: "
+            f"{launched} foldin launches for {PROBE_FOLDS} fold-in batches")
+    prof, host_s = _profiled(torch, lambda: eng.fold_in(*fold, cfg),
+                             lambda: _new_profile(torch))
+    busy_s, top = _device_breakdown(torch, prof, top=4)
+    return {"cold_ms": cold_ms, "ms": [b["total"] for b in batches],
+            "stages": {k: statistics.median(b[k] for b in batches)
+                       for k in FOLD_STAGES},
+            "device_ms": busy_s * 1e3, "profiled_host_ms": host_s * 1e3,
+            "top": top}
+
+
+def _probe_fold_stages(torch, seed: int) -> dict:
+    """``_probe_fold`` over PROBE_SHARDS item shards on the card, by shard
+    count (a run of this tree or, through experiments/foldin_stages.py,
+    of an older one)."""
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    _, model, fold, cfg = _probe_catalog(torch, seed)
+    out = {}
+    for n in PROBE_SHARDS:
+        eng = ShardedServingEngine(model, devices=["cuda:0"] * n)
+        out[str(n)] = {k: v for k, v in _probe_fold(torch, eng, fold,
+                                                    cfg).items()
+                       if k != "top"}
+        del eng
+    return out
+
+
+def _probe_shards(torch, seed: int, card: str) -> None:
+    """Phase 11 (b): the TPU package's serving probe shape over
+    PROBE_SHARDS item shards on the card: recommend users/s
+    (``bench_qps``), a fold-in batch's time (the median of PROBE_FOLDS, one
+    K0c launch each), the host time of each of its stages and its device
+    time under the profiler, 32 users' top-10 against a float64
+    reference."""
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+
+    tables, model, fold, cfg = _probe_catalog(torch, seed)
+    rng = np.random.default_rng(seed + 12)
     p = rng.normal(0, 1.0, (32, PROBE_F)).astype(np.float32)
     rated = rng.integers(0, PROBE_I, (32, PROBE_RATINGS)).astype(np.int32)
     ref = (tables["q"].astype(np.float64) @ p.T.astype(np.float64)).T \
@@ -3880,12 +4025,6 @@ def _probe_shards(torch, seed: int, card: str) -> None:
     top = -np.sort(-np.partition(ref, -PROBE_K, axis=1)[:, -PROBE_K:],
                    axis=1)
     tol = 1e-3 * np.maximum(1.0, np.abs(top).max(axis=1))
-    f_items = rng.integers(0, PROBE_I, (PROBE_B, PROBE_RATINGS)).astype(
-        np.int32)
-    f_vals = rng.uniform(1, 5, (PROBE_B, PROBE_RATINGS)).astype(np.float32)
-    f_mask = np.ones((PROBE_B, PROBE_RATINGS), bool)
-    cfg = Config(total_iterations=PROBE_ITERS, learning_rate=0.05,
-                 n_factors=PROBE_F)
     b_rows = rng.normal(0, 1.0 / PROBE_F, (PROBE_B, PROBE_F)).astype(
         np.float32)
     b_rated = rng.integers(0, PROBE_I, (PROBE_B, 32)).astype(np.int32)
@@ -3912,41 +4051,29 @@ def _probe_shards(torch, seed: int, card: str) -> None:
 
         prof, host_s = _profiled(torch, batch, lambda: _new_profile(torch))
         busy_s, kernels = _device_breakdown(torch, prof, top=4)
-        eng.fold_in(f_items, f_vals, f_mask, cfg)          # warm-up
-        torch.cuda.synchronize()
-        fold_times = []
-        n0 = cuda_foldin.LAUNCHES
-        for _ in range(PROBE_FOLDS):
-            t0 = time.perf_counter()
-            eng.fold_in(f_items, f_vals, f_mask, cfg)
-            fold_times.append(time.perf_counter() - t0)
-        launched = cuda_foldin.LAUNCHES - n0
-        require(launched == PROBE_FOLDS, f"probe, {n} shards: {launched} "
-                f"foldin launches for {PROBE_FOLDS} fold-in batches")
-        fold_s = statistics.median(fold_times)
-        fprof, fold_host_s = _profiled(
-            torch, lambda: eng.fold_in(f_items, f_vals, f_mask, cfg),
-            lambda: _new_profile(torch))
-        fold_busy_s, fold_top = _device_breakdown(torch, fprof, top=4)
+        f = _probe_fold(torch, eng, fold, cfg)
+        fold_ms = statistics.median(f["ms"])
         log(f"[shard-serve] probe shape, {n} item shard(s): fold-in batch "
             f"of {PROBE_B} x {PROBE_RATINGS} ratings, {PROBE_ITERS} "
             f"iterations, by the host clock to the rows on the host: median "
-            f"{fold_s * 1e3:.3f} ms of {PROBE_FOLDS} "
-            f"({min(fold_times) * 1e3:.3f}-{max(fold_times) * 1e3:.3f}); "
-            f"one foldin launch a batch; "
-            f"under the profiler: device busy {fold_busy_s * 1e3:.3f} ms of "
-            f"{fold_host_s * 1e3:.3f} ms ({fold_busy_s / fold_host_s:.1%}), "
-            "top kernels: " + "; ".join(
-                f"{k[:48]} {ms:.3f} ms x{c}" for k, ms, c in fold_top)
-            + f"; {card}")
+            f"{fold_ms:.3f} ms of {PROBE_FOLDS} ({min(f['ms']):.3f}-"
+            f"{max(f['ms']):.3f}), the engine's first {f['cold_ms']:.3f} "
+            "ms; one foldin launch a batch; host ms by "
+            "stage (medians): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in f["stages"].items())
+            + f"; under the profiler: device busy {f['device_ms']:.3f} ms "
+            f"of {f['profiled_host_ms']:.3f} ms "
+            f"({f['device_ms'] / f['profiled_host_ms']:.1%}), top kernels: "
+            + "; ".join(f"{k[:48]} {ms:.3f} ms x{c}"
+                        for k, ms, c in f["top"]) + f"; {card}")
         log(f"[shard-serve] probe shape ({PROBE_I} items, F={PROBE_F}, "
             f"batch {PROBE_B}, k={PROBE_K}) over {n} item shard(s) on one "
             f"card: recommend {qps:.1f} users/s (20 batches, host clock "
             f"to a synchronize), fold-in batch of {PROBE_B} x "
             f"{PROBE_RATINGS} ratings, {PROBE_ITERS} iterations: "
-            f"{fold_s * 1e3:.1f} ms ({PROBE_B / fold_s:.1f} users/s); peak "
-            f"{peak:.0f} MiB while recommending; one recommend batch under "
-            f"the profiler: device busy {busy_s * 1e3:.3f} ms of "
+            f"{fold_ms:.1f} ms ({PROBE_B / fold_ms * 1e3:.1f} users/s); "
+            f"peak {peak:.0f} MiB while recommending; one recommend batch "
+            f"under the profiler: device busy {busy_s * 1e3:.3f} ms of "
             f"{host_s * 1e3:.3f} ms, top kernels: " + "; ".join(
                 f"{k[:48]} {ms:.3f} ms x{c}" for k, ms, c in kernels)
             + f"; 32 users' top-10 within the float64 reference; {card}")

@@ -2,12 +2,14 @@
 
 The TPU package runs a batch's whole fold-in as one device program
 (``serve/engine.py::ShardedServingEngine._foldin_program``: a
-``fori_loop`` over the iterations inside one ``jit``); it has no Pallas
+``fori_loop`` over the iterations inside one ``jit``), after compacting
+each user's valid ratings to the front on the host; it has no Pallas
 kernel.  Here it is ``csrc/foldin.cu``, bound with ctypes: one launch runs
 every iteration, each user row held in float4 registers by a group of
-lanes for all of them, on K0a's counter stream and update
-(``csrc/sgd_step.cuh``).  The kernel's header says what bounds it and how
-it overlaps the chain of row loads.  Its plain version is
+lanes, on K0a's counter stream (``csrc/sgd_step.cuh``).  The kernel takes
+the request's masked arrays as they arrive and compacts each slot's valid
+columns itself; its header says what bounds it and how each link of a
+slot's chain of iterations is kept short.  Its plain version is
 ``serve/engine.py::fold_in_steps``; the engine takes that on CPU tensors
 and this wrapper on CUDA tensors.
 
@@ -48,17 +50,18 @@ def _load():
 
 def fold_in_cuda(T_u: torch.Tensor, table: torch.Tensor,
                  index: torch.Tensor, vals: torch.Tensor,
-                 lens: torch.Tensor, mu: float, hp: Hyper, key,
+                 valid: torch.Tensor, mu: float, hp: Hyper, key,
                  n_steps: int, F: int) -> torch.Tensor:
     """K0c: ``fold_in_steps`` (serve/engine.py) in one launch; returns new
     rows, ``T_u`` unchanged.
 
     ``T_u`` (Bp, W) float32, W in ``ops/packed.py::KERNEL_WIDTHS``;
     ``table`` (R, W) float32 or bf16; ``index`` (Bp, Dp) int32 rows of the
-    table, in ``[0, R)`` (not checked: that would cost a reduction and a
-    host sync); ``vals`` (Bp, Dp) float32; ``lens`` (Bp,) int32 in
-    ``[0, Dp]``.  All contiguous, on one CUDA device, the two tables on
-    16-byte boundaries."""
+    table, in ``[0, R)`` where ``valid`` (not checked: that would cost a
+    reduction and a host sync; masked-out entries are never read);
+    ``vals`` (Bp, Dp) float32; ``valid`` (Bp, Dp) bool, holes allowed.
+    All contiguous, on one CUDA device, the two tables on 16-byte
+    boundaries."""
     global LAUNCHES
     device = T_u.device
     if device.type != "cuda":
@@ -76,7 +79,7 @@ def fold_in_cuda(T_u: torch.Tensor, table: torch.Tensor,
     _check("table", table, table.dtype, device, (table.shape[0], W))
     _check("index", index, torch.int32, device, (Bp, Dp))
     _check("vals", vals, torch.float32, device, (Bp, Dp))
-    _check("lens", lens, torch.int32, device, (Bp,))
+    _check("valid", valid, torch.bool, device, (Bp, Dp))
     check_kernel_tables("K0c", T_u, table)
     if not 0 <= F < W:
         raise ValueError(f"n_factors {F} does not fit rows of width {W}")
@@ -87,7 +90,7 @@ def fold_in_cuda(T_u: torch.Tensor, table: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.foldin_launch(
             T_u.data_ptr(), out.data_ptr(), table.data_ptr(),
-            index.data_ptr(), vals.data_ptr(), lens.data_ptr(), Bp, Dp, W,
+            index.data_ptr(), vals.data_ptr(), valid.data_ptr(), Bp, Dp, W,
             F, int(n_steps), elem, float(mu),
             hp.learning_rate, hp.P_reg, hp.user_bias_reg, k0, k1, stream)
     if rc != 0:

@@ -60,6 +60,14 @@ from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 
 
+# A packed fold-in request: (Bp, Dp) ids, ratings and mask in one byte
+# buffer, each from byte a·Bp·Dp to b·Bp·Dp: (a, b, torch dtype, NumPy
+# dtype).
+REQUEST_LAYOUT = ((0, 4, torch.int32, np.int32),
+                  (4, 8, torch.float32, np.float32),
+                  (8, 9, torch.bool, np.bool_))
+
+
 def _pow2_pad(n: int, lo: int = 8) -> int:
     p = lo
     while p < n:
@@ -149,7 +157,18 @@ def assemble_topk(vals, ids, axis, index: int, k: int):
     return merge_topk(buf[0].view(torch.float32), buf[1].to(torch.int64), k)
 
 
-def fold_in_steps(T_u, table, index, vals, lens, mu: float, hp: Hyper,
+def compact_ratings(index, vals, mask):
+    """Each slot's masked-in positions moved to the front in their order
+    (a stable compaction): ``(index, vals, lens)``, index and vals gathered
+    to (Bp, Dp), position p < lens[b] of slot b holding the column of the
+    p-th set entry of ``mask[b]``."""
+    mask = mask.to(torch.bool)
+    order = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
+    return (torch.gather(index, 1, order), torch.gather(vals, 1, order),
+            mask.sum(dim=1))
+
+
+def fold_in_steps(T_u, table, index, vals, mask, mu: float, hp: Hyper,
                   key, n_steps: int, F: int) -> torch.Tensor:
     """``n_steps`` fold-in SGD iterations of the packed (Bp, W) float32
     user rows ``T_u`` against a frozen row table: the plain version of
@@ -157,17 +176,20 @@ def fold_in_steps(T_u, table, index, vals, lens, mu: float, hp: Hyper,
     ``ShardedServingEngine._foldin_program`` loop.
 
     ``table`` (R, W) float32 or bf16, its rows read as float32; ``index``
-    (Bp, Dp) integer, slot b's position d naming the row
-    ``table[index[b, d]]``; ``vals`` (Bp, Dp) float32 ratings; ``lens``
-    (Bp,) the valid positions of each slot, front-packed.  At iteration t
-    slot b draws position ``min(⌊u·len⌋, len − 1)``, u =
-    ``counter_uniform(key, t, b)``, and takes one SGD step of its row
-    towards the sampled row (the item side frozen); a slot with ``len`` 0
-    is left unchanged.  Returns new rows; ``T_u`` is not changed."""
+    (Bp, Dp) integer, slot b's column d naming the row
+    ``table[index[b, d]]``; ``vals`` (Bp, Dp) float32 ratings; ``mask``
+    (Bp, Dp) bool, the valid columns of each slot in the request's order,
+    holes allowed (masked-out entries are never read as rows).  The valid
+    columns are compacted to the front (``compact_ratings``), as the TPU
+    package compacts them on the host, so that slot b has ``len`` valid
+    positions.  At iteration t slot b draws position
+    ``min(⌊u·len⌋, len − 1)``, u = ``counter_uniform(key, t, b)``, and
+    takes one SGD step of its row towards the sampled row (the item side
+    frozen); a slot with ``len`` 0 is left unchanged.  Returns new rows;
+    ``T_u`` is not changed."""
     W = T_u.shape[1]
     device = T_u.device
-    index = index.to(torch.int64)
-    lens = lens.to(torch.int64)
+    index, vals, lens = compact_ratings(index.to(torch.int64), vals, mask)
     factor, biascol, reg_u, _ = _reg_vectors(hp, F, W, device)
     has = lens > 0
     last = (lens - 1).clamp(min=0)
@@ -176,7 +198,9 @@ def fold_in_steps(T_u, table, index, vals, lens, mu: float, hp: Hyper,
     for t in range(n_steps):
         u01 = counter_uniform(key, t, slots)
         idx = torch.minimum((u01 * lens).to(torch.int64), last)
-        it_b = torch.gather(index, 1, idx[:, None])[:, 0]
+        # An empty slot reads row 0: its column 0 may hold anything.
+        it_b = torch.where(has, torch.gather(index, 1, idx[:, None])[:, 0],
+                           0)
         rat_b = torch.gather(vals, 1, idx[:, None])[:, 0]
         row_i = table[it_b].to(torch.float32)
         ihat = row_i * factor + biascol
@@ -184,7 +208,7 @@ def fold_in_steps(T_u, table, index, vals, lens, mu: float, hp: Hyper,
         err = torch.where(has, rat_b - pred, 0.0)
         du = lr * (err[:, None] * ihat - reg_u * T_u)
         T_u = torch.where(has[:, None], T_u + du, T_u)
-    return T_u
+    return T_u if n_steps > 0 else T_u.clone()
 
 
 class ShardedServingEngine:
@@ -379,19 +403,19 @@ class ShardedServingEngine:
         return _host(vals)[:B], _host(idx)[:B]
 
     # -- fold-in ----------------------------------------------------------
-    def _fold_in(self, T_u, items, vals, lens, hp: Hyper, key,
+    def _fold_in(self, T_u, items, vals, valid, hp: Hyper, key,
                  n_steps: int):
         """``n_steps`` fold-in SGD iterations of the packed (Bp, W) user
-        rows ``T_u`` against the frozen catalog: ``fold_in_steps`` on the
-        CPU, kernel K0c (one launch) on the card.  One shard samples its
-        block by item id; over several, the rows of every rated item are
-        assembled once (``_rows``: one sum over the shards, or one
-        all_reduce over ``ip``) and the fold-in samples that (Bp·Dp, W)
-        table by position."""
+        rows ``T_u`` against the frozen catalog, the request's (Bp, Dp)
+        ``items``, ``vals`` and ``valid`` mask in its own column order:
+        ``fold_in_steps`` on the CPU, kernel K0c (one launch) on the card.
+        One shard samples its block by item id; over several, the rows of
+        every rated item are assembled once (``_rows``: one sum over the
+        shards, or one all_reduce over ``ip``) and the fold-in samples that
+        (Bp·Dp, W) table by position."""
         from cu2rec_torch.ops.cuda_foldin import fold_in_cuda
 
-        Bp, Dp = np.shape(items)
-        items = self._to_dev(items, torch.int32)
+        Bp, Dp = items.shape
         if self.n_ip == 1:
             table, index = self.T_i, items
         else:
@@ -399,8 +423,7 @@ class ShardedServingEngine:
             index = torch.arange(Bp * Dp, dtype=torch.int32,
                                  device=self.device).reshape(Bp, Dp)
         run = fold_in_cuda if T_u.device.type == "cuda" else fold_in_steps
-        return run(T_u, table, index, self._to_dev(vals),
-                   self._to_dev(lens, torch.int32), self.mu, hp, key,
+        return run(T_u, table, index, vals, valid, self.mu, hp, key,
                    n_steps, self.F)
 
     def fold_in(self, rated_items, ratings, mask, cfg: Config | None = None,
@@ -413,68 +436,112 @@ class ShardedServingEngine:
         ``init_rows=(P0 (B,F), ub0 (B,))`` overrides the seeded
         Normal(0, 1/F) initialization (util.cu:124-132)."""
         B = int(np.shape(rated_items)[0])
-        T_u = _host(self.fold_in_padded(rated_items, ratings, mask, cfg=cfg,
-                                        key=key, init_rows=init_rows))
-        return T_u[:B, :self.F], T_u[:B, self.F]
+        T_u = self._download(self.fold_in_padded(
+            rated_items, ratings, mask, cfg=cfg, key=key,
+            init_rows=init_rows))[:B, :self.F + 1].copy()
+        return T_u[:, :self.F], T_u[:, self.F]
 
     def fold_in_padded(self, rated_items, ratings, mask,
                        cfg: Config | None = None, key=None,
                        init_rows=None):
         """Hot-path variant: dispatch only; returns the UNTRIMMED packed
         (Bp, W) user table as a device tensor.  ``key`` is a pair of key
-        words (``ops.sgd.prng_key``); default ``prng_key(cfg.seed)``."""
+        words (``ops.sgd.prng_key``); default ``prng_key(cfg.seed)``.
+
+        The request goes to the device as it arrives, masked entries in
+        place: its ids, ratings and mask are padded into one host buffer
+        (pinned on the card) and copied once; the fold-in finds each
+        slot's valid columns itself (``fold_in_steps``, K0c)."""
         cfg = cfg or Config()
-        B, D = np.shape(rated_items)
+        rated = _host(rated_items)
+        m = _host(mask).astype(bool, copy=False)
+        B, D = rated.shape
         Bp, Dp = _pow2_pad(B), _pow2_pad(D)
-        # Compact each row's VALID entries to the front (stable): the
-        # sampler draws positions 0..len-1, so a hole in the mask must not
-        # leave a masked entry inside the sampled prefix.
-        m = _host(mask).astype(bool)
-        order = np.argsort(~m, axis=1, kind="stable")
-        rated_c = np.take_along_axis(_host(rated_items).astype(np.int32),
-                                     order, axis=1)
-        ratings_c = np.take_along_axis(_host(ratings).astype(np.float32),
-                                       order, axis=1)
-        # K0c reads the catalog at these ids unchecked: hold them here, on
-        # the host, before any launch.
-        live = rated_c[np.take_along_axis(m, order, axis=1)]
-        if live.size and (live.min() < 0 or live.max() >= self.n_items):
-            raise ValueError(f"fold-in item ids must lie in [0, "
-                             f"{self.n_items}); got {live.min()}.."
-                             f"{live.max()}")
-        items = np.zeros((Bp, Dp), np.int32)
-        vals = np.zeros((Bp, Dp), np.float32)
-        lens = np.zeros(Bp, np.int32)
-        items[:B, :D] = rated_c
-        vals[:B, :D] = ratings_c
-        lens[:B] = m.sum(axis=1)
+        # K0c reads the catalog at the masked-in ids unchecked: hold them
+        # here, on the host, before any launch (masked entries may hold
+        # anything, so only a request with an id out of range is gathered).
+        if rated.size and (rated.min() < 0 or rated.max() >= self.n_items):
+            live = rated[m]
+            if live.size and (live.min() < 0
+                              or live.max() >= self.n_items):
+                raise ValueError(f"fold-in item ids must lie in [0, "
+                                 f"{self.n_items}); got {live.min()}.."
+                                 f"{live.max()}")
+        items, vals, valid = self._upload(
+            self._pack_request(rated, _host(ratings), m, Bp, Dp), Bp, Dp)
         key = prng_key(cfg.seed) if key is None else _key_words(key)
         if init_rows is not None:
             P0, ub0 = init_rows
-            T_u0 = np.zeros((Bp, self.W), np.float32)
-            T_u0[:B, :self.F] = _host(P0)
-            T_u0[:B, self.F] = _host(ub0)
-            T_u0 = self._to_dev(T_u0)
+            T_u0 = self._host_empty((Bp, self.W), torch.float32).zero_()
+            T_u0.numpy()[:B, :self.F] = _host(P0)
+            T_u0.numpy()[:B, self.F] = _host(ub0)
+            T_u0 = T_u0.to(self.device, non_blocking=True)
         else:
             T_u0 = self._default_init(Bp, key)
         self._note(("fold", Bp, Dp))
-        return self._fold_in(T_u0, items, vals, lens, Hyper.from_config(cfg),
+        return self._fold_in(T_u0, items, vals, valid, Hyper.from_config(cfg),
                              key, int(cfg.total_iterations))
+
+    def _host_empty(self, shape, dtype) -> torch.Tensor:
+        """A host tensor for a copy to or from the lead device: pinned when
+        that is a CUDA device, so that the copy runs without the host."""
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    @staticmethod
+    def _request_views(buf, Bp: int, Dp: int):
+        """The (Bp, Dp) int32 ids, float32 ratings and bool mask that
+        ``_pack_request`` lays out in one byte buffer."""
+        n = Bp * Dp
+        return tuple(buf[a * n:b * n].view(dtype).view(Bp, Dp)
+                     for a, b, dtype, _ in REQUEST_LAYOUT)
+
+    def _pack_request(self, rated, ratings, m, Bp: int, Dp: int):
+        """A fold-in request's (B, D) ids, ratings and mask, padded to
+        (Bp, Dp) (masked out) in one host byte buffer."""
+        B, D = rated.shape
+        n = Bp * Dp
+        buf = self._host_empty(REQUEST_LAYOUT[-1][1] * n, torch.uint8)
+        raw = buf.numpy()
+        for (a, b, _, dtype), src in zip(REQUEST_LAYOUT, (rated, ratings, m)):
+            view = raw[a * n:b * n].view(dtype).reshape(Bp, Dp)
+            view[:B, :D] = src
+            view[:B, D:] = 0
+            view[B:] = 0
+        return buf
+
+    def _upload(self, buf, Bp: int, Dp: int):
+        """The packed request on the lead device: one copy, which does not
+        wait for the host from a pinned buffer."""
+        return self._request_views(buf.to(self.device, non_blocking=True),
+                                   Bp, Dp)
+
+    def _download(self, x: torch.Tensor) -> np.ndarray:
+        """``x`` on the host: one copy into pinned memory from a CUDA
+        device, then a wait for the device's stream."""
+        if x.device.type != "cuda":
+            return _host(x)
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x, non_blocking=True)
+        torch.cuda.current_stream(x.device).synchronize()
+        return out.numpy()
 
     def _default_init(self, Bp: int, key):
         """Normal(0, 1/F) rows from a CPU ``torch.Generator`` seeded with
-        the 64-bit key — the same draw on every device.  Each row draws a
-        multiple of 16 values (torch's CPU normal transform works in blocks
-        of 16), so row b's draw does not depend on Bp and a batch of one
-        reproduces the big-batch init."""
+        the 64-bit key — the same draw on every device — drawn into a host
+        tensor (pinned for a CUDA device) and copied to the lead device.
+        Each row draws a multiple of 16 values (torch's CPU normal
+        transform works in blocks of 16), so row b's draw does not depend
+        on Bp and a batch of one reproduces the big-batch init."""
         F, W = self.F, self.W
         k0, k1 = key
         gen = torch.Generator().manual_seed((k0 << 32) | k1)
         draw = torch.randn((Bp, -(-(F + 1) // 16) * 16), generator=gen)
-        T = torch.zeros((Bp, W), dtype=torch.float32)
+        T = self._host_empty((Bp, W), torch.float32)
         T[:, :F + 1] = draw[:, :F + 1] / F
+        T[:, F + 1:] = 0.0
         self._note(("init", Bp))
-        return T.to(self.device)
+        return T.to(self.device, non_blocking=True)
 
     # -- implicit (iALS) fold-in ------------------------------------------
     def _implicit_gramian(self):

@@ -1408,10 +1408,12 @@ def test_rank_mode_engine_on_gloo_ranks_sharing_the_card(cuda_device):
 # -- K0c, the explicit serving fold-in ----------------------------------------
 
 def _foldin_inputs(device, F, dtype, Bp, Dp, n_rows, seed, source):
-    """(T_u, table, index, vals, lens) on ``device``: a catalog of
+    """(T_u, table, index, vals, mask) on ``device``: a catalog of
     ``n_rows`` packed rows in ``dtype``, sampled directly by item id
     ("direct") or through the (Bp·Dp, W) float32 rows assembled from it
-    ("assembled"); lens holey (zeros between full and partial slots)."""
+    ("assembled"); the mask in a request's order, holes everywhere, every
+    third slot empty and slot 1 full, the ids where it is off past the
+    catalog (direct) so that a read of one would show."""
     from cu2rec_torch.ops.packed import packed_width
 
     W = packed_width(F)
@@ -1422,37 +1424,32 @@ def _foldin_inputs(device, F, dtype, Bp, Dp, n_rows, seed, source):
     T_u[:, :F + 1] = rng.normal(0, 0.1, (Bp, F + 1))
     items = rng.integers(0, n_rows, (Bp, Dp)).astype(np.int32)
     vals = (rng.integers(1, 11, (Bp, Dp)) / 2).astype(np.float32)
-    lens = rng.integers(0, Dp + 1, Bp).astype(np.int32)
-    lens[::3] = 0
-    lens[1] = Dp
+    mask = rng.random((Bp, Dp)) < 0.6
+    mask[::3] = False
+    mask[1] = True
     table = torch.from_numpy(T_i).to(device, dtype)
     index = torch.from_numpy(items).to(device)
     if source == "assembled":
         table = table[index.reshape(-1).long()].to(torch.float32)
         index = torch.arange(Bp * Dp, dtype=torch.int32,
                              device=device).reshape(Bp, Dp)
+    else:
+        index[~torch.from_numpy(mask).to(device)] = n_rows + 7
     return (torch.from_numpy(T_u).to(device), table.contiguous(), index,
             torch.from_numpy(vals).to(device),
-            torch.from_numpy(lens).to(device))
+            torch.from_numpy(mask).to(device))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("F", WIDTH_FS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("source", ["direct", "assembled"])
-@pytest.mark.parametrize("Dp,n_steps", [(1, 7), (32, 1), (32, 100)])
-def test_foldin_kernel_matches_plain(cuda_device, F, dtype, source, Dp,
-                                     n_steps):
-    """K0c against ``fold_in_steps`` on the same inputs: rows within
+def _foldin_check(args, F, n_steps):
+    """K0c on ``args`` against ``fold_in_steps``: one launch, rows within
     1e-5 of max(1, |entry|) (the kernel contracts multiply-adds and sums
-    the dot in another order), slots with no ratings bit for bit."""
+    the dot in another order), slots with no ratings (and every slot at
+    ``n_steps`` 0) bit for bit."""
     from cu2rec_torch.ops import cuda_foldin
     from cu2rec_torch.ops.sgd import Hyper, prng_key
     from cu2rec_torch.serve.engine import fold_in_steps
 
     hp = Hyper(0.05, 0.02, 0.02, 0.03, 0.02)
-    args = _foldin_inputs(cuda_device, F, dtype, 37, Dp, 5000, F + Dp,
-                          source)
     n0 = cuda_foldin.LAUNCHES
     got = cuda_foldin.fold_in_cuda(*args, 3.5, hp, prng_key(42), n_steps, F)
     torch.cuda.synchronize()
@@ -1460,9 +1457,52 @@ def test_foldin_kernel_matches_plain(cuda_device, F, dtype, source, Dp,
     want = fold_in_steps(*args, 3.5, hp, prng_key(42), n_steps, F)
     err = (got - want).abs() / want.abs().clamp(min=1.0)
     assert float(err.max()) <= 1e-5
-    empty = args[4] == 0
+    empty = ~args[4].any(dim=1)
     assert torch.equal(got[empty], args[0][empty])
-    assert not torch.equal(got[~empty], args[0][~empty])
+    if n_steps == 0:
+        assert torch.equal(got, args[0])
+    else:
+        assert not torch.equal(got[~empty], args[0][~empty])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", WIDTH_FS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", ["direct", "assembled"])
+@pytest.mark.parametrize("Dp,n_steps", [(1, 7), (8, 0), (32, 1), (32, 100),
+                                        (33, 7), (100, 100)])
+def test_foldin_kernel_matches_plain(cuda_device, F, dtype, source, Dp,
+                                     n_steps):
+    """K0c against ``fold_in_steps`` on the same holey masks, at every
+    width and dtype: each of the lanes a row it takes (8: bf16 W = 64; 16:
+    float32 W = 64, bf16 W = 128; 32: float32 W = 128)."""
+    _foldin_check(_foldin_inputs(cuda_device, F, dtype, 37, Dp, 5000,
+                                 F + Dp, source), F, n_steps)
+
+
+@pytest.mark.gpu
+def test_foldin_takes_the_widest_group_of_lanes_that_fits(cuda_device):
+    """K0c's build holds one kernel a (W, dtype), with the widest of 8, 16
+    and 32 lanes a row that divides the row's 16-byte words and leaves a
+    lane at most six float4s (names as ``chip_smoke.py`` reports them)."""
+    import importlib.util
+    from pathlib import Path
+
+    from cu2rec_torch.csrc import build
+
+    build.load("foldin")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    names = {r[0] for r in smoke._ptxas_report(build.build_log("foldin"))
+             if r[0].startswith("foldin_kernel")}
+    assert names == {
+        "foldin_kernel<64,float32,16>", "foldin_kernel<128,float32,32>",
+        "foldin_kernel<256,float32,32>", "foldin_kernel<384,float32,32>",
+        "foldin_kernel<512,float32,32>", "foldin_kernel<64,bfloat16,8>",
+        "foldin_kernel<128,bfloat16,16>", "foldin_kernel<256,bfloat16,32>",
+        "foldin_kernel<384,bfloat16,16>", "foldin_kernel<512,bfloat16,32>"}
 
 
 @pytest.mark.gpu
@@ -1471,16 +1511,19 @@ def test_foldin_kernel_rejects_what_it_cannot_take(cuda_device):
     from cu2rec_torch.ops.sgd import Hyper, prng_key
 
     hp = Hyper(0.05, 0.02, 0.02, 0.02, 0.02)
-    T_u, table, index, vals, lens = _foldin_inputs(
+    T_u, table, index, vals, mask = _foldin_inputs(
         cuda_device, 16, torch.float32, 8, 4, 50, 0, "direct")
     with pytest.raises(ValueError, match="takes CUDA tensors"):
-        fold_in_cuda(T_u.cpu(), table, index, vals, lens, 3.5, hp,
+        fold_in_cuda(T_u.cpu(), table, index, vals, mask, 3.5, hp,
                      prng_key(0), 3, 16)
     with pytest.raises(ValueError, match="on cpu"):
-        fold_in_cuda(T_u, table.cpu(), index, vals, lens, 3.5, hp,
+        fold_in_cuda(T_u, table.cpu(), index, vals, mask, 3.5, hp,
                      prng_key(0), 3, 16)
     with pytest.raises(TypeError, match="int32"):
-        fold_in_cuda(T_u, table, index.long(), vals, lens, 3.5, hp,
+        fold_in_cuda(T_u, table, index.long(), vals, mask, 3.5, hp,
+                     prng_key(0), 3, 16)
+    with pytest.raises(TypeError, match="bool"):
+        fold_in_cuda(T_u, table, index, vals, mask.to(torch.uint8), 3.5, hp,
                      prng_key(0), 3, 16)
 
 
@@ -1505,3 +1548,38 @@ def test_engine_fold_in_on_card_is_one_foldin_launch(cuda_device, n_ip):
     cp, cb = cpu.fold_in(rated, vals, mask, init_rows=init)
     np.testing.assert_allclose(gp, cp, rtol=0, atol=1e-4)
     np.testing.assert_allclose(gb, cb, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ip", [1, 2])
+def test_engine_fold_in_on_card_takes_the_request_as_it_arrives(cuda_device,
+                                                                n_ip):
+    """The card engine's fold-in of a request with holes in its mask (an
+    empty row, a full one, garbage ids where masked), its default initial
+    rows drawn into pinned memory: one K0c launch, the CPU engine's rows,
+    and a batch of one gives row 0 of the batch."""
+    from cu2rec_torch.ops import cuda_foldin
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+    from cu2rec_torch.utils.config import Config
+
+    model, _ = _serving_model(cuda_device)
+    cpu_model, _ = _serving_model("cpu")
+    gpu = ShardedServingEngine(model, devices=[cuda_device] * n_ip)
+    cpu = ShardedServingEngine(cpu_model, devices=["cpu"] * n_ip)
+    rng = np.random.default_rng(4)
+    rated = rng.integers(0, 3001, (20, 40)).astype(np.int32)
+    vals = (rng.random((20, 40)) * 3).astype(np.float32)
+    mask = rng.random((20, 40)) < 0.5
+    mask[3], mask[4] = False, True
+    rated[~mask] = -1
+    cfg = Config(total_iterations=50, n_factors=16, seed=5, is_train=False)
+    n0 = cuda_foldin.LAUNCHES
+    gp, gb = gpu.fold_in(rated, vals, mask, cfg)
+    assert cuda_foldin.LAUNCHES == n0 + 1
+    cp, cb = cpu.fold_in(rated, vals, mask, cfg)
+    np.testing.assert_allclose(gp, cp, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gb, cb, rtol=0, atol=1e-4)
+    init = gpu.fold_in(rated, vals, mask, cfg.replace(total_iterations=0))
+    np.testing.assert_array_equal(gp[3], init[0][3])
+    one = gpu.fold_in(rated[:1], vals[:1], mask[:1], cfg)
+    np.testing.assert_array_equal(one[0][0], gp[0])

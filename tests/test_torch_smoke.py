@@ -455,7 +455,9 @@ def test_foldin_check_rejects_a_shifted_counter(dtype):
     assert len(sets) == 2
     args = sets[0]
     assert args[1].dtype == dtype and args[1].shape == (500, 64)
-    assert bool(((args[4] >= 2) & (args[4] <= 8)).all())
+    lens = args[4].sum(dim=1)
+    assert bool(((lens >= 2) & (lens <= 8)).all())
+    assert torch.equal(args[4], torch.arange(8)[None, :] < lens[:, None])
     key = prng_key(3)
     want = fold_in_steps(*args, 3.5, smoke._hp(), key, 40, 16)
     assert smoke._fold_err(torch, want, want) == 0.0
@@ -464,6 +466,78 @@ def test_foldin_check_rejects_a_shifted_counter(dtype):
     assert smoke._fold_err(torch, want, fold_in_steps(
         *args, 3.5, smoke._hp(), key, 40, 16)) == 0.0   # restored
     one = (args[0], args[1], args[2][:, :1].contiguous(),
-           args[3][:, :1].contiguous(), torch.ones_like(args[4]))
+           args[3][:, :1].contiguous(), args[4][:, :1].contiguous())
     assert smoke._sampled_rows(torch, key, one[2], one[4], 5) == \
         torch.unique(one[2]).numel()
+
+
+@pytest.mark.parametrize("n_ip", [1, 2])
+def test_fold_stages_split_a_batch_and_leave_the_engine_as_it_was(n_ip):
+    """Phase 11 (b)'s stage timers on a CPU engine: every stage of
+    FOLD_STAGES a batch, none negative beyond the clock's jitter, their sum
+    the batch's total; the rows assembled only over several shards; the
+    engine's methods and the kernel's wrapper put back."""
+    from _torch_serving_util import planted_arrays
+
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops import cuda_foldin
+    from cu2rec_torch.serve.engine import ShardedServingEngine
+    from cu2rec_torch.utils.config import Config
+
+    smoke = _smoke()
+    tables, _ = planted_arrays()
+    eng = ShardedServingEngine(model_from_numpy(tables, "cpu"),
+                               devices=["cpu"] * n_ip)
+    rng = np.random.default_rng(0)
+    fold = (rng.integers(0, 300, (6, 5)).astype(np.int32),
+            np.full((6, 5), 3.0, np.float32), rng.random((6, 5)) < 0.7)
+    cfg = Config(total_iterations=20, n_factors=16, is_train=False)
+    kernel = cuda_foldin.fold_in_cuda
+    batches = smoke._fold_stages(eng, fold, cfg, 3)
+    assert len(batches) == 3
+    for b in batches:
+        assert set(b) == {"total", *smoke.FOLD_STAGES}
+        assert all(b[k] > -0.05 for k in smoke.FOLD_STAGES)
+        assert sum(b[k] for k in smoke.FOLD_STAGES) == pytest.approx(
+            b["total"], abs=1e-6)
+        assert b["launch"] == 0.0            # the CPU runs the plain loop
+        assert (b["assemble"] > 0) == (n_ip > 1)
+    assert cuda_foldin.fold_in_cuda is kernel
+    assert not {"fold_in_padded", "_default_init", "_upload", "_fold_in",
+                "_rows"} & set(vars(eng))
+
+
+def test_foldin_holey_inputs_mask_out_ids_past_the_catalog():
+    """Phase 4's holey case: every eighth user has no rating, the others
+    about 60% of their columns in no order, and every masked-out id lies
+    past the catalog, which the plain fold-in never reads."""
+    from cu2rec_torch.ops.sgd import prng_key
+    from cu2rec_torch.serve.engine import fold_in_steps
+
+    smoke = _smoke()
+    (args,) = smoke._fold_inputs(torch, torch.device("cpu"), 1, 400, 16,
+                                 24, 33, 0, torch.float32, 1, True)
+    mask = args[4]
+    assert not mask[3::8].any() and bool(mask.any(dim=1)[:3].all())
+    assert not bool(mask.all(dim=1).any())       # holes in every row
+    assert bool((args[2][~mask] == 407).all())
+    assert bool((args[2][mask] < 400).all())
+    out = fold_in_steps(*args, 3.5, smoke._hp(), prng_key(1), 20, 16)
+    assert torch.equal(out[3::8], args[0][3::8])
+    assert smoke._sampled_rows(torch, prng_key(1), args[2], mask, 20) > 0
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN41_GLOBAL__N__03227e47_9_foldin_cu_21312c7d13foldin_kernelINS_10"
+     "FoldLayoutILi128EfLi32EEEEEvPKfPfPKNT_4ElemEPKiS4_PKhiiiiffffjj",
+     "foldin_kernel<128,float32,32>"),
+    ("_ZN41_GLOBAL__N__03227e47_9_foldin_cu_21312c7d13foldin_kernelINS_10"
+     "FoldLayoutILi64E13__nv_bfloat16Li8EEEEEvPKfPfPKNT_4ElemEPKiS5_PKhiiii"
+     "ffffjj", "foldin_kernel<64,bfloat16,8>"),
+    ("_ZN41_GLOBAL__N__3523bec8_9_foldin_cu_512ffaf313foldin_kernelI9RowLa"
+     "youtILi128EfEEEvPKfPfPKNT_4ElemEPKiS4_SB_iiiiffffjj",
+     "foldin_kernel<128,float32>")])
+def test_kernel_names_read_every_template_argument(mangled, name):
+    """Phase 2's names of the ``-Xptxas -v`` report: the row width, the
+    element type and, for K0c, the lanes a row."""
+    assert _smoke()._kernel_name(mangled) == name
