@@ -54,23 +54,30 @@ fatal on failure:
    ``--seed``): one recommend of 512 known users, 256 explicit fold-ins,
    256 implicit fold-ins and a stats request, each checked (k items, rated
    items excluded, scores against a float64 reference for a sample), with
-   the kernels' launch counts read across the run (K1 by the implicit
-   wave only, K0c by the explicit wave only).  Each wave is timed
+   the kernels' launch counts read across the run (K1 and K4 by the
+   implicit wave only, K0c by the explicit wave only).  Each wave is timed
    without a profiler, then sent again under ``torch.profiler``; that
    replay gives the card's busy time and its top kernels;
 7. families: ALS, iALS and BPR at the headline widths.  ALS trains 5
    sweeps (F=100, regs 0.05) on ``data/synth.py::generate_planted`` draws
    (22,200,000, split 90/10, ≥ 100 items above the heavy edge of 8,192
    ratings) and its test RMSE must fall below sweep 1's and the global
-   mean's; each half sweep is timed with CUDA events, one sweep runs under
-   the profiler (K1's share of its device time), and K1 is held against
-   its plain version on the item sweep's largest regular chunk and on a
-   heavy chunk.  iALS trains 5 sweeps (alpha 40) on implicit planted data
-   built on the card (20,000,000 draws): AUC ≥ 0.65 and recall@10 ≥
-   5·10/I at sweep 5.  BPR runs three steps on the card and on the CPU
+   mean's; each half sweep is timed with CUDA events; K4 (the gather-Gram)
+   is held against its plain version on each half sweep's largest regular
+   chunk and its heavy chunk (within 1e-5 of each sum's |X|ᵀ|X| + 1e-6,
+   the same bits twice) and timed beside its bound and the gather +
+   ``torch.bmm`` it replaces; one sweep runs under the profiler (K4's and
+   K1's shares of its device time, its bound by full Grams and by the
+   triangle), and K1 is held against its plain version on the item
+   sweep's largest regular chunk and on a heavy chunk, as K4 assembles
+   them.  iALS trains 5 sweeps (alpha 40) on implicit planted data built
+   on the card (20,000,000 draws): AUC ≥ 0.65 and recall@10 ≥ 5·10/I at
+   sweep 5; K4 is held and timed on its chunks as for ALS (its data has no
+   heavy chunk: K4's iALS mode is held on ALS's heavy item chunk).  BPR runs
+   three steps on the card and on the CPU
    (the same ids, tables within 1e-5), then trains 2,000 iterations: AUC
    ≥ 0.6 and above iteration 1's.  Last, ``mf --algo als|ials|bpr`` on
-   ML-100K-shaped planted CSVs (K1 and K0b launched);
+   ML-100K-shaped planted CSVs (K1, K4 and K0b launched);
 8. pipeline: the preprocessing journey through the CLIs at ML-20M scale:
    ``synth --preset ml20m`` (138,000 users x 27,000 items x 20,000,000
    planted ratings), ``map_items``, ``split`` 90/10 (its fast path),
@@ -136,8 +143,8 @@ fatal on failure:
    shards on the card, every recommend within rtol 1e-5 and every
    implicit fold-in within 1e-3 of phase 6's responses, the explicit
    wave's rows (in one batch) within 1e-6 of one device's and the
-   implicit rows within K1's tolerance, K1 launched by the implicit wave
-   only and K0c by the explicit wave only (one launch a fold-in batch,
+   implicit rows within K1's tolerance, K1 and K4 launched by the implicit
+   wave only and K0c by the explicit wave only (one launch a fold-in batch,
    after one assembly of the rows over the shards); each wave's latency
    and requests/s beside phase 6's; (b) the TPU package's serving probe
    shape (1,000,000 items, F=64, batch 512, k=10, fold-ins of 32 ratings
@@ -314,6 +321,10 @@ def phase_build():
         for fn, regs, spill, smem in report:
             log(f"[build] {name}: {fn}: {regs} registers a thread, {spill} "
                 f"bytes spilled, {smem} bytes of static shared memory")
+            # K4 keeps each thread's 64 sums in registers: a spill would
+            # put them in local memory.
+            require(name != "gather_gram" or spill == 0,
+                    f"{name}: {fn} spills {spill} bytes")
     return registers
 
 
@@ -1123,7 +1134,7 @@ def _predictions(text: str):
 def phase_predict(seed: int, workdir: Path, out: Path, card: str,
                   device: str = "cuda"):
     from cu2rec_torch.cli import predict
-    from cu2rec_torch.ops import cuda_linalg, cuda_sgd
+    from cu2rec_torch.ops import cuda_gram, cuda_linalg, cuda_sgd
 
     rng = np.random.default_rng(seed + 4)
     rated = rng.choice(I, 20, replace=False)
@@ -1141,12 +1152,16 @@ def phase_predict(seed: int, workdir: Path, out: Path, card: str,
             ("explicit", []),
             ("implicit", ["--implicit", "--alpha", "40", "--reg", "0.1"])):
         cuda_sgd.LAUNCHES.clear()
-        cuda_linalg.LAUNCHES = 0
+        cuda_linalg.LAUNCHES = cuda_gram.LAUNCHES = 0
         t0 = time.perf_counter()
         text = _capture(predict.main, args + extra)
         wall = time.perf_counter() - t0
         launches[mode] = (cuda_sgd.LAUNCHES.total() if mode == "explicit"
                           else cuda_linalg.LAUNCHES)
+        if mode == "implicit":
+            launches["implicit_gram"] = cuda_gram.LAUNCHES
+            require(device == "cpu" or cuda_gram.LAUNCHES > 0,
+                    "implicit predict launched no gather_gram")
         scores, ranks = _predictions(text)
         require(len(scores) == I and np.all(np.isfinite(scores)),
                 f"{mode} predict: {len(scores)} predictions, want {I}")
@@ -1164,7 +1179,8 @@ def phase_predict(seed: int, workdir: Path, out: Path, card: str,
                 f"{mode} predict launched no kernel")
         log(f"[predict] {mode}: {len(scores)} predictions, {len(ranks)} "
             f"ranked, rated items absent, {launches[mode]} kernel "
-            f"launches, {wall:.2f} s wall on {card}")
+            f"launches (gather_gram {launches.get('implicit_gram', 0)}), "
+            f"{wall:.2f} s wall on {card}")
     return launches
 
 
@@ -1247,27 +1263,29 @@ def _union_us(spans) -> float:
 
 
 def _launch_counts():
-    """(K1's launches, K0c's launches) so far in this process: the probe
+    """(K1's, K0c's, K4's launches) so far in this process: the probe
     ``_WaveInput`` reads as each wave starts and ends."""
-    from cu2rec_torch.ops import cuda_foldin, cuda_linalg
+    from cu2rec_torch.ops import cuda_foldin, cuda_gram, cuda_linalg
 
-    return cuda_linalg.LAUNCHES, cuda_foldin.LAUNCHES
+    return cuda_linalg.LAUNCHES, cuda_foldin.LAUNCHES, cuda_gram.LAUNCHES
 
 
 def _wave_launches(inp, label: str):
-    """(K1, K0c) launches by serving wave (recommend, explicit fold-in,
-    implicit fold-in) from ``_launch_counts`` probes: K1 by the implicit
-    fold-ins only, K0c by the explicit fold-ins only."""
-    k1, k0c = ([b[i] - a[i] for a, b in inp.counts[:3]] for i in (0, 1))
-    require(k1[2] > 0, f"{label}: ridge_cholesky was not launched by the "
-            "implicit fold-ins")
-    require(k1[0] == k1[1] == 0, f"{label}: ridge_cholesky launched outside "
-            "the implicit fold-ins")
+    """(K1, K0c, K4) launches by serving wave (recommend, explicit fold-in,
+    implicit fold-in) from ``_launch_counts`` probes: K1 and K4 by the
+    implicit fold-ins only, K0c by the explicit fold-ins only."""
+    k1, k0c, k4 = ([b[i] - a[i] for a, b in inp.counts[:3]]
+                   for i in (0, 1, 2))
+    for name, k in (("ridge_cholesky", k1), ("gather_gram", k4)):
+        require(k[2] > 0, f"{label}: {name} was not launched by the "
+                "implicit fold-ins")
+        require(k[0] == k[1] == 0, f"{label}: {name} launched outside the "
+                "implicit fold-ins")
     require(k0c[1] > 0, f"{label}: foldin was not launched by the explicit "
             "fold-ins")
     require(k0c[0] == k0c[2] == 0, f"{label}: foldin launched outside the "
             "explicit fold-ins")
-    return k1, k0c
+    return k1, k0c, k4
 
 
 def _device_breakdown(torch, prof, top: int = 6, outside: str | None = None):
@@ -1401,7 +1419,7 @@ def _wave_times(waves, inp, out):
 
 def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
     from cu2rec_torch.cli.serve import main as serve_main
-    from cu2rec_torch.ops import cuda_foldin, cuda_linalg
+    from cu2rec_torch.ops import cuda_foldin, cuda_gram, cuda_linalg
 
     rng = np.random.default_rng(seed + 1)
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
@@ -1417,7 +1435,7 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
                          lambda prof: _has_device_time(torch, prof))
         saved = sys.stdin, sys.stdout
         sys.stdin, sys.stdout = inp, out
-        cuda_linalg.LAUNCHES = cuda_foldin.LAUNCHES = 0
+        cuda_linalg.LAUNCHES = cuda_foldin.LAUNCHES = cuda_gram.LAUNCHES = 0
         t0 = time.perf_counter()
         try:
             # A 20 ms batching window (default 4) so that each wave of
@@ -1429,7 +1447,8 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
         finally:
             sys.stdin, sys.stdout = saved
         launches = {"ridge_cholesky": cuda_linalg.LAUNCHES,
-                    "foldin": cuda_foldin.LAUNCHES}
+                    "foldin": cuda_foldin.LAUNCHES,
+                    "gather_gram": cuda_gram.LAUNCHES}
         wall = time.perf_counter() - t0
     require(rc == 0, f"serve exited with {rc}")
 
@@ -1443,7 +1462,7 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
     stats = out.resp["stats"]
     require(stats["device"].startswith("cuda"),
             f"the engine's tables are on {stats['device']}")
-    per_wave, k0c_wave = _wave_launches(inp, "serve")
+    per_wave, k0c_wave, k4_wave = _wave_launches(inp, "serve")
 
     Q = tables["q"].astype(np.float64)
     ib = tables["item_bias"].astype(np.float64)
@@ -1491,7 +1510,8 @@ def phase_serve(torch, seed: int, card: str, device: str = "cuda"):
         f"and the profiled replays) on {card}")
     log(f"[serve] launches in the run (warm-up ladder and replays "
         f"included): {launches}; by wave (recommend, explicit, implicit) "
-        f"ridge_cholesky {per_wave}, foldin {k0c_wave}; stats: "
+        f"ridge_cholesky {per_wave}, foldin {k0c_wave}, gather_gram "
+        f"{k4_wave}; stats: "
         f"{json.dumps(stats)}")
     for what, (prof, t0, attempt), wave, wave_s in zip(
             ("recommend", "explicit fold-in", "implicit fold-in"),
@@ -1673,6 +1693,142 @@ def _family_cfg(seed: int, **kw):
         .replace(**kw)
 
 
+# K4 against its plain version: elementwise within 1e-5 of the same sum of
+# absolute values (``gram_scale``, the epilogue's terms added) + 1e-6,
+# float32 sums of up to 8,192 terms in another order.  The gate holds K4
+# against the plain version evaluated in float64: on a trained heavy ALS
+# chunk the float32 plain version (gather + bmm) is itself further than
+# that from the exact sums (each ``[gram]`` line prints how far), so its
+# distance to K4 is printed beside the gate, not gated.
+GRAM_RTOL, GRAM_ATOL = 1e-5, 1e-6
+
+
+def _gram_cases(torch, chunks, T_other, family: str, mu: float = 0.0):
+    """The ``gather_gram`` arguments of a half sweep's largest regular chunk
+    (by slots) and of its first heavy chunk, as the sweep passes them:
+    {kind: (args, kwargs, epilogue)}."""
+    from cu2rec_torch.ops import als
+    from cu2rec_torch.ops.cuda_gram import gram_rows
+    from cu2rec_torch.ops.ials import gramian
+
+    regs, heavies = als.split_chunks(chunks)
+    picked = {"regular": max(regs, key=lambda ch: ch[0].numel())}
+    if heavies:
+        picked["heavy"] = heavies[0]
+    dev = T_other.device
+    if family == "als":
+        Tx = als.design_table(T_other, F)
+        rows, n = Tx.rows, F + 1
+        mode = dict(mu=torch.tensor(mu, device=dev))
+        reg = als.reg_vector(FAMILY_REG, FAMILY_REG, F, dev)
+    else:
+        rows, n = gram_rows(T_other), F
+        mode = dict(alpha=ALPHA)
+        G_global = gramian(T_other)
+    cases = {}
+    for kind, ch in picked.items():
+        cols, vals, mask = ch[:3]
+        epi = {}
+        if kind == "regular":
+            epi = (dict(reg_vec=reg, deg=mask.sum(dim=1).to(torch.float32))
+                   if family == "als" else
+                   dict(G_global=G_global, reg=FAMILY_REG))
+        cases[kind] = ((rows, cols, vals, mask, n), mode, epi)
+    return cases
+
+
+def _check_gram(torch, cases, label: str, card: str):
+    """K4 (uncounted launches) against its plain version on each case:
+    within the Gram tolerance of the plain version in float64, the same
+    bits in two calls, its distance to the float32 plain version and that
+    one's own to float64 printed; its time with the stream held, the plain
+    version's and the library's (the gather and ``torch.bmm`` / ``einsum``
+    of the plain version, no epilogue) and the bound of this chunk's work
+    (``gram_work``: distinct rows read once)."""
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.experiments.gram_times import gram_scale, gram_work
+    from cu2rec_torch.ops import cuda_gram as cg
+
+    def plain(args, mode, epi, dtype=torch.float32):
+        rows, idx, vals, mask, n = args
+        mode = {k: (v.to(dtype) if torch.is_tensor(v) else v)
+                for k, v in mode.items()}
+        G, rhs = cg.gram_rhs_reference(rows.to(dtype), idx, vals.to(dtype),
+                                       mask, n, **mode)
+        if "reg_vec" in epi:
+            G = cg.add_ridge(G, epi["reg_vec"].to(dtype), epi["deg"].to(
+                dtype))
+        if "G_global" in epi:
+            G = cg.add_global(G, epi["G_global"].to(dtype), epi["reg"])
+        return G, rhs
+
+    def excess(got, want, scale):
+        """(max |got − want|, max of |got − want| − rtol·scale)."""
+        out = (0.0, float("-inf"))
+        for g, w, sc in zip(got, want, scale):
+            d = (g.to(w.dtype) - w).abs()
+            out = (max(out[0], float(d.max())),
+                   max(out[1], float((d - GRAM_RTOL * sc).max())))
+        return out
+
+    out = {}
+    for kind, (args, mode, epi) in cases.items():
+        kw = {**mode, **epi}
+        got = cg._launch(*args, **kw)
+        again = cg._launch(*args, **kw)
+        want = plain(args, mode, epi)
+        exact = plain(args, mode, epi, torch.float64)
+        SG, Sr = gram_scale(*args, **mode)
+        if "reg_vec" in epi:
+            SG = cg.add_ridge(SG, epi["reg_vec"], epi["deg"])
+        if "G_global" in epi:
+            SG = cg.add_global(SG, epi["G_global"].abs(), epi["reg"])
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"gather_gram {label} {kind}: two calls differ")
+        err, _ = excess(got, want, (SG, Sr))
+        err64, past = excess(got, exact, (SG, Sr))
+        _, plain_past = excess(want, exact, (SG, Sr))
+        require(past <= GRAM_ATOL and all(
+            bool(torch.isfinite(t).all()) for t in got),
+            f"gather_gram {label} {kind} disagrees with its plain version "
+            f"in float64: max abs err {err64:.3e}, {past:.3e} past "
+            f"{GRAM_RTOL:g} of the sum's scale")
+        del exact
+        rows, idx, vals, mask, n = args
+        live = int(mask.sum())
+        distinct = int(torch.unique(idx[mask]).numel())
+        B, D = vals.shape
+        n_bytes, n_ops = gram_work(n, B, B * D, live, distinct,
+                                      ials="alpha" in mode,
+                                      epilogue=bool(epi))
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        t = {"ms": time_ms(lambda: cg._launch(*args, **kw), [()], reps=5,
+                           hold=True),
+             "plain_ms": time_ms(lambda: plain(args, mode, epi), [()],
+                                 reps=3),
+             "library_ms": time_ms(
+                 lambda: cg.gram_rhs_reference(*args, **mode), [()],
+                 reps=3)}
+        del got, again, want, SG, Sr
+        out[kind] = dict(t, B=B, D=D, n=n, live=live, distinct=distinct,
+                         max_abs_err=err, max_abs_err_float64=err64,
+                         plain_past_float64=plain_past, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=n_bytes, flops=n_ops)
+        log(f"[gram] {label} {kind} chunk B={B} D={D} n={n} ({live} live "
+            f"slots, {distinct} distinct rows): K4 {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library (gather + bmm/einsum) "
+            f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP),"
+            f" max abs err {err64:.3e} from the plain version in float64 "
+            f"(within rtol {GRAM_RTOL:g} of |X|ᵀ|X| + atol {GRAM_ATOL:g}; "
+            f"{past:.2e} past the rtol), {err:.3e} from it in float32 (that "
+            f"one {plain_past:.2e} past the rtol from float64), the same "
+            f"bits twice; {card}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def _check_systems(torch, pm, item_chunks, mu: float, card: str):
     """The item half sweep's systems of its largest regular chunk and of
     one heavy chunk, assembled as the sweep assembles them: K1's θ (an
@@ -1715,6 +1871,32 @@ def _check_systems(torch, pm, item_chunks, mu: float, card: str):
     return out
 
 
+def _gram_entry(measured, launches: int, registers) -> dict:
+    """K4's record of the ``{"kernels": [...]}`` line: its times on the ALS
+    item sweep's largest regular chunk (the heavy chunk's and the other
+    cases' beside them), the TPU code whose semantics it takes, and its
+    launches on the main paths."""
+    cases = {fam: measured[fam]["gram"] for fam in ("als", "ials")}
+    reg = cases["als"]["items"]["regular"]
+    sites = [_tpu_kernel_site("ops/als.py", "def _solve_bucket_weighted"),
+             _tpu_kernel_site("ops/als.py", "def _solve_heavy"),
+             _tpu_kernel_site("ops/ials.py", "def _solve_ials_bucket"),
+             _tpu_kernel_site("ops/ials.py", "def _solve_ials_heavy")]
+    return {"name": "gather_gram", "route": "cuda",
+            "source": "cu2rec_torch/csrc/gather_gram.cu", "replaces": None,
+            "semantics": " ".join(sites) + " (the chunk programs' gather "
+            "and einsums)", "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for fam in cases.values()
+                               for side in fam.values()
+                               for c in side.values()),
+            "ms": reg["ms"], "plain_ms": reg["plain_ms"],
+            "bound_ms": reg["bound_ms"], "bound_by": reg["bound_by"],
+            "library_ms": reg["library_ms"],
+            "shape": {k: reg[k] for k in ("B", "D", "n", "live", "distinct")},
+            "heavy": cases["als"]["items"].get("heavy"), "cases": cases,
+            "registers": registers}
+
+
 def _profile_sweep(torch, pm, user_chunks, item_chunks, mu: float,
                    card: str):
     """One ALS sweep (both half sweeps) under torch.profiler, after one
@@ -1734,25 +1916,35 @@ def _profile_sweep(torch, pm, user_chunks, item_chunks, mu: float,
     busy_s, ops = _device_breakdown(torch, prof, top=10_000)
     k1_ms = sum(ms for k, ms, _n in ops if "ridge" in k)
     k1_n = sum(n for k, _ms, n in ops if "ridge" in k)
-    # The sweep's bound: each padded slot's design row (F + 1 floats)
-    # gathered once, and its Gram and rhs products at the float32 peak.
+    k4_ms = sum(ms for k, ms, _n in ops if "gather_gram" in k)
+    k4_n = sum(n for k, _ms, n in ops if "gather_gram_sums" in k)
+    # The sweep's bound: each padded slot's design row (N = F + 1 floats)
+    # gathered once, and its Gram and rhs products at the float32 peak:
+    # the full N × (N + 1) products a slot, as bmm computes them, and the
+    # lower triangle and rhs, N(N + 1)/2 + N, which is all K4 needs.
+    N = F + 1
     slots = sum(ch[1].numel() for ch in (*user_chunks, *item_chunks))
-    n_bytes, n_ops = 4 * (F + 1) * slots, 2 * slots * (F + 1) * (F + 2)
+    n_bytes, n_ops = 4 * N * slots, 2 * slots * N * (N + 1)
     bound_ms, bound_by = _bound(n_bytes, n_ops)
+    tri_ms, tri_by = _bound(n_bytes, 2 * slots * (N * (N + 1) // 2 + N))
+    busy_ms = busy_s * 1e3
     log(f"[als] one sweep under the profiler: {host_s * 1e3:.1f} ms host, "
-        f"device busy {busy_s * 1e3:.3f} ms; K1 {k1_ms:.3f} ms in {k1_n} "
-        f"launches, {k1_ms / (busy_s * 1e3):.1%} of the device time "
+        f"device busy {busy_ms:.3f} ms; K4 {k4_ms:.3f} ms in {k4_n} "
+        f"launches ({k4_ms / busy_ms:.1%}), K1 {k1_ms:.3f} ms in {k1_n} "
+        f"launches ({k1_ms / busy_ms:.1%} of the device time) "
         f"({len(user_chunks)} user and {len(item_chunks)} item chunks, "
         f"{slots} padded slots); the sweep's bound {bound_ms:.3f} ms "
-        f"({bound_by}: {n_ops / 1e12:.3f} TFLOP, {n_bytes / 1e9:.2f} GB) on "
-        f"{card}; top: " + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}"
-                                     for k, ms, n in ops[:8]))
-    return {"busy_ms": busy_s * 1e3, "k1_ms": k1_ms, "host_ms": host_s * 1e3,
-            "slots": slots, "bound_ms": bound_ms, "bound_by": bound_by}
+        f"({bound_by}: {n_ops / 1e12:.3f} TFLOP full Grams, "
+        f"{n_bytes / 1e9:.2f} GB), {tri_ms:.3f} ms counting the triangle "
+        f"({tri_by}) on {card}; top: " + "; ".join(
+            f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in ops[:8]))
+    return {"busy_ms": busy_ms, "k1_ms": k1_ms, "k4_ms": k4_ms,
+            "host_ms": host_s * 1e3, "slots": slots, "bound_ms": bound_ms,
+            "bound_by": bound_by, "triangle_bound_ms": tri_ms}
 
 
 def _als_run(torch, dev, seed: int, card: str):
-    from cu2rec_torch.ops import cuda_linalg, cuda_loss
+    from cu2rec_torch.ops import cuda_gram, cuda_linalg, cuda_loss
     from cu2rec_torch.ops.packed import pack
     from cu2rec_torch.train.als import sweep_chunks, train_als
     from cu2rec_torch.utils.metrics import MetricsLogger
@@ -1767,14 +1959,15 @@ def _als_run(torch, dev, seed: int, card: str):
         f"test RMSE {mean_rmse:.6f}")
     require(heavy >= MIN_HEAVY, f"{heavy} heavy items, want >= {MIN_HEAVY}")
     logger = MetricsLogger(verbose=False)
-    cuda_linalg.LAUNCHES = 0
+    cuda_linalg.LAUNCHES = cuda_gram.LAUNCHES = 0
     cuda_loss.LAUNCHES.clear()
     t0 = time.perf_counter()
     model, _losses = train_als(train_csr, test_csr, _family_cfg(seed), mu,
                                logger=logger, device=dev)
     wall = time.perf_counter() - t0
     launches = {"ridge_cholesky": cuda_linalg.LAUNCHES,
-                "eval_error": cuda_loss.LAUNCHES.total()}
+                "eval_error": cuda_loss.LAUNCHES.total(),
+                "gather_gram": cuda_gram.LAUNCHES}
     require(all(launches.values()), f"train_als launched {launches}")
     recs = [r for r in logger.history if r["event"] == "eval"]
     _gate_als([r["test_rmse"] for r in recs], mean_rmse)
@@ -1788,6 +1981,18 @@ def _als_run(torch, dev, seed: int, card: str):
     pm = pack(model)
     user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
                                             device_buckets=True)
+    gram = {side: _check_gram(torch, _gram_cases(torch, chunks, T, "als",
+                                                 mu), f"ALS {side}", card)
+            for side, chunks, T in (("users", user_chunks, pm.T_i),
+                                    ("items", item_chunks, pm.T_u))}
+    require("heavy" in gram["items"], "the item half sweep has no heavy "
+            "chunk")
+    # iALS's planted data has no item above the heavy edge: K4's iALS mode
+    # is held on this heavy chunk, over the trained user factors.
+    ials_heavy = _gram_cases(torch, item_chunks, pm.T_u[:, :F],
+                             "ials")["heavy"]
+    gram["items, iALS mode"] = _check_gram(torch, {"heavy": ials_heavy},
+                                           "iALS mode, ALS items", card)
     systems = _check_systems(torch, pm, item_chunks, mu, card)
     profile = _profile_sweep(torch, pm, user_chunks, item_chunks, mu, card)
     del model, pm, user_chunks, item_chunks
@@ -1795,11 +2000,12 @@ def _als_run(torch, dev, seed: int, card: str):
     return launches, {"half_sweep_ms": [r["half_sweep_ms"] for r in recs],
                       "test_rmse": [r["test_rmse"] for r in recs],
                       "mean_rmse": mean_rmse, "heavy_items": heavy,
-                      "systems": systems, "profile": profile}
+                      "gram": gram, "systems": systems, "profile": profile}
 
 
 def _ials_run(torch, dev, seed: int, card: str):
-    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.ops import cuda_gram, cuda_linalg
+    from cu2rec_torch.train.als import sweep_chunks
     from cu2rec_torch.train.ials import train_ials
     from cu2rec_torch.utils.metrics import MetricsLogger
 
@@ -1810,13 +2016,14 @@ def _ials_run(torch, dev, seed: int, card: str):
         f"train and {test_csr.nnz} test pairs of {IMPLICIT_DRAWS} draws "
         f"({time.perf_counter() - t0:.1f} s); oracle AUC {oracle:.4f}")
     logger = MetricsLogger(verbose=False)
-    cuda_linalg.LAUNCHES = 0
+    cuda_linalg.LAUNCHES = cuda_gram.LAUNCHES = 0
     t0 = time.perf_counter()
-    train_ials(train_csr, test_csr, _family_cfg(seed), alpha=ALPHA,
-               logger=logger, device=dev)
+    model, _ = train_ials(train_csr, test_csr, _family_cfg(seed),
+                          alpha=ALPHA, logger=logger, device=dev)
     wall = time.perf_counter() - t0
-    launches = cuda_linalg.LAUNCHES
-    require(launches > 0, "train_ials launched no K1")
+    launches = {"ridge_cholesky": cuda_linalg.LAUNCHES,
+                "gather_gram": cuda_gram.LAUNCHES}
+    require(all(launches.values()), f"train_ials launched {launches}")
     rows = _history_rows(logger)
     _gate_ials(rows, I)
     for r, (it, auc, rec, ndcg) in zip(
@@ -1825,12 +2032,20 @@ def _ials_run(torch, dev, seed: int, card: str):
             f" ms, item half sweep {r['half_sweep_ms'][1]:.3f} ms (CUDA "
             f"events); AUC {auc:.4f}, recall@10 {rec:.4f}, ndcg@10 "
             f"{ndcg:.4f}")
-    log(f"[ials] train_ials: {wall:.1f} s wall; K1 launches {launches}; "
+    log(f"[ials] train_ials: {wall:.1f} s wall; launches {launches}; "
         f"oracle AUC {oracle:.4f}; on {card}")
+    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
+                                            device_buckets=True)
+    gram = {side: _check_gram(torch, _gram_cases(torch, chunks, T, "ials"),
+                              f"iALS {side}", card)
+            for side, chunks, T in (("users", user_chunks, model.Q),
+                                    ("items", item_chunks, model.P))}
+    del model, user_chunks, item_chunks
+    torch.cuda.empty_cache()
     return launches, (train_csr, test_csr), {
         "half_sweep_ms": [r["half_sweep_ms"] for r in logger.history
                           if r["event"] == "eval"],
-        "metrics": rows, "oracle_auc": oracle}
+        "metrics": rows, "oracle_auc": oracle, "gram": gram}
 
 
 def _bpr_run(torch, dev, seed: int, csrs, card: str):
@@ -1934,10 +2149,10 @@ def _family_csvs(seed: int, workdir: Path):
 
 def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
     """``mf --algo als|ials|bpr`` on the planted CSVs: exit 0, every metric
-    line parses, the five component CSVs, and K1 (ALS, iALS) and K0b
-    (ALS) launched.  Returns {algo: {kernel: launches}}."""
+    line parses, the five component CSVs, and K1 and K4 (ALS, iALS) and
+    K0b (ALS) launched.  Returns {algo: {kernel: launches}}."""
     from cu2rec_torch.cli import mf
-    from cu2rec_torch.ops import cuda_linalg, cuda_loss
+    from cu2rec_torch.ops import cuda_gram, cuda_linalg, cuda_loss
 
     paths = _family_csvs(seed, workdir)
     # cur total F lr seed P_reg Q_reg ub_reg ib_reg n_threads check_error
@@ -1955,7 +2170,7 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
         cfg = workdir / f"{algo}.cfg"
         cfg.write_text(cfg_text)
         out = workdir / f"out_{algo}"
-        cuda_linalg.LAUNCHES = 0
+        cuda_linalg.LAUNCHES = cuda_gram.LAUNCHES = 0
         cuda_loss.LAUNCHES.clear()
         t0 = time.perf_counter()
         text = _capture(mf.main, ["-c", str(cfg), paths[kind, "train"],
@@ -1963,7 +2178,8 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
                                   "--outdir", str(out), "--device", device])
         wall = time.perf_counter() - t0
         launches[algo] = {"ridge_cholesky": cuda_linalg.LAUNCHES,
-                          "eval_error": cuda_loss.LAUNCHES.total()}
+                          "eval_error": cuda_loss.LAUNCHES.total(),
+                          "gather_gram": cuda_gram.LAUNCHES}
         if algo == "als":
             metrics = [METRIC_LINE.match(ln) for ln in text.splitlines()
                        if ln.startswith(("TRAIN:", "TEST:"))]
@@ -1976,8 +2192,8 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
         for comp in ("p", "q", "user_bias", "item_bias", "global_bias"):
             require((out / f"{kind}_train_f{F}_{comp}.csv").exists(),
                     f"mf --algo {algo}: {comp} CSV missing")
-        want = {"als": ("ridge_cholesky", "eval_error"),
-                "ials": ("ridge_cholesky",), "bpr": ()}[algo]
+        want = {"als": ("ridge_cholesky", "eval_error", "gather_gram"),
+                "ials": ("ridge_cholesky", "gather_gram"), "bpr": ()}[algo]
         require(device == "cpu" or all(launches[algo][k] for k in want),
                 f"mf --algo {algo} launched {launches[algo]}")
         log(f"[mf] --algo {algo} on {ML100K[0]} x {ML100K[1]}, "
@@ -1989,9 +2205,9 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
 def phase_families(torch, dev, seed: int, card: str):
     """Phase 7: ALS, iALS and BPR at the headline widths through their
     trainers, then ``mf --algo als|ials|bpr``.  Returns the launch counts
-    of K1 and K0b over the phase's runs, and what it measured."""
+    of K1, K0b and K4 over the phase's runs, and what it measured."""
     t0 = time.perf_counter()
-    launches = {"ridge_cholesky": 0, "eval_error": 0}
+    launches = {"ridge_cholesky": 0, "eval_error": 0, "gather_gram": 0}
     als_launches, als = _als_run(torch, dev, seed, card)
     ials_launches, csrs, ials = _ials_run(torch, dev, seed, card)
     bpr = _bpr_run(torch, dev, seed, csrs, card)
@@ -1999,13 +2215,12 @@ def phase_families(torch, dev, seed: int, card: str):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
         cli = _entry_points(seed, Path(tmp), card)
-    for counts in (als_launches, {"ridge_cholesky": ials_launches},
-                   *cli.values()):
+    for counts in (als_launches, ials_launches, *cli.values()):
         for k, n in counts.items():
             launches[k] += n
     wall = time.perf_counter() - t0
-    log(f"[families] phase wall {wall:.1f} s; K1 and K0b launches over its "
-        f"runs {launches}")
+    log(f"[families] phase wall {wall:.1f} s; K1, K0b and K4 launches over "
+        f"its runs {launches}")
     return launches, {"als": als, "ials": ials, "bpr": bpr, "mf": cli,
                       "wall_s": wall}
 
@@ -3806,8 +4021,8 @@ def _same_explicit(ref, engine, wave, label: str) -> None:
 def _daemon_waves(engine, ctx, label: str):
     """Phase 6's waves through a ``ServingDaemon`` over ``engine`` with
     phase 6's settings (20 ms window, the ladder warmed to 512 x 64), no
-    profiler: (responses, wave latencies, requests/s, K1 and K0c
-    launches by wave, the whole run's (K1, K0c) launches, warm-up
+    profiler: (responses, wave latencies, requests/s, K1, K0c and K4
+    launches by wave, the whole run's (K1, K0c, K4) launches, warm-up
     seconds)."""
     from cu2rec_torch.serve.daemon import ServingDaemon, run_stdio
     from cu2rec_torch.utils.config import Config
@@ -3833,7 +4048,8 @@ def _daemon_waves(engine, ctx, label: str):
 def _headline_shards(torch, ctx, card: str) -> int:
     """Phase 11 (a): phase 6's waves over SERVE_SHARDS item shards on one
     card, each response against phase 6's one-device engine, the implicit
-    rows against a one-device engine's.  Returns K1's launches."""
+    rows against a one-device engine's.  Returns K1's and K4's
+    launches."""
     from cu2rec_torch.models.state import model_from_numpy
     from cu2rec_torch.serve.engine import ServingEngine, ShardedServingEngine
 
@@ -3842,12 +4058,13 @@ def _headline_shards(torch, ctx, card: str) -> int:
     ref = ServingEngine(model, device="cuda")
     ref_rows, _ = ref.fold_in_implicit(items, vals, mask, 40.0, 0.1)
     lat6 = ctx["lat"]
-    k1 = 0
+    k1 = k4 = 0
     for n in SERVE_SHARDS:
         engine = ShardedServingEngine(model, devices=["cuda:0"] * n)
         resp, lat, rps, per_wave, launches, warm_s = _daemon_waves(
             engine, ctx, f"{n} shards")
         k1 += launches[0]
+        k4 += launches[2]
         _same_waves(resp, ctx, f"{n} shards")
         _same_explicit(ref, engine, ctx["waves"][1], f"{n} shards")
         rows, _ = engine.fold_in_implicit(items, vals, mask, 40.0, 0.1)
@@ -3861,15 +4078,16 @@ def _headline_shards(torch, ctx, card: str) -> int:
             f"{lat6[0] * 1e3:.1f} / {lat6[1] * 1e3:.1f} / "
             f"{lat6[2] * 1e3:.1f} ms, {ctx['rps']:.1f} requests/s); warm-up "
             f"{warm_s:.1f} s; ridge_cholesky {per_wave[0]}, foldin "
-            f"{per_wave[1]} by wave, {launches} (ridge_cholesky, foldin) "
-            f"in the run; the recommends within rtol {SHARD_SCORE_RTOL:g} "
+            f"{per_wave[1]}, gather_gram {per_wave[2]} by wave, {launches} "
+            f"(ridge_cholesky, foldin, gather_gram) in the run; the "
+            f"recommends within rtol {SHARD_SCORE_RTOL:g} "
             f"and the implicit fold-ins within {RTOL:g} of phase 6's, the "
             f"explicit wave's rows within 1e-6 of one device's in one "
             f"batch, the implicit rows within "
             f"{np.abs(rows - ref_rows).max():.3g}; {card}")
         del engine
     torch.cuda.empty_cache()
-    return k1
+    return k1, k4
 
 
 # The host stages of a fold-in batch, in the order it runs them (see
@@ -4247,18 +4465,19 @@ def _serve_cli_shards(torch) -> None:
 
 
 def phase_shard_serve(torch, seed: int, ctx, card: str) -> dict:
-    """Phase 11: sharded serving on one card.  Returns K1's and K0c's
-    launches."""
+    """Phase 11: sharded serving on one card.  Returns K1's, K0c's and
+    K4's launches (K4's in this process, the ranks' not counted)."""
     from cu2rec_torch.ops import cuda_foldin
 
     t0 = time.perf_counter()
     cuda_foldin.LAUNCHES = 0
-    k1 = _headline_shards(torch, ctx, card)
+    k1, k4 = _headline_shards(torch, ctx, card)
     _probe_shards(torch, seed, card)
     k0c = cuda_foldin.LAUNCHES
     ranks = _rank_shards(torch, seed, ctx, card)
     _serve_cli_shards(torch)
-    launches = {"ridge_cholesky": k1 + ranks[0], "foldin": k0c + ranks[1]}
+    launches = {"ridge_cholesky": k1 + ranks[0], "foldin": k0c + ranks[1],
+                "gather_gram": k4}
     log(f"[shard-serve] launches {launches}; the phase took "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -4409,6 +4628,11 @@ def main(argv=None) -> int:
     by_name["sgd_step"]["variants"] = extras
     by_name["row_gather"]["launches"] = probed["row_gather"]
     by_name["smem_gather"]["launches"] = probed["smem_gather"]
+    kernels.append(_gram_entry(measured, served["gather_gram"]
+                               + predicted["implicit_gram"]
+                               + families["gather_gram"]
+                               + shard_served["gather_gram"],
+                               registers["gather_gram"]))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

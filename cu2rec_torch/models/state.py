@@ -67,9 +67,19 @@ class MFModel(nn.Module):
         return self.Q.device
 
 
-def _normal(gen: torch.Generator, shape, n_factors: int, dtype):
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            / n_factors).to(dtype)
+def initialize_normal(gen: torch.Generator, shape, n_factors: int,
+                      mean: float = 0.0, stddev: float = 1.0,
+                      dtype=torch.float32, device=None) -> torch.Tensor:
+    """Normal(mean, stddev / n_factors) init (reference util.cu:124-132),
+    drawn in float32 from ``gen`` on its own device, then cast to ``dtype``
+    and moved to ``device`` (the card unless the caller asks for the
+    CPU)."""
+    dev = resolve_device(device)
+    draw = torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device) / (n_factors / stddev)
+    if mean:
+        draw = draw + mean
+    return draw.to(dev, table_dtype(dtype))
 
 
 def init_model(n_users: int, n_items: int, n_factors: int,
@@ -88,12 +98,17 @@ def init_model(n_users: int, n_items: int, n_factors: int,
     dev = resolve_device(device)
     dtype = table_dtype(dtype)
     gen = torch.Generator().manual_seed(seed)
-    P = _normal(gen, (n_users, n_factors), n_factors, dtype)
-    Q = (_normal(gen, (n_items, n_factors), n_factors, dtype) if Q is None
+
+    def normal(shape):
+        return initialize_normal(gen, shape, n_factors, dtype=dtype,
+                                 device="cpu")
+
+    P = normal((n_users, n_factors))
+    Q = (normal((n_items, n_factors)) if Q is None
          else torch.as_tensor(np.asarray(Q), dtype=dtype)
          .reshape(n_items, n_factors))
-    ub = _normal(gen, (n_users,), n_factors, dtype)
-    ib = (_normal(gen, (n_items,), n_factors, dtype) if item_bias is None
+    ub = normal((n_users,))
+    ib = (normal((n_items,)) if item_bias is None
           else torch.as_tensor(np.asarray(item_bias), dtype=dtype)
           .reshape(n_items))
     return MFModel(P, Q, ub, ib,

@@ -8,7 +8,10 @@ symmetrically for items), the ridge system
 for θ_u = [p_u, b_u].  Rows are grouped into degree buckets (power-law
 degrees: ×2-spaced capacities bound the padding), each bucket's rating
 slices are padded to one width, and each chunk of a bucket is one batched
-Gram product (``torch.bmm``, float32) and one batched ridge solve.
+Gram product and one batched ridge solve.  On the card the Grams are
+kernel K4 (``ops/cuda_gram.py``: the rows gathered and summed in shared
+memory, the ridge added in its epilogue); on the CPU its plain version,
+a gather and ``torch.bmm`` in float32.
 Rows above the largest capacity take the heavy path: their slice is split
 into capacity-sized segments whose partial Grams are summed exactly.
 
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from cu2rec_torch.ops.cuda_gram import add_ridge, gather_gram
 from cu2rec_torch.ops.cuda_linalg import ridge_solve_batched_cuda
 
 SOLVERS = ("auto", "blocked", "pallas", "xla")
@@ -407,53 +411,36 @@ def _als_apply_heavy(T_new, T_other, ch, mu, reg, F, weight_by_degree,
 
 class DesignTable(NamedTuple):
     """The counterpart table as the design rows read it: ``rows`` (N + 1,
-    4⌈(F+1)/4⌉) float32 holds [q | 1 | 0…] per row and ``bias`` (N + 1,)
-    its b; row N is zero, and a masked slot reads it."""
+    4⌈(F+2)/4⌉) float32 holds [q | 1 | b | 0…] per row, so that one gather
+    brings a slot's design row and its bias; row N is zero, and a masked
+    slot reads it."""
 
     rows: torch.Tensor
-    bias: torch.Tensor
 
 
 def design_table(T_other, F: int) -> DesignTable:
     """The ``DesignTable`` of a packed table (built once a half sweep)."""
     N = T_other.shape[0]
-    rows = torch.zeros((N + 1, -(-(F + 1) // 4) * 4), dtype=torch.float32,
+    rows = torch.zeros((N + 1, -(-(F + 2) // 4) * 4), dtype=torch.float32,
                        device=T_other.device)
     rows[:N, :F] = T_other[:, :F]
     rows[:N, F] = 1.0
-    bias = torch.zeros(N + 1, dtype=torch.float32, device=T_other.device)
-    bias[:N] = T_other[:, F]
-    return DesignTable(rows, bias)
+    rows[:N, F + 1] = T_other[:, F]
+    return DesignTable(rows)
 
 
-def _design(T_other, cols, vals, mask, mu, F: int):
-    """X = [q | 1] and y = r − μ − b over each slice, zero where masked —
-    the TPU package's ``X = [q | 1]·mask``, here one gather: a masked slot
-    reads the zero row.  ``T_other`` is a packed table or its
-    ``DesignTable``.  X is a (B, D, F+1) view of rows on a 16-byte
-    stride."""
-    if not isinstance(T_other, DesignTable):
-        T_other = design_table(T_other, F)
-    z = torch.where(mask, cols, T_other.bias.shape[0] - 1)
-    X = T_other.rows[z][..., :F + 1]
-    y = (vals - mu - T_other.bias[z]) * mask
-    return X, y
-
-
-def _add_ridge(G, reg_vec, deg) -> torch.Tensor:
-    """G + diag(λ · max(deg, 1)) for ``deg`` of one value a system."""
-    lam = reg_vec[None, :] * torch.clamp(deg.reshape(-1, 1), min=1.0)
-    G.diagonal(dim1=-2, dim2=-1).add_(lam)
-    return G
+def _as_design(T_other, F: int) -> DesignTable:
+    return (T_other if isinstance(T_other, DesignTable)
+            else design_table(T_other, F))
 
 
 def bucket_system(T_other, cols, vals, mask, mu, reg_vec, deg):
-    """(G, rhs) of a regular chunk: its ridge systems before the solve."""
+    """(G, rhs) of a regular chunk: its ridge systems before the solve
+    (K4 on the card, the ridge in its epilogue)."""
     F = reg_vec.shape[0] - 1
-    X, y = _design(T_other, cols, vals, mask, mu, F)
-    G = torch.bmm(X.mT, X)
-    rhs = torch.bmm(X.mT, y[..., None])[..., 0]
-    return _add_ridge(G, reg_vec, deg), rhs
+    T = _as_design(T_other, F)
+    return gather_gram(T.rows, cols, vals, mask, F + 1, mu=mu,
+                       reg_vec=reg_vec, deg=deg)
 
 
 def _solve_bucket_weighted(T_other, cols, vals, mask, mu, reg_vec, deg,
@@ -484,13 +471,13 @@ def segment_sums(Gseg, rseg, seg_start, seg_end):
 def heavy_system(T_other, cols, vals, mask, mu, reg_vec, seg_start, seg_end,
                  deg):
     """(G, rhs) of a heavy chunk: each row's segments' partial Grams summed
-    exactly, then the ridge term of its true degree."""
+    exactly, then the ridge term of its true degree.  On the card K4
+    writes the segments' raw sums."""
     F = reg_vec.shape[0] - 1
-    X, y = _design(T_other, cols, vals, mask, mu, F)
-    Gseg = torch.bmm(X.mT, X)
-    rseg = torch.bmm(X.mT, y[..., None])[..., 0]
+    T = _as_design(T_other, F)
+    Gseg, rseg = gather_gram(T.rows, cols, vals, mask, F + 1, mu=mu)
     G, rhs = segment_sums(Gseg, rseg, seg_start, seg_end)
-    return _add_ridge(G, reg_vec, deg), rhs
+    return add_ridge(G, reg_vec, deg), rhs
 
 
 def _solve_heavy(T_other, cols, vals, mask, mu, reg_vec, seg_start, seg_end,

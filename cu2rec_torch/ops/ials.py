@@ -8,7 +8,9 @@ a user's factors solve
 YᵀY (the Gramian) is one (I, F)ᵀ(I, F) product shared by every user; the
 per-user correction touches only the user's rated items, on the same
 degree-bucketed chunks as explicit ALS (``ops/als.py``), heavy path
-included.  Every solve is kernel K1 through ``ops/als._ridge_finish``.
+included.  Each chunk's systems are kernel K4 on the card
+(``ops/cuda_gram.py``, YᵀY and the ridge added in its epilogue) and every
+solve is kernel K1 through ``ops/als._ridge_finish``.
 The half sweep is a host loop over chunks, as in ``ops/als.py``.
 """
 
@@ -19,6 +21,7 @@ import torch
 from cu2rec_torch.ops.als import (
     _ridge_finish, _solve_into, assemble_solved, segment_sums, split_chunks,
 )
+from cu2rec_torch.ops.cuda_gram import add_global, gather_gram, gram_rows
 
 
 def gramian(T: torch.Tensor) -> torch.Tensor:
@@ -27,39 +30,23 @@ def gramian(T: torch.Tensor) -> torch.Tensor:
     return T32.T @ T32
 
 
-def _corrections(T_other, cols, vals, mask, alpha: float):
-    """Per slice: Σ (c − 1) q qᵀ and Σ c q over the rated items."""
-    return _row_corrections(T_other[cols].to(torch.float32), vals, mask,
-                            alpha)
-
-
-def _row_corrections(q, vals, mask, alpha: float):
-    """The same from the rated items' float32 rows ``q`` (B, D, F), already
-    gathered (an item-sharded catalog assembles them over its shards)."""
-    m = mask.to(torch.float32)
-    w = alpha * vals * m                              # c − 1, masked
-    G = torch.einsum("bdf,bdg->bfg", q * w[..., None], q)
-    rhs = torch.einsum("bdf,bd->bf", q, (1.0 + alpha * vals) * m)
-    return G, rhs
-
-
-def _add_reg(G, reg: float) -> torch.Tensor:
-    G.diagonal(dim1=-2, dim2=-1).add_(reg)
-    return G
-
-
 def ials_bucket_system(T_other, G_global, cols, vals, mask, alpha: float,
                        reg: float):
-    """(G, rhs) of a regular chunk before the solve."""
-    return ials_rows_system(T_other[cols].to(torch.float32), G_global, vals,
-                            mask, alpha, reg)
+    """(G, rhs) of a regular chunk before the solve: YᵀY plus the
+    correction Σ (c − 1) q qᵀ of the rated items, λ on the diagonal, and
+    Σ c q."""
+    return gather_gram(T_other, cols, vals, mask, G_global.shape[-1],
+                       alpha=alpha, G_global=G_global, reg=reg)
 
 
 def ials_rows_system(q, G_global, vals, mask, alpha: float, reg: float):
-    """(G, rhs) of the systems whose rated items' rows ``q`` (B, D, F) are
-    given: the serving engines' implicit fold-in."""
-    G, rhs = _row_corrections(q, vals, mask, alpha)
-    return _add_reg(G_global[None] + G, reg), rhs
+    """(G, rhs) of the systems whose rated items' float32 rows ``q``
+    (B, D, F) are given, already gathered (an item-sharded catalog
+    assembles them over its shards): the serving engines' implicit
+    fold-in."""
+    B, D, F = q.shape
+    return gather_gram(q.reshape(B * D, F), None, vals, mask, F,
+                       alpha=alpha, G_global=G_global, reg=reg)
 
 
 def _solve_ials_bucket(T_other, G_global, cols, vals, mask, alpha: float,
@@ -72,9 +59,10 @@ def ials_heavy_system(T_other, G_global, cols, vals, mask, seg_start,
                       seg_end, alpha: float, reg: float):
     """(G, rhs) of a heavy chunk: per-segment corrections summed exactly
     by prefix-sum differences (see ``ops/als.segment_sums``)."""
-    Gseg, rseg = _corrections(T_other, cols, vals, mask, alpha)
+    Gseg, rseg = gather_gram(T_other, cols, vals, mask, G_global.shape[-1],
+                             alpha=alpha)
     G, rhs = segment_sums(Gseg, rseg, seg_start, seg_end)
-    return _add_reg(G_global[None] + G, reg), rhs
+    return add_global(G, G_global, reg), rhs
 
 
 def _solve_ials_heavy(T_other, G_global, cols, vals, mask, seg_start,
@@ -94,12 +82,21 @@ def ials_fold_in(Y, cols, vals, mask, alpha: float, reg: float,
         x_u = ( YᵀY + Yᵀ(C_u − I)Y + λI )⁻¹ Σ_{i∈S_u} (1 + α·r_ui) y_i
 
     ``cols/vals/mask``: (B, D) padded rated-item slices (arrays or tensors;
-    moved to ``Y``'s device).  Returns (B, F) user factor rows.
+    moved to ``Y``'s device).  Returns (B, F) user factor rows.  Raises
+    ValueError, before any launch, where a masked-in id is not in
+    [0, I): K4 reads the rows at the ids unchecked.  Masked-out slots may
+    hold any id.
     """
     dev = Y.device
     cols = torch.as_tensor(cols, device=dev).to(torch.int64)
     vals = torch.as_tensor(vals, device=dev).to(torch.float32)
     mask = torch.as_tensor(mask, device=dev).to(torch.bool)
+    live = cols[mask]
+    if live.numel() and (int(live.min()) < 0
+                         or int(live.max()) >= Y.shape[0]):
+        raise ValueError(f"fold-in item ids must lie in [0, {Y.shape[0]}); "
+                         f"got {int(live.min())}..{int(live.max())}")
+    cols = torch.where(mask, cols, 0)
     return _solve_ials_bucket(Y, gramian(Y), cols, vals, mask,
                               float(alpha), float(reg), solver=solver)
 
@@ -119,6 +116,7 @@ def ials_half_sweep(T_self, T_other, chunks, alpha: float, reg: float,
 def _ials_sweep_body(T_self, T_other, regs, heavies, a: float, r: float,
                      solver: str, row_sharding=None):
     G = gramian(T_other)
+    T_other = gram_rows(T_other)     # float32 once a half sweep
     T_new, solved = _solve_into(T_self, row_sharding)
     for cols, vals, mask, rows in regs:
         theta = _solve_ials_bucket(T_other, G, cols, vals, mask, a, r,

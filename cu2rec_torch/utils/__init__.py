@@ -1,0 +1,3 @@
+from cu2rec_torch.utils.config import Config
+
+__all__ = ["Config"]

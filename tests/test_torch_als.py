@@ -17,6 +17,7 @@ from cu2rec_torch.data.csr import csr_from_arrays as t_csr
 from cu2rec_torch.data.csr import transpose_csr
 from cu2rec_torch.models.state import model_from_numpy
 from cu2rec_torch.ops import als as t_als
+from cu2rec_torch.ops.cuda_gram import design
 from cu2rec_torch.ops.packed import pack as t_pack
 from cu2rec_torch.train.als import train_als as t_train
 from cu2rec_torch.utils.config import Config
@@ -200,7 +201,8 @@ def test_system_assembly_is_what_the_solve_solves():
     deg = mask.sum(1).to(torch.float32)[:, None]
     G, rhs = t_als.bucket_system(t_pm.T_u, cols, vals, mask, mu, reg, deg)
     torch.testing.assert_close(G, G.mT, rtol=0, atol=0)
-    X, y = t_als._design(t_pm.T_u, cols, vals, mask, mu, 8)
+    X, y = design(t_als.design_table(t_pm.T_u, 8).rows, cols, vals, mask,
+                  mu, 9)
     torch.testing.assert_close(
         G - torch.diag_embed(reg[None] * deg.clamp(min=1)), X.mT @ X,
         rtol=1e-5, atol=1e-5)
@@ -212,7 +214,8 @@ def test_system_assembly_is_what_the_solve_solves():
     G, rhs = t_als.heavy_system(t_pm.T_u, *heavy[1:4], mu, reg, *heavy[5:8])
     assert G.shape == (heavy[4].shape[0], 9, 9)
     # Row 0's Gram is the sum over its own segments.
-    X, y = t_als._design(t_pm.T_u, *heavy[1:4], mu, 8)
+    X, y = design(t_als.design_table(t_pm.T_u, 8).rows, *heavy[1:4], mu,
+                  9)
     s0, s1 = int(heavy[5][0]), int(heavy[6][0])
     Xr = X[s0:s1].reshape(-1, 9)
     want = Xr.T @ Xr + torch.diag(reg * heavy[7][0].clamp(min=1))

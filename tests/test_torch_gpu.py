@@ -1583,3 +1583,232 @@ def test_engine_fold_in_on_card_takes_the_request_as_it_arrives(cuda_device,
     np.testing.assert_array_equal(gp[3], init[0][3])
     one = gpu.fold_in(rated[:1], vals[:1], mask[:1], cfg)
     np.testing.assert_array_equal(one[0][0], gp[0])
+
+
+# -- K4, the ALS/iALS gather-Gram (ops/cuda_gram.py) --------------------------
+# Each sum of K4 is held against the plain version elementwise within
+# 1e-5 of the same sum of absolute values (gram_scale, plus the epilogue's
+# terms) + 1e-6: float32 sums of up to 8,192 terms in another order.
+GRAM_RTOL, GRAM_ATOL = 1e-5, 1e-6
+
+
+def _gram_chunk(B, D, F, mode, seed, device, R=600):
+    """A chunk of B systems of D slots over a table of R rows at width F:
+    ``mode`` "als" (the design rows [q | 1 | b | 0…] of width
+    4⌈(F+2)/4⌉, last row zero), "ials" (plain F-wide rows), "rows"
+    (iALS over B·D rows read in order, as the serving engines' assembled
+    rows).  Random holes in the masks, the last system (of several) all
+    masked, NaN and garbage under some masked slots.  Returns (args, kwargs) of
+    ``gather_gram`` with its epilogue."""
+    rng = np.random.default_rng(seed)
+    n = F + 1 if mode == "als" else F
+    idx = rng.integers(0, R, (B, D))
+    vals = (rng.integers(1, 11, (B, D)) / 2).astype(np.float32)
+    mask = rng.random((B, D)) < rng.random((B, 1)) * 1.2
+    if B > 1:
+        mask[-1] = False
+    vals[~mask] = rng.choice([0.0, 7e30, -3.0], size=(~mask).sum())
+    if B > 2:
+        vals[2, ~mask[2]] = np.nan
+    kw = {}
+    if mode == "als":
+        rows = np.zeros((R + 1, -(-(F + 2) // 4) * 4), np.float32)
+        rows[:R, :F] = rng.normal(0, 0.3, (R, F))
+        rows[:R, F] = 1.0
+        rows[:R, F + 1] = rng.normal(0, 0.1, R)
+        kw = dict(mu=torch.tensor(3.2, device=device),
+                  reg_vec=torch.full((n,), 0.05, device=device),
+                  deg=torch.from_numpy(mask.sum(1).astype(np.float32)).to(
+                      device))
+    else:
+        rows = rng.normal(0, 0.3, (B * D if mode == "rows" else R, F)).astype(
+            np.float32)
+        Y = rng.normal(0, 0.3, (50, F)).astype(np.float32)
+        kw = dict(alpha=2.0, G_global=torch.from_numpy(Y.T @ Y).to(device),
+                  reg=0.5)
+    ids = None if mode == "rows" else torch.from_numpy(idx).to(device)
+    args = (torch.from_numpy(rows).to(device), ids,
+            torch.from_numpy(vals).to(device),
+            torch.from_numpy(mask).to(device), n)
+    return args, kw
+
+
+def _gram_within(got, want, scale):
+    """Elementwise |got − want| ≤ GRAM_RTOL·scale + GRAM_ATOL, NaN where
+    the plain version has NaN."""
+    got, want, scale = (t.cpu() for t in (got, want, scale))
+    assert torch.equal(got.isnan(), want.isnan())
+    ok = want.isfinite()
+    err = (got[ok] - want[ok]).abs()
+    lim = GRAM_RTOL * scale[ok] + GRAM_ATOL
+    assert bool((err <= lim).all()), float((err - lim).max())
+
+
+def _gram_plain(args, kw):
+    """The plain version on CPU copies, its epilogue included, and each
+    sum's scale (the epilogue's terms added in absolute value)."""
+    from cu2rec_torch.experiments import gram_times
+    from cu2rec_torch.ops import cuda_gram
+
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    ckw = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    G, rhs = cuda_gram.gather_gram(*cpu, **ckw)
+    mode = {k: ckw[k] for k in ("mu", "alpha") if k in ckw}
+    SG, Sr = gram_times.gram_scale(*cpu, **mode)
+    if "reg_vec" in ckw:
+        SG = cuda_gram.add_ridge(SG, ckw["reg_vec"], ckw["deg"])
+    if "G_global" in ckw:
+        SG = cuda_gram.add_global(SG, ckw["G_global"].abs(), ckw["reg"])
+    return G, rhs, SG, Sr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["als", "ials", "rows"])
+@pytest.mark.parametrize("F", [8, 64, 100])
+@pytest.mark.parametrize("B,D", [(1, 8), (7, 8), (2001, 8), (7, 24),
+                                 (2001, 24), (1, 8192), (5, 8192), (9, 3)])
+def test_gather_gram_matches_plain(cuda_device, mode, F, B, D):
+    """K4 against its plain version, its epilogue included (the ALS ridge
+    of each row's degree, YᵀY + λ for iALS), at the bucket widths of the
+    sweeps (8, 24, the heavy 8,192) and a serving width of 3, B of one,
+    a few and more systems than the card holds blocks: within the Gram
+    tolerance, the NaN under a masked slot where the plain version has it,
+    G exactly symmetric, one launch a call and the same bits twice."""
+    from cu2rec_torch.ops import cuda_gram
+
+    args, kw = _gram_chunk(B, D, F, mode, seed=B + D + F, device=cuda_device)
+    n0 = cuda_gram.LAUNCHES
+    G, rhs = cuda_gram.gather_gram(*args, **kw)
+    G2, rhs2 = cuda_gram.gather_gram(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_gram.LAUNCHES == n0 + 2
+    assert torch.equal(G.isnan(), G2.isnan())
+    assert torch.equal(G.nan_to_num(), G2.nan_to_num())
+    assert torch.equal(rhs.nan_to_num(), rhs2.nan_to_num())
+    assert torch.equal(G.nan_to_num(), G.mT.nan_to_num())
+    want_G, want_rhs, SG, Sr = _gram_plain(args, kw)
+    _gram_within(G, want_G, SG)
+    _gram_within(rhs, want_rhs, Sr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["als", "ials"])
+def test_gather_gram_heavy_chunk_matches_plain(cuda_device, family):
+    """A heavy chunk (rows of degree above 8,192, segments of 8,192 slots)
+    at F = 100: K4's raw segment sums within the Gram tolerance of the
+    plain version's, and the heavy rows' systems, summed over their
+    segments, within the tolerance of the segments' summed scale."""
+    from cu2rec_torch.data.csr import csr_from_arrays, transpose_csr
+    from cu2rec_torch.ops import als, cuda_gram
+    from cu2rec_torch.ops.ials import gramian, ials_heavy_system
+
+    rng = np.random.default_rng(6)
+    U, I, F = 30_000, 40, 100
+    u = np.concatenate([rng.permutation(U)[:n] for n in (9000, 17000,
+                                                        20000)])
+    i = np.repeat(np.arange(3), (9000, 17000, 20000))
+    r = (rng.integers(1, 11, len(u)) / 2.0).astype(np.float32)
+    ip, ind, dat = transpose_csr(csr_from_arrays(u, i, r, U, I))
+    chunks = als.prepare_chunks(als.bucket_csr(ip, ind, dat), F, I,
+                                device=cuda_device)
+    _, cols, vals, mask, _rows, s0, s1, deg = next(
+        c for c in chunks if c[0] == "heavy")
+    T = torch.from_numpy(rng.normal(0, 0.1, (U, F + 1)).astype(
+        np.float32)).to(cuda_device)
+    if family == "als":
+        Tx = als.design_table(T, F)
+        args = (Tx.rows, cols, vals, mask, F + 1)
+        kw = dict(mu=torch.tensor(3.0, device=cuda_device))
+    else:
+        args = (T[:, :F], cols, vals, mask, F)
+        kw = dict(alpha=2.0)
+    Gseg, rseg = cuda_gram.gather_gram(*args, **kw)
+    want_G, want_rhs, SG, Sr = _gram_plain(args, kw)
+    _gram_within(Gseg, want_G, SG)
+    _gram_within(rseg, want_rhs, Sr)
+    reg = als.reg_vector(0.05, 0.05, F, cuda_device)
+    if family == "als":
+        G, rhs = als.heavy_system(Tx, cols, vals, mask, 3.0, reg, s0, s1,
+                                  deg)
+    else:
+        G, rhs = ials_heavy_system(T[:, :F], gramian(T[:, :F]), cols, vals,
+                                   mask, s0, s1, 2.0, 0.5)
+    Sg, Srs = als.segment_sums(SG.to(cuda_device), Sr.to(cuda_device),
+                               s0, s1)
+    wG, wr = als.segment_sums(want_G.to(cuda_device), want_rhs.to(
+        cuda_device), s0, s1)
+    if family == "als":
+        wG = cuda_gram.add_ridge(wG, reg, deg)
+    else:
+        wG = cuda_gram.add_global(wG, gramian(T[:, :F]), 0.5)
+        Sg = Sg + gramian(T[:, :F]).abs()
+    _gram_within(G, wG, Sg)
+    _gram_within(rhs, wr, Srs)
+
+
+@pytest.mark.gpu
+def test_gather_gram_runs_in_the_trainers_and_the_fold_in(cuda_device,
+                                                           monkeypatch):
+    """train_als, train_ials and ials_fold_in launch K4 on the card, and no
+    CUDA tensor reaches the plain version."""
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops import cuda_gram
+    from cu2rec_torch.ops.ials import ials_fold_in
+    from cu2rec_torch.train.als import train_als
+    from cu2rec_torch.train.ials import train_ials
+    from cu2rec_torch.utils.config import Config
+
+    plain = cuda_gram.gram_rhs_reference
+
+    def cpu_only(rows, *a, **k):
+        assert rows.device.type == "cpu", "a CUDA tensor reached the plain " \
+            "version"
+        return plain(rows, *a, **k)
+
+    monkeypatch.setattr(cuda_gram, "gram_rhs_reference", cpu_only)
+    csr = _family_ratings(300, 120, seed=8)
+    rng = np.random.default_rng(4)
+    d = {"p": rng.normal(0, 0.1, (300, 16)), "q": rng.normal(0, 0.1, (120, 16)),
+         "user_bias": np.zeros(300), "item_bias": np.zeros(120),
+         "global_bias": [3.0]}
+    for train, kw in ((train_als, {"global_bias": 3.0}),
+                      (train_ials, {"alpha": 2.0})):
+        cfg = Config(total_iterations=2, n_factors=16, P_reg=0.5, Q_reg=0.5)
+        n0 = cuda_gram.LAUNCHES
+        train(csr, csr, cfg, model=model_from_numpy(d, cuda_device),
+              device=cuda_device, **kw)
+        assert cuda_gram.LAUNCHES > n0, train.__name__
+    n0 = cuda_gram.LAUNCHES
+    Y = torch.from_numpy(rng.normal(0, 0.1, (120, 16)).astype(
+        np.float32)).to(cuda_device)
+    cols = rng.integers(0, 120, (4, 6))
+    x = ials_fold_in(Y, cols, np.ones((4, 6), np.float32),
+                     np.ones((4, 6), bool), 2.0, 0.5)
+    assert cuda_gram.LAUNCHES == n0 + 1 and x.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [-1, 120])
+def test_ials_fold_in_holds_its_ids_on_the_card(cuda_device, bad):
+    """A masked-in id out of [0, I) raises ValueError before K4 launches
+    (K4 reads the rows at the ids unchecked), as on the CPU; masked-out
+    slots may hold any id."""
+    from cu2rec_torch.ops import cuda_gram
+    from cu2rec_torch.ops.ials import ials_fold_in
+
+    rng = np.random.default_rng(6)
+    Y = torch.from_numpy(rng.normal(0, 0.1, (120, 16)).astype(
+        np.float32)).to(cuda_device)
+    cols = rng.integers(0, 120, (4, 6))
+    vals = np.ones((4, 6), np.float32)
+    mask = np.ones((4, 6), bool)
+    mask[2, 4:] = False
+    x0 = ials_fold_in(Y, cols, vals, mask, 2.0, 0.5)
+    cols[2, 4:] = bad
+    assert torch.equal(ials_fold_in(Y, cols, vals, mask, 2.0, 0.5), x0)
+    cols[0, 0] = bad
+    n0 = cuda_gram.LAUNCHES
+    with pytest.raises(ValueError, match=r"ids must lie in \[0, 120\)"):
+        ials_fold_in(Y, cols, vals, mask, 2.0, 0.5)
+    assert cuda_gram.LAUNCHES == n0
+    torch.cuda.synchronize(cuda_device)

@@ -121,6 +121,7 @@ def test_port_builds_nothing_at_import():
         "import cu2rec_torch.ops.cuda_sgd, cu2rec_torch.ops.cuda_loss\n"
         "import cu2rec_torch.ops.cuda_gather, cu2rec_torch.cli.mf\n"
         "import cu2rec_torch.ops.als, cu2rec_torch.ops.ials\n"
+        "import cu2rec_torch.ops.cuda_gram\n"
         "import cu2rec_torch.data.native, cu2rec_torch.data.mapping\n"
         "from cu2rec_torch.cli import (convert_to_np, create_config,\n"
         "    evaluate, get_data, map_items, map_netflix, mf_cpu,\n"
@@ -131,3 +132,61 @@ def test_port_builds_nothing_at_import():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)
     assert "NO_BUILD_AT_IMPORT" in out.stdout, out.stdout + out.stderr
+
+
+# Each subpackage of the TPU package and its counterpart in the port.
+SUBPACKAGES = ["", ".data", ".models", ".ops", ".serve", ".train", ".utils"]
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES + [".__all__"])
+def test_port_exports_every_public_name_of_the_tpu_package(sub):
+    """Every name in the ``__all__`` of a TPU-package subpackage (and of the
+    package itself) resolves in the port's counterpart; the last case
+    imports the port's top-level names in a process with JAX blocked,
+    where they load lazily and build nothing."""
+    import importlib
+
+    if sub == ".__all__":
+        import cu2rec_tpu
+
+        code = (
+            "import sys; sys.path.insert(0, %r)\n"
+            "sys.modules['jax'] = None\n"
+            "import subprocess\n"
+            "def boom(*a, **k): raise SystemExit('subprocess at import')\n"
+            "subprocess.Popen = boom; subprocess.run = boom\n"
+            "import cu2rec_torch\n"
+            "assert 'cu2rec_torch.train' not in sys.modules\n"
+            "from cu2rec_torch import *\n"
+            "for name in %r: getattr(cu2rec_torch, name)\n"
+            "print('TOP_LEVEL_OK')\n" % (str(REPO), cu2rec_tpu.__all__))
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=120)
+        assert "TOP_LEVEL_OK" in out.stdout, out.stdout + out.stderr
+        return
+    tpu = importlib.import_module("cu2rec_tpu" + sub)
+    port = importlib.import_module("cu2rec_torch" + sub)
+    missing = [n for n in tpu.__all__ if not hasattr(port, n)]
+    assert not missing, f"cu2rec_torch{sub} lacks {missing}"
+    assert set(tpu.__all__) <= set(port.__all__)
+
+
+def test_initialize_normal_draws_its_mean_and_deviation():
+    """Normal(mean, stddev / n_factors) from a seeded generator, as the TPU
+    package's ``initialize_normal`` (the bits differ: threefry is not
+    torch's generator), cast to the table dtype on the device asked for;
+    the same seed gives the same draw."""
+    from cu2rec_torch.models import initialize_normal
+
+    gen = torch.Generator().manual_seed(3)
+    x = initialize_normal(gen, (400, 250), 20, mean=0.5, stddev=2.0,
+                          device="cpu")
+    assert x.shape == (400, 250) and x.dtype == torch.float32
+    assert abs(float(x.mean()) - 0.5) < 4 * 0.1 / 1e5 ** 0.5
+    assert abs(float(x.std()) - 0.1) < 0.1 * 0.01
+    again = initialize_normal(torch.Generator().manual_seed(3), (400, 250),
+                              20, mean=0.5, stddev=2.0, device="cpu")
+    assert torch.equal(x, again)
+    half = initialize_normal(gen, (8,), 4, dtype=torch.bfloat16,
+                             device="cpu")
+    assert half.dtype == torch.bfloat16

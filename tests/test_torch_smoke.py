@@ -424,19 +424,26 @@ def test_wave_input_without_a_profiler_sends_each_wave_once():
 # ---- K0c (the explicit serving fold-in): its checks' helpers on the CPU ---
 
 def test_wave_launches_hold_each_kernel_to_its_wave():
-    """K1 only in the implicit wave and K0c only in the explicit wave: any
-    other placement fails the smoke."""
+    """K1 and K4 only in the implicit wave and K0c only in the explicit
+    wave: any other placement fails the smoke.  Each probe reads (K1,
+    K0c, K4)."""
     smoke = _smoke()
-    good = [((0, 0), (0, 0)), ((0, 0), (0, 1)), ((0, 1), (3, 1)),
-            ((3, 1), (3, 1))]
+    good = [((0, 0, 0), (0, 0, 0)), ((0, 0, 0), (0, 1, 0)),
+            ((0, 1, 0), (3, 1, 3)), ((3, 1, 3), (3, 1, 3))]
     inp = SimpleNamespace(counts=good)
-    assert smoke._wave_launches(inp, "x") == ([0, 0, 3], [0, 1, 0])
-    for bad, what in (([((0, 0), (0, 0)), ((0, 0), (0, 0)),
-                        ((0, 0), (3, 0))], "foldin was not launched"),
-                      ([((0, 0), (0, 1)), ((0, 1), (0, 2)),
-                        ((0, 2), (3, 2))], "foldin launched outside"),
-                      ([((0, 0), (0, 0)), ((0, 0), (0, 1)),
-                        ((0, 1), (0, 1))], "ridge_cholesky was not")):
+    assert smoke._wave_launches(inp, "x") == ([0, 0, 3], [0, 1, 0],
+                                              [0, 0, 3])
+    for bad, what in (([((0, 0, 0), (0, 0, 0)), ((0, 0, 0), (0, 0, 0)),
+                        ((0, 0, 0), (3, 0, 3))], "foldin was not launched"),
+                      ([((0, 0, 0), (0, 1, 0)), ((0, 1, 0), (0, 2, 0)),
+                        ((0, 2, 0), (3, 2, 3))], "foldin launched outside"),
+                      ([((0, 0, 0), (0, 0, 0)), ((0, 0, 0), (0, 1, 0)),
+                        ((0, 1, 0), (0, 1, 0))], "ridge_cholesky was not"),
+                      ([((0, 0, 0), (0, 0, 0)), ((0, 0, 0), (0, 1, 0)),
+                        ((0, 1, 0), (3, 1, 0))], "gather_gram was not"),
+                      ([((0, 0, 0), (0, 0, 1)), ((0, 0, 1), (0, 1, 1)),
+                        ((0, 1, 1), (3, 1, 4))],
+                       "gather_gram launched outside")):
         with pytest.raises(smoke.SmokeFailure, match=what):
             smoke._wave_launches(SimpleNamespace(counts=bad), "x")
 
