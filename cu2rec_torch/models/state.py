@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from cu2rec_torch.utils.device import resolve_device
+from cu2rec_torch.utils.timing import span
 
 # Table names, in the component-export order of reference mf.cu:83-87.
 COMPONENTS = ("p", "q", "user_bias", "item_bias", "global_bias")
@@ -103,16 +104,19 @@ def init_model(n_users: int, n_items: int, n_factors: int,
         return initialize_normal(gen, shape, n_factors, dtype=dtype,
                                  device="cpu")
 
-    P = normal((n_users, n_factors))
-    Q = (normal((n_items, n_factors)) if Q is None
-         else torch.as_tensor(np.asarray(Q), dtype=dtype)
-         .reshape(n_items, n_factors))
-    ub = normal((n_users,))
-    ib = (normal((n_items,)) if item_bias is None
-          else torch.as_tensor(np.asarray(item_bias), dtype=dtype)
-          .reshape(n_items))
-    return MFModel(P, Q, ub, ib,
-                   torch.tensor(global_bias, dtype=torch.float32)).to(dev)
+    with span("model.init.draw"):
+        P = normal((n_users, n_factors))
+        Q = (normal((n_items, n_factors)) if Q is None
+             else torch.as_tensor(np.asarray(Q), dtype=dtype)
+             .reshape(n_items, n_factors))
+        ub = normal((n_users,))
+        ib = (normal((n_items,)) if item_bias is None
+              else torch.as_tensor(np.asarray(item_bias), dtype=dtype)
+              .reshape(n_items))
+    with span("model.init.upload"):
+        return MFModel(P, Q, ub, ib,
+                       torch.tensor(global_bias,
+                                    dtype=torch.float32)).to(dev)
 
 
 def with_dtype(model: MFModel, dtype) -> MFModel:

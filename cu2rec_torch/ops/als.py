@@ -49,6 +49,7 @@ import torch.nn.functional as nnf
 
 from cu2rec_torch.ops.cuda_gram import add_ridge, gather_gram
 from cu2rec_torch.ops.cuda_linalg import ridge_solve_batched_cuda
+from cu2rec_torch.utils.timing import count, span
 
 SOLVERS = ("auto", "blocked", "pallas", "xla")
 
@@ -349,23 +350,28 @@ def als_half_sweep(T_self, T_other, bucketed, mu,
     """
     F = n_factors
     dev = T_self.device
-    reg = reg_vector(factor_reg, bias_reg, F, dev)
-    if isinstance(bucketed, BucketedRows):
-        bucketed = prepare_chunks(bucketed, F, T_self.shape[0], row_sharding,
-                                  device=dev)
-    regs, heavies = split_chunks(bucketed)
-    mu32 = torch.tensor(float(mu), dtype=torch.float32, device=dev)
-    T_x = design_table(T_other, F)
-    T_new, solved = _solve_into(T_self, row_sharding)
-    for ch in regs:
-        _als_apply_reg(T_new, T_x, ch, mu32, reg, F, weight_by_degree, solver)
-    for ch in heavies:
-        _als_apply_heavy(T_new, T_x, ch, mu32, reg, F, weight_by_degree,
-                         solver)
-    if solved is not None:
-        for ch in regs + heavies:
-            solved[ch[3]] = 1
-    return assemble_solved(T_new, T_self, solved, row_sharding)
+    with span("als.half_sweep"):
+        reg = reg_vector(factor_reg, bias_reg, F, dev)
+        if isinstance(bucketed, BucketedRows):
+            bucketed = prepare_chunks(bucketed, F, T_self.shape[0],
+                                      row_sharding, device=dev)
+        regs, heavies = split_chunks(bucketed)
+        count("als.chunks", len(regs) + len(heavies))
+        mu32 = torch.tensor(float(mu), dtype=torch.float32, device=dev)
+        T_x = design_table(T_other, F)
+        T_new, solved = _solve_into(T_self, row_sharding)
+        for ch in regs:
+            with span("als.chunk"):
+                _als_apply_reg(T_new, T_x, ch, mu32, reg, F,
+                               weight_by_degree, solver)
+        for ch in heavies:
+            with span("als.chunk"):
+                _als_apply_heavy(T_new, T_x, ch, mu32, reg, F,
+                                 weight_by_degree, solver)
+        if solved is not None:
+            for ch in regs + heavies:
+                solved[ch[3]] = 1
+        return assemble_solved(T_new, T_self, solved, row_sharding)
 
 
 def _solve_into(T_self, row_sharding):

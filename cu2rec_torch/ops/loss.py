@@ -22,6 +22,7 @@ import math
 import torch
 
 from cu2rec_torch.models.state import MFModel
+from cu2rec_torch.utils.timing import count, span
 
 
 # Ratings a chunk of the plain eval, before the width cap.
@@ -119,14 +120,17 @@ def evaluate_unpacked(model: MFModel, dev, chunk_size: int = EVAL_CHUNK):
 
 
 def _metrics(sums: torch.Tensor, nnz: int):
-    sse, sae = (float(x) for x in sums.cpu())
+    with span("eval.wait"):
+        sse, sae = (float(x) for x in sums.cpu())
     return math.sqrt(sse / nnz), sae / nnz
 
 
 def evaluate_packed(pm, dev):
     """(RMSE, MAE) of packed tables over a ``DeviceRatings`` set; the
     denominator is the true rating count ``dev.nnz``."""
-    return _metrics(packed_error_sums(pm, dev), dev.nnz)
+    count("eval.calls")
+    with span("eval"):
+        return _metrics(packed_error_sums(pm, dev), dev.nnz)
 
 
 def evaluate(model: MFModel, dev):

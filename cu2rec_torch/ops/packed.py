@@ -45,6 +45,7 @@ from cu2rec_torch.ops.sgd import (
     INT32_MAX, Hyper, _take, elect_winners, rotated_priority, sample_items,
     sample_positions, start_user_of,
 )
+from cu2rec_torch.utils.timing import count, span
 
 COLLISIONS = ("first_wins", "twin", "mean", "sum")
 # The table dtypes the step and kernels K0a, K0b take, with the kernels'
@@ -326,17 +327,20 @@ def packed_run_steps(pm: PackedModel, dev, hp: Hyper, key, start_iter: int,
                      collision: str = "first_wins") -> PackedModel:
     """``n_steps`` iterations from ``start_iter``: a host loop of steps (one
     or two kernel launches each on the card, nothing synchronizes)."""
-    best = counts = mu = None
-    if pm.T_u.device.type == "cuda":
-        mu = float(pm.global_bias)
-        I = pm.T_i.shape[0]
-        if train_items and collision == "first_wins":
-            best = torch.full((I,), INT32_MAX, dtype=torch.int32,
-                              device=pm.T_u.device)
-        if train_items and collision in ("mean", "sum"):
-            counts = torch.zeros(I, dtype=torch.int32, device=pm.T_u.device)
-    for i in range(int(n_steps)):
-        pm = packed_step(pm, dev, hp, key, int(start_iter) + i,
-                         train_items=train_items, collision=collision,
-                         best=best, counts=counts, mu=mu)
-    return pm
+    count("sgd.steps", int(n_steps))
+    with span("sgd.run_steps"):
+        best = counts = mu = None
+        if pm.T_u.device.type == "cuda":
+            mu = float(pm.global_bias)
+            I = pm.T_i.shape[0]
+            if train_items and collision == "first_wins":
+                best = torch.full((I,), INT32_MAX, dtype=torch.int32,
+                                  device=pm.T_u.device)
+            if train_items and collision in ("mean", "sum"):
+                counts = torch.zeros(I, dtype=torch.int32,
+                                     device=pm.T_u.device)
+        for i in range(int(n_steps)):
+            pm = packed_step(pm, dev, hp, key, int(start_iter) + i,
+                             train_items=train_items, collision=collision,
+                             best=best, counts=counts, mu=mu)
+        return pm

@@ -28,7 +28,9 @@ from cu2rec_torch.train.trainer import _subsample_dev
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
-from cu2rec_torch.utils.timing import elapsed_ms, fetch_barrier, mark
+from cu2rec_torch.utils.timing import (
+    count, elapsed_ms, fetch_barrier, mark, span,
+)
 
 # Above this many ratings the bucket slices are extracted on the device.
 DEVICE_BUCKETS_ABOVE = 5_000_000
@@ -41,22 +43,23 @@ def sweep_chunks(csr: CSRRatings, n_factors: int, device,
     ``DEVICE_BUCKETS_ABOVE`` ratings (or with ``device_buckets``), else
     bucketed on the host and uploaded; with ``row_sharding`` this rank's
     share of them."""
-    if device_buckets is None:
-        device_buckets = csr.nnz > DEVICE_BUCKETS_ABOVE
-    it_indptr, it_rows, it_vals = transpose_csr(csr)
-    sides = ((csr.indptr, csr.indices, csr.data, csr.n_users),
-             (it_indptr, it_rows, it_vals, csr.n_items))
-    if device_buckets:
-        def up(x, dtype):
-            return torch.from_numpy(x).to(device, dtype)
+    with span("als.prepare_chunks"):
+        if device_buckets is None:
+            device_buckets = csr.nnz > DEVICE_BUCKETS_ABOVE
+        it_indptr, it_rows, it_vals = transpose_csr(csr)
+        sides = ((csr.indptr, csr.indices, csr.data, csr.n_users),
+                 (it_indptr, it_rows, it_vals, csr.n_items))
+        if device_buckets:
+            def up(x, dtype):
+                return torch.from_numpy(x).to(device, dtype)
 
-        return tuple(prepare_chunks_device(
-            up(ind, torch.int32), up(dat, torch.float32), ip, n_factors, n,
-            csr.nnz, row_sharding=row_sharding)
-            for ip, ind, dat, n in sides)
-    return tuple(prepare_chunks(bucket_csr(ip, ind, dat), n_factors, n,
-                                row_sharding, device=device)
-                 for ip, ind, dat, n in sides)
+            return tuple(prepare_chunks_device(
+                up(ind, torch.int32), up(dat, torch.float32), ip, n_factors,
+                n, csr.nnz, row_sharding=row_sharding)
+                for ip, ind, dat, n in sides)
+        return tuple(prepare_chunks(bucket_csr(ip, ind, dat), n_factors, n,
+                                    row_sharding, device=device)
+                     for ip, ind, dat, n in sides)
 
 
 def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
@@ -104,17 +107,19 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     n_sweeps = cfg.total_iterations
     start = time.perf_counter()
     for sweep in range(min(cfg.cur_iterations, n_sweeps) + 1, n_sweeps + 1):
-        t0 = mark(dev)
-        T_u = als_half_sweep(pm.T_u, pm.T_i, user_chunks, mu, cfg.P_reg,
-                             cfg.user_bias_reg, F,
-                             weight_by_degree=weight_by_degree,
-                             row_sharding=mesh, solver=solver)
-        t1 = mark(dev)
-        T_i = als_half_sweep(pm.T_i, T_u, item_chunks, mu, cfg.Q_reg,
-                             cfg.item_bias_reg, F,
-                             weight_by_degree=weight_by_degree,
-                             row_sharding=mesh, solver=solver)
-        t2 = mark(dev)
+        count("als.sweeps")
+        with span("als.sweep"):
+            t0 = mark(dev)
+            T_u = als_half_sweep(pm.T_u, pm.T_i, user_chunks, mu, cfg.P_reg,
+                                 cfg.user_bias_reg, F,
+                                 weight_by_degree=weight_by_degree,
+                                 row_sharding=mesh, solver=solver)
+            t1 = mark(dev)
+            T_i = als_half_sweep(pm.T_i, T_u, item_chunks, mu, cfg.Q_reg,
+                                 cfg.item_bias_reg, F,
+                                 weight_by_degree=weight_by_degree,
+                                 row_sharding=mesh, solver=solver)
+            t2 = mark(dev)
         pm = PackedModel(T_u=T_u, T_i=T_i, global_bias=pm.global_bias,
                          n_factors=F)
         train_rmse, train_mae = evaluate_packed(pm, train_eval_dev)

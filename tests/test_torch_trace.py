@@ -1,0 +1,194 @@
+"""The port's recorder of host spans and counters (``utils/timing.py``):
+off by default and then a shared object that does nothing; on, nested
+spans on the ``perf_counter`` clock with their parents, per thread; and the
+spans the trainers record at their layer boundaries, on the CPU, with
+tables bitwise equal whether recording is on or off."""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from cu2rec_torch.data.csr import csr_from_arrays
+from cu2rec_torch.train.als import sweep_chunks, train_als
+from cu2rec_torch.train.trainer import train
+from cu2rec_torch.utils import timing
+from cu2rec_torch.utils.config import Config
+from cu2rec_torch.utils.metrics import MetricsLogger
+
+
+@pytest.fixture
+def recorder():
+    """Recording off before and after the test, whatever it leaves."""
+    timing.trace_stop()
+    yield timing
+    timing.trace_stop()
+
+
+def _by_name(spans):
+    out = {}
+    for s in spans:
+        out.setdefault(s[0], []).append(s)
+    return out
+
+
+def _parents(spans):
+    """{span name: the set of its parents' names (None: no parent)}."""
+    names = {s[1]: s[0] for s in spans}
+    out = {}
+    for name, _id, parent, _a, _b in spans:
+        out.setdefault(name, set()).add(names.get(parent))
+    return out
+
+
+def test_off_records_nothing_and_returns_one_object(recorder):
+    assert recorder.span("a") is recorder.span("b")
+    with recorder.span("a"):
+        recorder.count("c", 3)
+    recorder.trace_start()
+    assert recorder.trace_stop() == {"spans": [], "counters": {}}
+    assert recorder.trace_stop() == {"spans": [], "counters": {}}
+
+
+def test_on_nests_counts_and_stop_drains(recorder):
+    recorder.trace_start()
+    t_before = time.perf_counter()
+    with recorder.span("outer"):
+        recorder.count("n")
+        with recorder.span("inner"):
+            recorder.count("n", 4)
+        with recorder.span("inner"):
+            pass
+    t_after = time.perf_counter()
+    got = recorder.trace_stop()
+    assert got["counters"] == {"n": 5}
+    spans = _by_name(got["spans"])
+    (outer,) = spans["outer"]
+    assert outer[2] is None
+    assert len(spans["inner"]) == 2
+    for _name, _id, parent, a, b in spans["inner"]:
+        assert parent == outer[1]
+        assert outer[3] <= a <= b <= outer[4]
+    assert t_before <= outer[3] <= outer[4] <= t_after
+    assert len({s[1] for s in got["spans"]}) == 3
+    # Stopped: off again, and nothing kept for the next start.
+    assert recorder.span("x") is recorder.span("y")
+    recorder.trace_start()
+    assert recorder.trace_stop()["spans"] == []
+
+
+def test_threads_do_not_parent_each_other(recorder):
+    recorder.trace_start()
+    both_open = threading.Barrier(2, timeout=10)
+
+    def work(tag):
+        with recorder.span(f"root.{tag}"):
+            both_open.wait()
+            with recorder.span(f"child.{tag}"):
+                both_open.wait()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    parents = _parents(recorder.trace_stop()["spans"])
+    assert parents == {"root.a": {None}, "root.b": {None},
+                       "child.a": {"root.a"}, "child.b": {"root.b"}}
+
+
+def _ratings(U=90, I=40, n=1500, seed=3):
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, U, n)
+    i = np.minimum((I * rng.power(0.5, n)).astype(np.int64), I - 1)
+    keys = np.unique(u * I + i)
+    u, i = (keys // I).astype(np.int32), (keys % I).astype(np.int32)
+    r = (rng.integers(1, 11, len(u)) / 2.0).astype(np.float32)
+    test = rng.random(len(u)) < 0.15
+    train_csr = csr_from_arrays(u[~test], i[~test], r[~test], U, I,
+                                use_native=False)
+    test_csr = csr_from_arrays(u[test], i[test], r[test], U, I,
+                               use_native=False)
+    return train_csr, test_csr, float(r[~test].mean())
+
+
+def _quiet():
+    return MetricsLogger(verbose=False)
+
+
+def _tables(model):
+    return [t.clone() for t in (model.P, model.Q, model.user_bias,
+                                model.item_bias)]
+
+
+def test_sgd_job_records_its_layers(recorder):
+    tr, te, mu = _ratings()
+    cfg = dict(total_iterations=23, check_error=10, n_factors=8,
+               learning_rate=0.05, train_eval_sample=400)
+    off, _ = train(tr, te, Config(**cfg), mu, logger=_quiet(), device="cpu")
+    recorder.trace_start()
+    on, _ = train(tr, te, Config(**cfg), mu, logger=_quiet(), device="cpu")
+    got = recorder.trace_stop()
+    for a, b in zip(_tables(off), _tables(on)):
+        assert torch.equal(a, b)
+
+    parents = _parents(got["spans"])
+    assert parents == {
+        "engine.build": {None},
+        "model.init": {None},
+        "model.init.draw": {"model.init"},
+        "model.init.upload": {"model.init"},
+        "model.init.pack": {"model.init"},
+        "trainer.job": {None},
+        "trainer.warmup": {"trainer.job"},
+        "sgd.run_steps": {"trainer.warmup", "trainer.job"},
+        "eval": {"trainer.warmup", "trainer.job"},
+        "eval.wait": {"eval"},
+        "trainer.finalize": {"trainer.job"},
+    }
+    evals = 4                       # iterations 1, 10, 20, 23
+    spans = _by_name(got["spans"])
+    assert len(spans["sgd.run_steps"]) == 2 + evals
+    assert got["counters"] == {"sgd.steps": 23 + 2,       # + the warm-up's
+                               "eval.calls": 2 * evals + 2}
+    (job,) = spans["trainer.job"]
+    for s in got["spans"]:
+        assert s[3] <= s[4]
+        if s[2] == job[1]:
+            assert job[3] <= s[3] <= s[4] <= job[4]
+
+
+def test_als_run_records_its_layers(recorder):
+    tr, te, mu = _ratings()
+    cfg = dict(total_iterations=3, n_factors=8, algo="als")
+    off, _ = train_als(tr, te, Config(**cfg), mu, logger=_quiet(),
+                       device="cpu")
+    recorder.trace_start()
+    on, _ = train_als(tr, te, Config(**cfg), mu, logger=_quiet(),
+                      device="cpu")
+    got = recorder.trace_stop()
+    for a, b in zip(_tables(off), _tables(on)):
+        assert torch.equal(a, b)
+
+    assert _parents(got["spans"]) == {
+        "als.prepare_chunks": {None},
+        "model.init.draw": {None},
+        "model.init.upload": {None},
+        "als.sweep": {None},
+        "als.half_sweep": {"als.sweep"},
+        "als.chunk": {"als.half_sweep"},
+        "eval": {None},
+        "eval.wait": {"eval"},
+    }
+    user_chunks, item_chunks = sweep_chunks(tr, 8, "cpu")
+    per_sweep = len(user_chunks) + len(item_chunks)
+    assert per_sweep > 2
+    spans = _by_name(got["spans"])
+    assert len(spans["als.sweep"]) == 3
+    assert len(spans["als.half_sweep"]) == 6
+    assert len(spans["als.chunk"]) == 3 * per_sweep
+    assert got["counters"] == {"als.sweeps": 3, "als.chunks": 3 * per_sweep,
+                               "eval.calls": 6}
