@@ -42,7 +42,12 @@ fatal on failure:
    max(1, |entry|), a plain run with the iteration counter shifted by one
    rejected; timed with the stream held beside the byte bound of what it
    reads and the dependent-chain floor (every slot sampling its own row,
-   kept in L2);
+   kept in L2); then K5 (a model's starting tables, drawn on the card) at
+   the headline model in float32 and bf16, ML-20M at F=50 and Netflix at
+   F=300, each equal to ``init_model``'s CPU draw under ``torch.equal``
+   (and to its plain version at ML-20M), timed with the stream held
+   beside its bound, its MT19937 walk alone, torch's CUDA ``randn`` and
+   the CPU draw it replaces;
 5. the entry points, each with the launch counts set to 0 before it and
    read after it: ``mf`` trains a planted rank-20 model at the headline
    widths (1,000,000 train and 100,000 test ratings as CSVs, 300
@@ -159,6 +164,11 @@ fatal on failure:
    --devices 2 --device cuda`` on a one-card host raises the fewer-cards
    error.
 
+Phases 5-11 also count, each from 0 just before it, K5's launches and
+``init_model``'s ``model.init.card_draws`` and ``.cpu_draws`` (the
+program's recorder on): one launch a card draw, and every model of the
+training paths drawn on the card.
+
 It prints the kernels' JSON line, then the nvidia-smi name/power line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -188,6 +198,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -989,6 +1000,140 @@ def phase_foldin_kernel(torch, dev, seed: int, card: str):
         torch.cuda.empty_cache()
     entry["cases"] = cases
     return [entry]
+
+
+# K5, a model's starting tables drawn on the card, at the plans the port's
+# paths draw: the headline model (phase 5's mf, phase 7's families; float32
+# and bf16), ML-20M at F = 50 and Netflix at F = 300 (the benchmark's SGD
+# cells): (label, users, items, F, dtype).  The plain version (NumPy) is
+# timed at ML-20M only: at Netflix it takes tens of seconds.
+DRAW_CASES = (("headline", U, I, F, "float32"),
+              ("headline-bf16", U, I, F, "bfloat16"),
+              ("ml20m-f50", 138_493, 26_744, 50, "float32"),
+              ("netflix-f300", 480_189, 17_770, 300, "float32"))
+DRAW_PLAIN = "ml20m-f50"
+
+
+def phase_draw_kernel(torch, dev, seed: int, card: str):
+    """K5 at ``DRAW_CASES``: ``normal_draw_cuda`` on card tensors equal
+    under ``torch.equal`` to ``init_model``'s CPU draw (``torch.randn`` on a
+    seeded CPU generator) and, at ``DRAW_PLAIN``, to its plain version; each
+    timed with the stream held beside its bound (``draw_bytes``), its
+    MT19937 walk alone, torch's CUDA ``randn`` of the same sizes (Philox:
+    other numbers, the library's cost of a draw on the card) and the CPU
+    draw it replaces.  Returns its ``{"kernels"}`` entry."""
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.experiments.draw_times import draw_bytes
+    from cu2rec_torch.models.state import init_model, table_dtype
+    from cu2rec_torch.ops import cuda_draw
+
+    t0 = time.perf_counter()
+    r, cs = cuda_draw.device_tables(dev)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    log(f"[draw] K5's transforms loaded or built, uploaded and checked in "
+        f"{tables_s:.3f} s (cache {cuda_draw.cache_path().name})")
+    lib = cuda_draw._load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases, entry = {}, None
+    for i, (label, n_users, n_items, n_f, dtype_name) in \
+            enumerate(DRAW_CASES):
+        dtype = table_dtype(dtype_name)
+        case_seed = seed + 2 ** 40 + i
+        plan = cuda_draw.draw_plan([("P", n_users * n_f),
+                                    ("Q", n_items * n_f),
+                                    ("user_bias", n_users),
+                                    ("item_bias", n_items)])
+        outs = [torch.empty(e.n, dtype=dtype, device=dev) for e in plan]
+        cuda_draw.normal_draw_cuda(case_seed, plan, outs, r, cs, n_f)
+        got = [o.cpu() for o in outs]
+        t0 = time.perf_counter()
+        want = init_model(n_users, n_items, n_f, 3.5, seed=case_seed,
+                          dtype=dtype, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        for e, g, w in zip(plan, got, (want.P, want.Q, want.user_bias,
+                                       want.item_bias)):
+            diff = (g.float() - w.reshape(-1).float()).abs()
+            require(torch.equal(g, w.reshape(-1)),
+                    f"K5 {label} table {e.name}: {int((diff > 0).sum())} of "
+                    f"{e.n} entries differ from the CPU draw (first at "
+                    f"{int(torch.nonzero(diff > 0)[0]) if diff.any() else -1})")
+        del want
+        plain_ms = None
+        if label == DRAW_PLAIN:
+            host = [torch.empty(e.n, dtype=dtype) for e in plan]
+            t0 = time.perf_counter()
+            cuda_draw.draw_reference(case_seed, plan, host, r.cpu(),
+                                     cs.cpu(), n_f)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            require(all(torch.equal(h, g) for h, g in zip(host, got)),
+                    f"K5 {label}: the plain version differs from the kernel")
+            del host
+        del got
+        ms = time_ms(lambda: cuda_draw.normal_draw_cuda(
+            case_seed, plan, outs, r, cs, n_f), [()], reps=5, hold=True)
+        n_chunks = -(-cuda_draw.plan_words(plan) // cuda_draw.CHUNK)
+        windows = torch.empty((n_chunks, cuda_draw.MT_N), dtype=torch.int32,
+                              device=dev)
+        walk_ms = time_ms(lambda: lib.normal_draw_windows(
+            case_seed & 0xFFFFFFFF, n_chunks, windows.data_ptr(), stream),
+            [()], reps=5, hold=True)
+        gen = torch.Generator(device=dev).manual_seed(case_seed)
+        library_ms = time_ms(lambda: [
+            torch.randn(e.n, generator=gen, device=dev).div_(n_f).to(dtype)
+            for e in plan], [()], reps=5, hold=True)
+        entries = sum(e.n for e in plan)
+        n_bytes = draw_bytes(plan, torch.finfo(dtype).bits // 8)
+        n_ops = 3 * entries      # a product, the + 0 and the division
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        cases[label] = {"users": n_users, "items": n_items, "F": n_f,
+                        "dtype": dtype_name,
+                        "words": cuda_draw.plan_words(plan),
+                        "chunks": n_chunks, "ms": ms, "walk_ms": walk_ms,
+                        "bound_ms": bound_ms, "library_ms": library_ms,
+                        "cpu_draw_ms": cpu_ms, "plain_ms": plain_ms}
+        log(f"[draw] {label} ({n_users} x {n_items}, F={n_f}, {dtype_name}, "
+            f"{cuda_draw.plan_words(plan)} words): equal to the CPU draw; "
+            f"{ms:.4f} ms (the stream held), the walk {walk_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB); "
+            f"torch's CUDA randn {library_ms:.4f} ms; the CPU draw it "
+            f"replaces {cpu_ms:.1f} ms"
+            + ("" if plain_ms is None else f"; plain {plain_ms:.1f} ms")
+            + f"; {card}")
+        if label == DRAW_PLAIN:
+            entry = _entry(
+                "normal_draw", _tpu_kernel_site(
+                    "models/state.py", "def init_model"), 0.0, ms, plain_ms,
+                n_bytes, n_ops, library_ms,
+                {"users": n_users, "items": n_items, "F": n_f,
+                 "dtype": dtype_name}, semantics="init_model (its "
+                "Normal(0, 1/F) tables, drawn with the numbers of torch's "
+                "CPU generator)")
+        del outs, windows
+        torch.cuda.empty_cache()
+    entry["tables_s"] = tables_s
+    entry["cases"] = cases
+    return [entry]
+
+
+@contextmanager
+def _draws(counts: dict, label: str):
+    """K5's launches and ``init_model``'s ``model.init.card_draws`` and
+    ``.cpu_draws`` over one main-path phase, counted from 0 just before it
+    (the program's recorder on for the phase), into ``counts[label]``."""
+    from cu2rec_torch.ops import cuda_draw
+    from cu2rec_torch.utils import timing
+
+    cuda_draw.LAUNCHES.clear()
+    timing.trace_start()
+    try:
+        yield
+    finally:
+        got = timing.trace_stop()["counters"]
+    counts[label] = {"normal_draw": cuda_draw.LAUNCHES.total(),
+                     "card_draws": got.get("model.init.card_draws", 0),
+                     "cpu_draws": got.get("model.init.cpu_draws", 0)}
+    log(f"[draws] {label}: {counts[label]}")
 
 
 # -- phase 5: train, predict and probe through the entry points -------------
@@ -4582,27 +4727,51 @@ def main(argv=None) -> int:
     kernels += phase_train_kernels(torch, dev, args.seed)
     kernels += phase_variant_kernels(torch, dev, args.seed)
     kernels += phase_foldin_kernel(torch, dev, args.seed, smi)
+    kernels += phase_draw_kernel(torch, dev, args.seed, smi)
     by_name = {k["name"]: k for k in kernels}
     for k in kernels:
         k["registers"] = registers[Path(k["source"]).stem]
     # The main paths, each with the launch counts set to 0 just before it
-    # and read just after it.
+    # and read just after it (K5's and the draw counters by ``_draws``).
+    draws = {}
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
-        trained, out, f32_rmse = phase_train(torch, args.seed, Path(tmp),
-                                             smi)
-        predicted = phase_predict(args.seed, Path(tmp), out, smi)
+        with _draws(draws, "train"):
+            trained, out, f32_rmse = phase_train(torch, args.seed,
+                                                 Path(tmp), smi)
+        with _draws(draws, "predict"):
+            predicted = phase_predict(args.seed, Path(tmp), out, smi)
         # Phase 9's entry points, on phase 5's CSVs.
-        variants, extras = phase_variants(torch, args.seed, Path(tmp), smi,
-                                          f32_rmse)
+        with _draws(draws, "variants"):
+            variants, extras = phase_variants(torch, args.seed, Path(tmp),
+                                              smi, f32_rmse)
     probed = phase_probes()
-    served, serve_ctx = phase_serve(torch, args.seed, smi)
-    families, measured = phase_families(torch, dev, args.seed, smi)
+    with _draws(draws, "serve"):
+        served, serve_ctx = phase_serve(torch, args.seed, smi)
+    with _draws(draws, "families"):
+        families, measured = phase_families(torch, dev, args.seed, smi)
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
-        piped, pipeline = phase_pipeline(args.seed, Path(tmp), smi)
+        with _draws(draws, "pipeline"):
+            piped, pipeline = phase_pipeline(args.seed, Path(tmp), smi)
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
-        sharded, shard_k1 = phase_shard(torch, dev, args.seed, Path(tmp),
-                                        smi)
-    shard_served = phase_shard_serve(torch, args.seed, serve_ctx, smi)
+        with _draws(draws, "shard"):
+            sharded, shard_k1 = phase_shard(torch, dev, args.seed,
+                                            Path(tmp), smi)
+    with _draws(draws, "shard_serve"):
+        shard_served = phase_shard_serve(torch, args.seed, serve_ctx, smi)
+    # K5 draws each card model whose tables have 16 entries or more, one
+    # launch a model (the transforms were checked in phase 4); the training
+    # paths draw every model on the card.  A card model's CPU draw is a
+    # fold-in's (its one-entry bias), counted in predict and variants.
+    for label, n in draws.items():
+        require(n["normal_draw"] == n["card_draws"],
+                f"{label}: {n['normal_draw']} K5 launches for "
+                f"{n['card_draws']} card draws")
+    for label in ("train", "variants", "families", "pipeline"):
+        require(draws[label]["card_draws"] > 0,
+                f"{label} drew no model with K5: {draws[label]}")
+    for label in ("train", "families", "pipeline"):
+        require(draws[label]["cpu_draws"] == 0,
+                f"{label} drew a card model on the CPU: {draws[label]}")
     for k in sharded:  # the registers of the variant's own instances
         tag = f"<128,{k['shape']['dtype']}"
         k["registers"] = {fn: r for fn, r in registers["sgd_sharded"].items()
@@ -4628,6 +4797,9 @@ def main(argv=None) -> int:
     by_name["sgd_step"]["variants"] = extras
     by_name["row_gather"]["launches"] = probed["row_gather"]
     by_name["smem_gather"]["launches"] = probed["smem_gather"]
+    by_name["normal_draw"]["launches"] = sum(
+        n["normal_draw"] for n in draws.values())
+    by_name["normal_draw"]["draws"] = draws
     kernels.append(_gram_entry(measured, served["gather_gram"]
                                + predicted["implicit_gram"]
                                + families["gather_gram"]

@@ -6,9 +6,12 @@ buffers of an ``nn.Module`` on one device.
 
 Initialization: the reference draws every table from
 Normal(mean=0, std=1/n_factors) (util.cu:124-144); ``init_model`` draws the
-same distribution from a seeded ``torch.Generator``.  The TPU package draws
-from a threefry stream that torch cannot reproduce, so tests that compare
-the two packages carry its tables over with ``model_from_numpy``.
+same distribution with the numbers of ``torch.randn`` from a seeded CPU
+``torch.Generator``: on the card with K5 (``ops/cuda_draw.py``), which
+gives that generator's draw bit for bit, and on the CPU where the model
+lives there or K5 cannot draw it.  The TPU package draws from a threefry
+stream that torch cannot reproduce, so tests that compare the two packages
+carry its tables over with ``model_from_numpy``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from torch import nn
 
 from cu2rec_torch.utils.device import resolve_device
-from cu2rec_torch.utils.timing import span
+from cu2rec_torch.utils.timing import count, span
 
 # Table names, in the component-export order of reference mf.cu:83-87.
 COMPONENTS = ("p", "q", "user_bias", "item_bias", "global_bias")
@@ -87,34 +90,61 @@ def init_model(n_users: int, n_items: int, n_factors: int,
                global_bias: float, seed: int = 42,
                dtype=torch.float32, Q=None, item_bias=None,
                device=None) -> MFModel:
-    """A freshly initialized model: Normal(0, 1/F) tables drawn on the CPU
-    from ``torch.Generator().manual_seed(seed)`` (so the draw is the same
-    whatever the device), then moved to ``device``.  The tables are drawn
-    in float32 and then cast to ``dtype`` (a torch dtype or a config's
-    name), as the TPU package does; the global bias stays float32.
+    """A freshly initialized model on ``device``: Normal(0, 1/F) tables,
+    the numbers ``torch.randn`` draws in float32 from
+    ``torch.Generator().manual_seed(seed)`` on the CPU in the order P, Q,
+    user bias, item bias, bit for bit whatever the device; then cast to
+    ``dtype`` (a torch dtype or a config's name; rounded to nearest even),
+    as the TPU package does.  The global bias stays float32.
+
+    On the card, where every drawn table has 16 entries or more, K5
+    (``ops/cuda_draw.py``) draws them there and nothing crosses from the
+    host; its transforms are built and checked against the CPU draw at the
+    process's first card draw, and where they cannot be, this raises.  A
+    smaller table (torch draws it with other CPU code) is drawn on the CPU
+    and moved, as is every table of a CPU model.  The counters
+    ``model.init.card_draws`` and ``model.init.cpu_draws`` count a card's
+    models each way.
 
     Pass pre-trained ``Q``/``item_bias`` for the fold-in path (reference
     training.cu:206-217, predict.cu:126).
     """
+    from cu2rec_torch.ops import cuda_draw  # ops imports this module
+
     dev = resolve_device(device)
     dtype = table_dtype(dtype)
-    gen = torch.Generator().manual_seed(seed)
-
-    def normal(shape):
-        return initialize_normal(gen, shape, n_factors, dtype=dtype,
-                                 device="cpu")
-
+    sizes = [("P", n_users * n_factors)]
+    if Q is None:
+        sizes.append(("Q", n_items * n_factors))
+    sizes.append(("user_bias", n_users))
+    if item_bias is None:
+        sizes.append(("item_bias", n_items))
+    plan = cuda_draw.draw_plan(sizes)
+    on_card = cuda_draw.draws_on_card(dev)
     with span("model.init.draw"):
-        P = normal((n_users, n_factors))
-        Q = (normal((n_items, n_factors)) if Q is None
-             else torch.as_tensor(np.asarray(Q), dtype=dtype)
-             .reshape(n_items, n_factors))
-        ub = normal((n_users,))
-        ib = (normal((n_items,)) if item_bias is None
-              else torch.as_tensor(np.asarray(item_bias), dtype=dtype)
-              .reshape(n_items))
+        if on_card and cuda_draw.plan_on_card(plan):
+            tables = cuda_draw.device_tables(dev)
+            count("model.init.card_draws")
+            drawn = {e.name: torch.empty(e.n, dtype=dtype, device=dev)
+                     for e in plan}
+            cuda_draw.normal_draw_cuda(seed, plan, list(drawn.values()),
+                                       *tables, n_factors)
+        else:
+            if on_card:
+                count("model.init.cpu_draws")
+            gen = torch.Generator().manual_seed(seed)
+            drawn = {e.name: initialize_normal(gen, e.n, n_factors,
+                                               dtype=dtype, device="cpu")
+                     for e in plan}
+    P = drawn["P"].view(n_users, n_factors)
+    Q = (drawn["Q"].view(n_items, n_factors) if Q is None
+         else torch.as_tensor(np.asarray(Q), dtype=dtype)
+         .reshape(n_items, n_factors))
+    ib = (drawn["item_bias"] if item_bias is None
+          else torch.as_tensor(np.asarray(item_bias), dtype=dtype)
+          .reshape(n_items))
     with span("model.init.upload"):
-        return MFModel(P, Q, ub, ib,
+        return MFModel(P, Q, drawn["user_bias"], ib,
                        torch.tensor(global_bias,
                                     dtype=torch.float32)).to(dev)
 

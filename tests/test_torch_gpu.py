@@ -14,6 +14,7 @@ scores rtol 1e-4 (the card's float32 matmul blocks its sums differently).
 """
 
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -1812,3 +1813,92 @@ def test_ials_fold_in_holds_its_ids_on_the_card(cuda_device, bad):
         ials_fold_in(Y, cols, vals, mask, 2.0, 0.5)
     assert cuda_gram.LAUNCHES == n0
     torch.cuda.synchronize(cuda_device)
+
+
+# K5: the starting tables drawn on the card.  The benchmark's shapes
+# (ML-20M at F = 50, Netflix at F = 300), an ALS-sized bf16 model with the
+# items' tables given, each at a seed below and above 32 bits.
+_DRAW_SHAPES = [(138_493, 26_744, 50, torch.float32, False),
+                (480_189, 17_770, 300, torch.float32, False),
+                (6_040, 3_706, 64, torch.bfloat16, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 42, 7 * 2 ** 40 + 99])
+@pytest.mark.parametrize("U,I,F,dtype,given", _DRAW_SHAPES)
+def test_normal_draw_is_the_cpu_draw(cuda_device, U, I, F, dtype, given,
+                                     seed):
+    """``init_model`` on the card (K5) gives the CPU's tables bit for bit,
+    every table of the model, and counts a card draw."""
+    from cu2rec_torch.models.state import init_model
+    from cu2rec_torch.ops import cuda_draw
+    from cu2rec_torch.utils import timing
+
+    kw = {}
+    if given:
+        rng = np.random.default_rng(seed)
+        kw = dict(Q=rng.normal(size=(I, F)).astype(np.float32),
+                  item_bias=rng.normal(size=I).astype(np.float32))
+    want = init_model(U, I, F, 3.5, seed=seed, dtype=dtype, device="cpu",
+                      **kw)
+    assert cuda_draw.device_tables(cuda_device) is not None  # checked once
+    n0 = cuda_draw.LAUNCHES[dtype]
+    timing.trace_start()
+    try:
+        got = init_model(U, I, F, 3.5, seed=seed, dtype=dtype,
+                         device=cuda_device, **kw)
+        torch.cuda.synchronize()
+    finally:
+        counters = timing.trace_stop()["counters"]
+    assert cuda_draw.LAUNCHES[dtype] == n0 + 1
+    assert counters.get("model.init.card_draws") == 1
+    assert "model.init.cpu_draws" not in counters
+    for name in ("P", "Q", "user_bias", "item_bias", "global_bias"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.gpu
+def test_normal_draw_time(cuda_device):
+    """One Netflix-sized draw (150 M words, F = 300) on the card takes a
+    small share of the CPU draw it replaces: under a tenth of it, and
+    under 0.1 s."""
+    from cu2rec_torch.models.state import init_model
+
+    U, I, F = 480_189, 17_770, 300
+    t0 = time.perf_counter()
+    init_model(U, I, F, 3.5, seed=5, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    init_model(U, I, F, 3.5, seed=6, device=cuda_device)  # tables, warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init_model(U, I, F, 3.5, seed=7, device=cuda_device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    assert card_s < min(cpu_s / 10, 0.1), (card_s, cpu_s)
+
+
+@pytest.mark.gpu
+def test_forged_tables_raise_on_the_card(cuda_device, monkeypatch):
+    """Transforms one ulp off fail K5's self-check on the card: a card
+    model's draw raises, naming the first entry that differs, after the
+    check's one launch, and nothing is drawn on the CPU in its place."""
+    from cu2rec_torch.models.state import init_model
+    from cu2rec_torch.ops import cuda_draw
+    from cu2rec_torch.utils import timing
+
+    r, cs = cuda_draw.transform_tables()
+    monkeypatch.setattr(cuda_draw, "_host_tables",
+                        (torch.nextafter(r, torch.tensor(np.inf)), cs))
+    monkeypatch.setattr(cuda_draw, "_device_tables", {})
+    n0 = cuda_draw.LAUNCHES[torch.float32]
+    timing.trace_start()
+    try:
+        with pytest.raises(RuntimeError, match=r"self-check failed .* "
+                           r"first at entry \d+: "):
+            init_model(1_000, 300, 16, 3.5, seed=3, device=cuda_device)
+    finally:
+        counters = timing.trace_stop()["counters"]
+    assert counters == {}
+    assert cuda_draw.LAUNCHES[torch.float32] == n0 + 1

@@ -192,3 +192,37 @@ def test_als_run_records_its_layers(recorder):
     assert len(spans["als.chunk"]) == 3 * per_sweep
     assert got["counters"] == {"als.sweeps": 3, "als.chunks": 3 * per_sweep,
                                "eval.calls": 6}
+
+
+def test_draw_tables_open_once_and_draws_count_by_dispatch(recorder,
+                                                          monkeypatch):
+    """``model.init.draw.tables`` opens once, inside the process's first
+    draw through the tables (their upload and check; the CPU standing in
+    for the card); ``model.init.card_draws`` and ``.cpu_draws`` count each
+    ``init_model`` for the card by the way it drew, and a model for the
+    CPU counts in neither."""
+    from cu2rec_torch.models.state import init_model
+    from cu2rec_torch.ops import cuda_draw
+
+    real = cuda_draw.draws_on_card
+    monkeypatch.setattr(cuda_draw, "draws_on_card", lambda device: True)
+    monkeypatch.setattr(cuda_draw, "normal_draw_cuda",
+                        cuda_draw.draw_reference)      # K5's plain version
+    monkeypatch.setattr(cuda_draw, "_host_tables",
+                        cuda_draw.extract_tables())
+    monkeypatch.setattr(cuda_draw, "_device_tables", {})
+    recorder.trace_start()
+    init_model(200, 40, 8, 3.5, seed=1, device="cpu")   # tables, checked
+    init_model(200, 40, 8, 3.5, seed=2, device="cpu")
+    init_model(10, 40, 8, 3.5, seed=3, device="cpu")    # 10 biases: CPU
+    monkeypatch.setattr(cuda_draw, "draws_on_card", real)
+    init_model(200, 40, 8, 3.5, seed=4, device="cpu")   # the CPU's own
+    got = recorder.trace_stop()
+    assert got["counters"] == {"model.init.card_draws": 2,
+                               "model.init.cpu_draws": 1}
+    spans = _by_name(got["spans"])
+    assert len(spans["model.init.draw"]) == 4
+    (tables,) = spans["model.init.draw.tables"]
+    assert tables[2] == spans["model.init.draw"][0][1]
+    assert _parents(got["spans"])["model.init.draw.tables"] == {
+        "model.init.draw"}
