@@ -35,6 +35,7 @@ from cu2rec_torch.ops.packed import PackedModel, _reg_vectors
 from cu2rec_torch.ops.sgd import (
     Hyper, _take, counter_uniform, fold_in, sample_items, sample_positions,
 )
+from cu2rec_torch.utils.timing import count, span
 
 
 def _uniform_ids(key, iteration, n_draws: int, n_range: int, tag: int,
@@ -107,7 +108,8 @@ def bpr_step(pm: PackedModel, dev, hp: Hyper, key,
     W = T_u.shape[1]
     F = pm.n_factors
     lr = hp.learning_rate
-    s = bpr_draws(dev, key, iteration)
+    with span("bpr.draws"):
+        s = bpr_draws(dev, key, iteration)
     factor, biascol, reg_u, reg_i = _reg_vectors(hp, F, W, T_u.device)
 
     def ihat(rows):
@@ -150,8 +152,10 @@ def bpr_step(pm: PackedModel, dev, hp: Hyper, key,
 def bpr_run_steps(pm: PackedModel, dev, hp: Hyper, key, start_iter: int,
                   n_steps: int) -> PackedModel:
     """``n_steps`` iterations from ``start_iter``, a host loop of steps."""
-    for i in range(int(n_steps)):
-        pm = bpr_step(pm, dev, hp, key, int(start_iter) + i)
+    count("bpr.steps", int(n_steps))
+    with span("bpr.run_steps"):
+        for i in range(int(n_steps)):
+            pm = bpr_step(pm, dev, hp, key, int(start_iter) + i)
     return pm
 
 

@@ -25,7 +25,7 @@ from cu2rec_torch.serve.recommend import ranking_eval
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
-from cu2rec_torch.utils.timing import fetch_barrier
+from cu2rec_torch.utils.timing import count, fetch_barrier, span
 
 
 def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
@@ -93,9 +93,13 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         dt_seg = time.perf_counter() - t0
         done = point
         m = engine.model() if engine is not None else unpack(pm)
-        auc = auc_eval(m, train_csr, test_csr, seed=cfg.seed)
-        rk = ranking_eval(m, train_csr, test_csr, k=recall_k,
-                          max_users=recall_users)
+        count("bpr.evals")
+        with span("bpr.eval"):
+            with span("bpr.eval.auc"):
+                auc = auc_eval(m, train_csr, test_csr, seed=cfg.seed)
+            with span("bpr.eval.ranking"):
+                rk = ranking_eval(m, train_csr, test_csr, k=recall_k,
+                                  max_users=recall_users)
         rec = rk["recall"]
         ups = train_csr.n_users * seg / dt_seg if dt_seg > 0 else None
         objective = 1.0 - rec

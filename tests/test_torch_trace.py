@@ -226,3 +226,56 @@ def test_draw_tables_open_once_and_draws_count_by_dispatch(recorder,
     assert tables[2] == spans["model.init.draw"][0][1]
     assert _parents(got["spans"])["model.init.draw.tables"] == {
         "model.init.draw"}
+
+
+def test_bpr_run_records_its_layers(recorder):
+    """``train_bpr``: a span around each ``bpr_run_steps`` call with a
+    ``bpr.draws`` child a step, and ``bpr.eval`` around each eval point's
+    AUC and ranking eval; the counters count the iterations and the
+    evals; the model, the losses and the draws are the same with the
+    recorder on or off, and off it keeps nothing."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops.bpr import bpr_draws
+    from cu2rec_torch.ops.sgd import prng_key
+    from cu2rec_torch.train.bpr import train_bpr
+
+    tr, te, _mu = _ratings()
+    cfg = dict(total_iterations=23, check_error=10, n_factors=8,
+               learning_rate=0.1, seed=5, algo="bpr")
+    off, off_losses = train_bpr(tr, te, Config(**cfg), logger=_quiet(),
+                                device="cpu")
+    ids_off = bpr_draws(to_device(tr, "cpu", item_major=True),
+                        prng_key(5), 7)
+    assert recorder.trace_stop() == {"spans": [], "counters": {}}
+    recorder.trace_start()
+    on, on_losses = train_bpr(tr, te, Config(**cfg), logger=_quiet(),
+                              device="cpu")
+    ids_on = bpr_draws(to_device(tr, "cpu", item_major=True), prng_key(5),
+                       7)
+    got = recorder.trace_stop()
+    for a, b in zip(_tables(off), _tables(on)):
+        assert torch.equal(a, b)
+    assert off_losses == on_losses
+    for a, b in zip(ids_off, ids_on):
+        assert torch.equal(a, b)
+
+    assert _parents(got["spans"]) == {
+        "model.init.draw": {None},
+        "model.init.upload": {None},
+        "bpr.run_steps": {None},
+        "bpr.draws": {"bpr.run_steps"},
+        "bpr.eval": {None},
+        "bpr.eval.auc": {"bpr.eval"},
+        "bpr.eval.ranking": {"bpr.eval"},
+    }
+    evals = 4                       # iterations 1, 10, 20, 23
+    spans = _by_name(got["spans"])
+    assert len(spans["bpr.run_steps"]) == evals
+    assert len(spans["bpr.draws"]) == 23     # one a step
+    assert len(spans["bpr.eval"]) == len(spans["bpr.eval.auc"]) == evals
+    assert got["counters"] == {"bpr.steps": 23, "bpr.evals": evals}
+    by_id = {s[1]: s for s in got["spans"]}
+    for _name, _id, parent, a, b in got["spans"]:
+        assert a <= b
+        if parent is not None:
+            assert by_id[parent][3] <= a <= b <= by_id[parent][4]
