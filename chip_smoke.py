@@ -79,10 +79,13 @@ fatal on failure:
    on the card (20,000,000 draws): AUC ≥ 0.65 and recall@10 ≥ 5·10/I at
    sweep 5; K4 is held and timed on its chunks as for ALS (its data has no
    heavy chunk: K4's iALS mode is held on ALS's heavy item chunk).  BPR runs
-   three steps on the card and on the CPU
-   (the same ids, tables within 1e-5), then trains 2,000 iterations: AUC
-   ≥ 0.6 and above iteration 1's.  Last, ``mf --algo als|ials|bpr`` on
-   ML-100K-shaped planted CSVs (K1, K4 and K0b launched);
+   three steps on the card (K6) and on the CPU (the plain step; the same
+   ids, tables within 1e-5), times 50 steps of the loop, K6 with the
+   stream held at F = 100 and F = 50 beside its byte bound and the plain
+   step on the card, then trains 2,000 iterations: AUC ≥ 0.6 and above
+   iteration 1's.  Last, ``mf --algo als|ials|bpr`` on ML-100K-shaped
+   planted CSVs (K1, K4 and K0b launched; K6 once an iteration in BPR,
+   never in ALS or iALS, as in the 50 steps and ``train_bpr``);
 8. pipeline: the preprocessing journey through the CLIs at ML-20M scale:
    ``synth --preset ml20m`` (138,000 users x 27,000 items x 20,000,000
    planted ratings), ``map_items``, ``split`` 90/10 (its fast path),
@@ -2196,6 +2199,7 @@ def _ials_run(torch, dev, seed: int, card: str):
 def _bpr_run(torch, dev, seed: int, csrs, card: str):
     from cu2rec_torch.data.csr import to_device
     from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops import cuda_bpr
     from cu2rec_torch.ops.bpr import bpr_draws, bpr_run_steps, bpr_step
     from cu2rec_torch.ops.packed import pack
     from cu2rec_torch.ops.sgd import Hyper, prng_key
@@ -2225,19 +2229,23 @@ def _bpr_run(torch, dev, seed: int, csrs, card: str):
             worst = max(worst, err)
             require(err <= STEP_ATOL, f"bpr step {it}: {side} differs from "
                     f"the CPU's by {err}")
-    log(f"[bpr] 3 steps on the card and on the CPU: the same sampled ids, "
-        f"tables within {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[bpr] 3 steps on the card (K6) and on the CPU (plain): the same "
+        f"sampled ids, tables within {worst:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
     pm, dr = pms[dev], devs[dev]
     del pms, devs
     bpr_run_steps(pm, dr, hp, prng_key(seed), 3, 3)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    cuda_bpr.LAUNCHES = 0
     start.record()
     bpr_run_steps(pm, dr, hp, prng_key(seed), 6, 50)
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / 50
+    k6_a_step = cuda_bpr.LAUNCHES / 50
+    require(k6_a_step == 1, f"bpr: {k6_a_step} K6 launches a step, not 1")
 
     def run():
         bpr_run_steps(pm, dr, hp, prng_key(seed), 56, 20)
@@ -2252,21 +2260,81 @@ def _bpr_run(torch, dev, seed: int, csrs, card: str):
                       check_error=BPR_CHECK, learning_rate=BPR_LR,
                       P_reg=BPR_REG, Q_reg=BPR_REG, user_bias_reg=BPR_REG,
                       item_bias_reg=BPR_REG)
+    k6 = _k6_entry(torch, dev, dr, pm, hp, seed, train_csr, worst)
+    cuda_bpr.LAUNCHES = 0
     train_bpr(train_csr, test_csr, cfg, logger=logger, device=dev)
+    train_launches = cuda_bpr.LAUNCHES
+    require(train_launches == BPR_ITERATIONS, f"train_bpr launched K6 "
+            f"{train_launches} times in {BPR_ITERATIONS} iterations")
     wall = time.perf_counter() - t0
     rows = _history_rows(logger)
     _gate_bpr(rows)
     log(f"[bpr] a step at U={U} I={I} F={F}: {step_ms:.4f} ms (CUDA events "
-        f"over 50 steps), {U / step_ms * 1e3:.4g} user updates/s; under the "
+        f"over 50 steps, {k6_a_step:g} K6 launch a step), "
+        f"{U / step_ms * 1e3:.4g} user updates/s; under the "
         f"profiler {busy_ms:.4f} ms of device time a step "
         f"({busy_ms / step_ms:.1%} of the event time) in {launches:.0f} "
         f"kernels, {host_s * 1e3 / 20:.4f} ms of host time a step; train_bpr "
-        f"{BPR_ITERATIONS} iterations {wall:.1f} s wall with evals; "
+        f"{BPR_ITERATIONS} iterations {wall:.1f} s wall with evals, "
+        f"{train_launches} K6 launches; "
         + "; ".join(f"iteration {it}: AUC {auc:.4f}, recall@10 {rec:.4f}, "
                     f"ndcg@10 {ndcg:.4f}" for it, auc, rec, ndcg in rows)
         + f" on {card}")
     return {"step_ms": step_ms, "busy_ms": busy_ms, "kernels": launches,
-            "metrics": rows, "max_abs_err": worst}
+            "k6_launches_a_step": k6_a_step, "k6": k6,
+            "k6_train_launches": train_launches, "metrics": rows,
+            "max_abs_err": worst}
+
+
+def _k6_entry(torch, dev, dr, pm, hp, seed: int, train_csr, err: float):
+    """K6's record of the ``{"kernels": [...]}`` line: a step with the
+    stream held (50 steps enqueued), the plain step on the card, and the
+    bound of ``benchmark/counts/bpr.py``'s bytes, at the phase's shape
+    (F = 100, float32) and, under ``cases``, at the BPR cell's width
+    (F = 50) on the same ratings.  ``launches`` is filled in by ``main``."""
+    from benchmark.counts.bpr import step_bytes, step_ops
+    from cu2rec_torch.experiments.common import time_ms
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops.bpr import bpr_step, bpr_step_reference
+    from cu2rec_torch.ops.packed import pack
+    from cu2rec_torch.ops.sgd import prng_key
+
+    users_with = int((dr.indptr[1:] > dr.indptr[:-1]).sum())
+    items_with = int((dr.it_indptr[1:] > dr.it_indptr[:-1]).sum())
+    rng = np.random.default_rng(seed + 1)
+    narrow = pack(model_from_numpy(
+        {"p": rng.normal(0, 0.1, (U, 50)), "q": rng.normal(0, 0.1, (I, 50)),
+         "user_bias": np.zeros(U), "item_bias": np.zeros(I),
+         "global_bias": [0.0]}, dev))
+    cases = {}
+    for label, m in (("F100", pm), ("F50", narrow)):
+        ms = time_ms(lambda: bpr_step(m, dr, hp, prng_key(seed), 7), [()],
+                     reps=50, hold=True)
+        plain_ms = time_ms(lambda: bpr_step_reference(
+            m, dr, hp, prng_key(seed), 7), [()], reps=3)
+        elem = m.T_u.element_size()
+        n_bytes = step_bytes(U, I, m.width, users_with, items_with, elem)
+        n_ops = step_ops(m.n_factors, users_with, I)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        cases[label] = {"ms": ms, "plain_ms": plain_ms, "n_bytes": n_bytes,
+                        "n_ops": n_ops, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "F": m.n_factors,
+                        "W": m.width}
+        log(f"[bpr] K6 at U={U} I={I} F={m.n_factors} (W={m.width}, "
+            f"float32): {ms:.4f} ms a step (the stream held), "
+            f"{bound_ms / ms:.1%} of its {bound_ms:.4f} ms bound "
+            f"({n_bytes / 1e6:.1f} MB); the plain step {plain_ms:.3f} ms")
+    del narrow
+    head = cases["F100"]
+    entry = _entry("bpr_step", _tpu_kernel_site("ops/bpr.py",
+                                                "def bpr_step("),
+                   err, head["ms"], head["plain_ms"], head["n_bytes"],
+                   head["n_ops"], None,
+                   {"U": U, "I": I, "F": F, "W": pm.width,
+                    "nnz": train_csr.nnz, "dtype": "float32"},
+                   semantics="(jnp, with bpr_draws' five streams)")
+    entry["cases"] = cases
+    return entry
 
 
 def _family_csvs(seed: int, workdir: Path):
@@ -2294,10 +2362,11 @@ def _family_csvs(seed: int, workdir: Path):
 
 def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
     """``mf --algo als|ials|bpr`` on the planted CSVs: exit 0, every metric
-    line parses, the five component CSVs, and K1 and K4 (ALS, iALS) and
-    K0b (ALS) launched.  Returns {algo: {kernel: launches}}."""
+    line parses, the five component CSVs, K1 and K4 (ALS, iALS) and K0b
+    (ALS) launched, and K6 once an iteration in BPR and never in ALS or
+    iALS.  Returns {algo: {kernel: launches}}."""
     from cu2rec_torch.cli import mf
-    from cu2rec_torch.ops import cuda_gram, cuda_linalg, cuda_loss
+    from cu2rec_torch.ops import cuda_bpr, cuda_gram, cuda_linalg, cuda_loss
 
     paths = _family_csvs(seed, workdir)
     # cur total F lr seed P_reg Q_reg ub_reg ib_reg n_threads check_error
@@ -2315,7 +2384,7 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
         cfg = workdir / f"{algo}.cfg"
         cfg.write_text(cfg_text)
         out = workdir / f"out_{algo}"
-        cuda_linalg.LAUNCHES = cuda_gram.LAUNCHES = 0
+        cuda_linalg.LAUNCHES = cuda_gram.LAUNCHES = cuda_bpr.LAUNCHES = 0
         cuda_loss.LAUNCHES.clear()
         t0 = time.perf_counter()
         text = _capture(mf.main, ["-c", str(cfg), paths[kind, "train"],
@@ -2324,7 +2393,8 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
         wall = time.perf_counter() - t0
         launches[algo] = {"ridge_cholesky": cuda_linalg.LAUNCHES,
                           "eval_error": cuda_loss.LAUNCHES.total(),
-                          "gather_gram": cuda_gram.LAUNCHES}
+                          "gather_gram": cuda_gram.LAUNCHES,
+                          "bpr_step": cuda_bpr.LAUNCHES}
         if algo == "als":
             metrics = [METRIC_LINE.match(ln) for ln in text.splitlines()
                        if ln.startswith(("TRAIN:", "TEST:"))]
@@ -2341,6 +2411,10 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
                 "ials": ("ridge_cholesky", "gather_gram"), "bpr": ()}[algo]
         require(device == "cpu" or all(launches[algo][k] for k in want),
                 f"mf --algo {algo} launched {launches[algo]}")
+        # K6 once an iteration of BPR's single-device card step, else never.
+        k6 = 200 if algo == "bpr" and device != "cpu" else 0
+        require(launches[algo]["bpr_step"] == k6, f"mf --algo {algo} "
+                f"launched K6 {launches[algo]['bpr_step']} times, not {k6}")
         log(f"[mf] --algo {algo} on {ML100K[0]} x {ML100K[1]}, "
             f"{ML100K[2]} planted draws: {wall:.1f} s wall, launches "
             f"{launches[algo]}; last metrics: {last} on {card}")
@@ -2350,9 +2424,11 @@ def _entry_points(seed: int, workdir: Path, card: str, device: str = "cuda"):
 def phase_families(torch, dev, seed: int, card: str):
     """Phase 7: ALS, iALS and BPR at the headline widths through their
     trainers, then ``mf --algo als|ials|bpr``.  Returns the launch counts
-    of K1, K0b and K4 over the phase's runs, and what it measured."""
+    of K1, K0b, K4 and K6 over the phase's main paths, and what it
+    measured."""
     t0 = time.perf_counter()
-    launches = {"ridge_cholesky": 0, "eval_error": 0, "gather_gram": 0}
+    launches = {"ridge_cholesky": 0, "eval_error": 0, "gather_gram": 0,
+                "bpr_step": 0}
     als_launches, als = _als_run(torch, dev, seed, card)
     ials_launches, csrs, ials = _ials_run(torch, dev, seed, card)
     bpr = _bpr_run(torch, dev, seed, csrs, card)
@@ -2360,12 +2436,13 @@ def phase_families(torch, dev, seed: int, card: str):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="cu2rec_smoke_") as tmp:
         cli = _entry_points(seed, Path(tmp), card)
+    launches["bpr_step"] = bpr["k6_train_launches"]
     for counts in (als_launches, ials_launches, *cli.values()):
         for k, n in counts.items():
             launches[k] += n
     wall = time.perf_counter() - t0
-    log(f"[families] phase wall {wall:.1f} s; K1, K0b and K4 launches over "
-        f"its runs {launches}")
+    log(f"[families] phase wall {wall:.1f} s; K1, K0b, K4 and K6 launches "
+        f"over its main paths {launches}")
     return launches, {"als": als, "ials": ials, "bpr": bpr, "mf": cli,
                       "wall_s": wall}
 
@@ -4800,6 +4877,10 @@ def main(argv=None) -> int:
     by_name["normal_draw"]["launches"] = sum(
         n["normal_draw"] for n in draws.values())
     by_name["normal_draw"]["draws"] = draws
+    k6 = measured["bpr"]["k6"]
+    k6["launches"] = families["bpr_step"]
+    k6["registers"] = registers["bpr_step"]
+    kernels.append(k6)
     kernels.append(_gram_entry(measured, served["gather_gram"]
                                + predicted["implicit_gram"]
                                + families["gather_gram"]

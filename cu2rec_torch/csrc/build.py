@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ridge_cholesky", "sgd_step", "sgd_sharded", "eval_error",
            "row_gather", "smem_gather", "foldin", "gather_gram",
-           "normal_draw")
+           "normal_draw", "bpr_step")
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -20,8 +20,10 @@ counter stream of ``ops/sgd.py``, each stream separated by a threefry
 ``fold_in`` of the key, so the draws are bit-identical to the TPU
 package's.  That package fetched the sampled ids through its TPU gather
 layout (``gather_1d``, ``fetch_pairs``, ``pair_pack``); here they are plain
-indexing.  The step is plain torch on either device: it has no Pallas
-original.  Score: p_u · q_y + b_y (user and global bias stay zero).
+indexing.  The step has no Pallas original: on CPU tensors it is the
+plain torch of ``bpr_step_reference``, on CUDA tensors kernel K6
+(``ops/cuda_bpr.py``), which draws the same ids in registers.  Score:
+p_u · q_y + b_y (user and global bias stay zero).
 """
 
 from __future__ import annotations
@@ -99,8 +101,24 @@ def bpr_draws(dev, key, iteration: int) -> BPRDraws:
 
 def bpr_step(pm: PackedModel, dev, hp: Hyper, key,
              iteration: int) -> PackedModel:
-    """One BPR iteration: the dense user pass and the dense (positive and
-    negative) item pass, every read of the pre-step tables."""
+    """One BPR iteration: kernel K6 on CUDA tables (``ops/cuda_bpr.py``,
+    one launch that draws the same ids), or raises; its plain version
+    ``bpr_step_reference`` on CPU tables."""
+    if pm.T_u.device.type == "cpu":
+        return bpr_step_reference(pm, dev, hp, key, iteration)
+    from cu2rec_torch.ops.cuda_bpr import bpr_step_cuda
+    T_u, T_i = bpr_step_cuda(pm.T_u, pm.T_i, dev, hp, key, iteration,
+                             n_factors=pm.n_factors)
+    count("bpr.card_steps")
+    return PackedModel(T_u=T_u, T_i=T_i, global_bias=pm.global_bias,
+                       n_factors=pm.n_factors)
+
+
+def bpr_step_reference(pm: PackedModel, dev, hp: Hyper, key,
+                       iteration: int) -> PackedModel:
+    """One BPR iteration in plain torch, on either device: the dense user
+    pass and the dense (positive and negative) item pass, every read of
+    the pre-step tables."""
     # Float32 arithmetic on float32 or bf16 tables, stored back in the
     # table dtype (bpr.py:74-82, 99, 136 there).
     dt = pm.T_u.dtype

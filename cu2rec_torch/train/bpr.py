@@ -18,6 +18,7 @@ from cu2rec_torch.data.csr import CSRRatings, to_device
 from cu2rec_torch.models.state import (
     MFModel, init_model, table_dtype, with_dtype,
 )
+from cu2rec_torch.ops import cuda_bpr
 from cu2rec_torch.ops.bpr import auc_eval, bpr_run_steps
 from cu2rec_torch.ops.packed import pack, unpack
 from cu2rec_torch.ops.sgd import Hyper, prng_key
@@ -44,7 +45,9 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     iterations past ``cfg.cur_iterations``.  With ``mesh`` (or
     ``n_devices`` > 1 ranks, a dp grid) every rank of the grid calls this
     and the users shard over it (``parallel/bpr.py``, the same draws as on
-    one device); the device is the mesh's.
+    one device); the device is the mesh's.  On one card the step is kernel
+    K6, which takes up to 511 factors: more raise before anything is
+    built.
     """
     dtype = table_dtype(cfg.dtype)
     sharded = mesh is not None or (n_devices and n_devices > 1)
@@ -52,6 +55,8 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         from cu2rec_torch.parallel.sharded import make_mesh
         mesh = make_mesh(n_devices, 1, device)
     dev = resolve_device(mesh.device if sharded else device)
+    if not sharded and dev.type == "cuda":
+        cuda_bpr.check_factors(cfg.n_factors)
     logger = logger or MetricsLogger()
     F = cfg.n_factors
     recall_k = min(recall_k, train_csr.n_items)

@@ -606,6 +606,76 @@ def test_bpr_steps_on_card_match_cpu(cuda_device, lean):
                                        atol=1e-5)
 
 
+def _bpr_ratings(U, I, seed):
+    """``_family_ratings`` less items 3 and I - 2: users 0 and 7 and those
+    two items have no interactions, rows that only the masks reach."""
+    from cu2rec_torch.data.csr import csr_from_arrays
+
+    csr = _family_ratings(U, I, seed)
+    users = np.repeat(np.arange(U), np.diff(csr.indptr))
+    keep = ~np.isin(csr.indices, (3, I - 2))
+    return csr_from_arrays(users[keep], csr.indices[keep], csr.data[keep],
+                           U, I)
+
+
+def _bf16_step(x):
+    """One bf16 rounding step at each entry of ``x`` (float32): 2^(e - 7)
+    for |x| in [2^e, 2^(e+1)), 0 at 0."""
+    a = x.abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 7), torch.zeros_like(a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lean", [False, True])
+@pytest.mark.parametrize("F,dtype", [
+    (50, "float32"), (100, "float32"), (200, "float32"), (300, "float32"),
+    (500, "float32"), (50, "bfloat16"), (300, "bfloat16")])
+def test_bpr_kernel_matches_plain_step_on_card(cuda_device, lean, F, dtype):
+    """K6 against the plain step on the card, three steps, each from the
+    plain step's tables, at every row width K6 takes (W = 64, 128, 256,
+    384 and 512): float32 tables within 1e-5 (a row's sums in
+    another order, the card's expf), bf16 within one bf16 rounding step of
+    each entry (both round float32 once); the unrated users' rows and
+    every padding column unchanged; exactly one launch a step."""
+    from cu2rec_torch.data.csr import to_device
+    from cu2rec_torch.ops import cuda_bpr
+    from cu2rec_torch.ops.bpr import bpr_draws, bpr_step, bpr_step_reference
+    from cu2rec_torch.ops.packed import PackedModel
+    from cu2rec_torch.ops.sgd import Hyper, prng_key
+
+    U, I = 400, 150
+    dev = to_device(_bpr_ratings(U, I, seed=5), cuda_device,
+                    item_major=True, lean=lean)
+    hp = Hyper(*(float(np.float32(v)) for v in (0.1, 0.01, 0.02, 0.03,
+                                                 0.01)))
+    dt = getattr(torch, dtype)
+    pm = _packed(U, I, F, seed=2, device=cuda_device)
+    pm = PackedModel(T_u=pm.T_u.to(dt), T_i=pm.T_i.to(dt),
+                     global_bias=pm.global_bias, n_factors=F)
+    key = prng_key(2 ** 32 + 9)
+    for it in range(3):
+        d = bpr_draws(dev, key, it)
+        assert not d.has_u[[0, 7]].any() and not d.has_y[[3, I - 2]].any()
+        n0 = cuda_bpr.LAUNCHES
+        got = bpr_step(pm, dev, hp, key, it)
+        torch.cuda.synchronize()
+        assert cuda_bpr.LAUNCHES == n0 + 1
+        want = bpr_step_reference(pm, dev, hp, key, it)
+        for side in ("T_u", "T_i"):
+            assert getattr(got, side).dtype == dt
+            g, w = (getattr(t, side).float() for t in (got, want))
+            if dtype == "float32":
+                torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+            else:
+                gap = (g - w).abs()
+                assert bool((gap <= _bf16_step(torch.maximum(
+                    g.abs(), w.abs()))).all()), float(gap.max())
+            assert not g[:, F + 1:].any()
+        assert torch.equal(got.T_u[[0, 7]], pm.T_u[[0, 7]])
+        pm = want
+
+
 @pytest.mark.gpu
 def test_family_trainers_on_card_launch_their_kernels(cuda_device):
     """train_als launches K1 and K0b on the card, train_ials K1; both
