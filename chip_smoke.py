@@ -2127,8 +2127,7 @@ def _als_run(torch, dev, seed: int, card: str):
     log(f"[als] train_als: {wall:.1f} s wall with set-up; launches "
         f"{launches}; on {card}")
     pm = pack(model)
-    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
-                                            device_buckets=True)
+    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev)
     gram = {side: _check_gram(torch, _gram_cases(torch, chunks, T, "als",
                                                  mu), f"ALS {side}", card)
             for side, chunks, T in (("users", user_chunks, pm.T_i),
@@ -2182,8 +2181,7 @@ def _ials_run(torch, dev, seed: int, card: str):
             f"{ndcg:.4f}")
     log(f"[ials] train_ials: {wall:.1f} s wall; launches {launches}; "
         f"oracle AUC {oracle:.4f}; on {card}")
-    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
-                                            device_buckets=True)
+    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev)
     gram = {side: _check_gram(torch, _gram_cases(torch, chunks, T, "ials"),
                               f"iALS {side}", card)
             for side, chunks, T in (("users", user_chunks, model.Q),

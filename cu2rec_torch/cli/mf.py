@@ -29,7 +29,6 @@ import sys
 
 from cu2rec_torch.data.csr import build_csr
 from cu2rec_torch.data.ratings import read_ratings_csv
-from cu2rec_torch.ops.als import SOLVERS
 from cu2rec_torch.train.trainer import train
 from cu2rec_torch.utils.checkpoint import (
     export_components, load_checkpoint, save_checkpoint,
@@ -37,6 +36,10 @@ from cu2rec_torch.utils.checkpoint import (
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import print_free_memory, resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
+
+# The TPU package's ridge solver names, taken so that its command lines run
+# unchanged; every one runs kernel K1 here.
+SOLVER_NAMES = ("auto", "blocked", "pallas", "xla")
 
 
 def build_parser():
@@ -68,9 +71,9 @@ def build_parser():
                         "number of sweeps; ials = implicit-feedback "
                         "weighted MF and bpr = pairwise ranking, both "
                         "evaluated by recall@10)")
-    p.add_argument("--solver", choices=SOLVERS, default="auto",
-                   help="ridge solver for als/ials sweeps (every name runs "
-                        "the same kernel here)")
+    p.add_argument("--solver", choices=SOLVER_NAMES, default="auto",
+                   help="the TPU package's ridge solver names, accepted so "
+                        "that its command lines run; every name runs K1")
     p.add_argument("--alpha", type=float, default=40.0,
                    help="iALS confidence slope (c = 1 + alpha*r)")
     p.add_argument("--outdir", default=None,
@@ -166,13 +169,13 @@ def _train(args, mesh) -> int:
         model, _losses = train_ials(train_csr, test_csr, cfg,
                                     alpha=args.alpha, model=model,
                                     logger=logger, mesh=mesh,
-                                    solver=args.solver, device=device)
+                                    device=device)
     elif cfg.algo == "als":
         from cu2rec_torch.train.als import train_als
         model, _losses = train_als(train_csr, test_csr, cfg,
                                    train_rd.global_bias, model=model,
                                    logger=logger, mesh=mesh,
-                                   solver=args.solver, device=device)
+                                   device=device)
     else:
         engine = None
         if mesh is not None:

@@ -16,11 +16,14 @@ Rows above the largest capacity take the heavy path: their slice is split
 into capacity-sized segments whose partial Grams are summed exactly.
 
 The module mirrors the TPU package's ``ops/als.py`` and keeps its names.
-``_ridge_finish`` keeps that package's solver names ("auto", "blocked",
-"pallas", "xla"), but on this card every name is the same solve: kernel K1
-on a CUDA tensor, its plain version on a CPU tensor (``ops/cuda_linalg.py``).
-The TPU package needed several solvers because its Pallas kernel padded
-small batches to a lane tile and had a VMEM ceiling; K1 has neither.
+Every solve is kernel K1 on a CUDA tensor, its plain version on a CPU
+tensor (``ops/cuda_linalg.py``).  The TPU package chose among several
+batched Cholesky implementations because its Pallas kernel padded small
+batches to a lane tile and had a VMEM ceiling; K1 has neither, so there is
+no choice to make.
+The chunks are built once a training run from the flat CSR arrays on
+their own device (``prepare_chunks``); only the bucket bookkeeping, which
+reads ``indptr`` alone, runs on the host.
 
 What that package does only for its TPU compiler is left out: the fused
 one-program dispatch and its fall-back tiers, the disabled-signature store
@@ -40,7 +43,6 @@ with a mask of the rows solved (``parallel/distributed.py``,
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -50,8 +52,6 @@ import torch.nn.functional as nnf
 from cu2rec_torch.ops.cuda_gram import add_ridge, gather_gram
 from cu2rec_torch.ops.cuda_linalg import ridge_solve_batched_cuda
 from cu2rec_torch.utils.timing import count, span
-
-SOLVERS = ("auto", "blocked", "pallas", "xla")
 
 # Degree-bucket capacities. A row with degree d lands in the smallest
 # bucket with capacity >= d; rows beyond the largest capacity go to the
@@ -89,26 +89,10 @@ def assemble_solved(T_new, T_self, solved, row_sharding):
     return torch.where(solved[:, None] > 0, T_new, T_self)
 
 
-@dataclass
-class BucketedRows:
-    """Padded per-row rating slices grouped by degree bucket (host side).
-
-    Regular bucket: ``row_ids`` (B,), ``cols`` (B, D) padded counterpart
-    ids, ``vals`` (B, D) ratings, ``mask`` (B, D).  The heavy bucket
-    (rows with degree > caps[-1]) also carries the segment structure: rows
-    (H,) with segment ranges ``seg_start``/``seg_end`` (H,) into its (S, D)
-    segment axis, and the true ``deg`` (H,).
-    """
-
-    buckets: list  # of dict(row_ids, cols, vals, mask [, seg_*, deg])
-    n_rows: int
-
-
 def bucket_meta(indptr: np.ndarray, caps=BUCKET_CAPS) -> list[dict]:
     """Which rows land in which bucket and which flat-CSR slice each padded
-    row covers.  Reads only ``indptr``, so the (cols, vals) extraction can
-    run on the host (:func:`bucket_csr`) or on the card from the uploaded
-    CSR (:func:`prepare_chunks_device`).
+    row covers.  Reads only ``indptr``, so that :func:`prepare_chunks`
+    extracts the (cols, vals) slices on the device of the flat CSR.
 
     Regular bucket dict: row_ids (B,), starts (B,), lens (B,), cap.  The
     heavy bucket adds seg_start/seg_end (H,) into its segment axis and the
@@ -144,32 +128,6 @@ def bucket_meta(indptr: np.ndarray, caps=BUCKET_CAPS) -> list[dict]:
     return metas
 
 
-def bucket_csr(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
-               caps=BUCKET_CAPS) -> BucketedRows:
-    """The host-side bucket expansion of a CSR."""
-    n_rows = len(indptr) - 1
-    nnz = len(indices)
-
-    def extract(starts, lens, cap):
-        j = np.arange(cap, dtype=np.int64)[None, :]
-        mask = j < lens[:, None]
-        pos = np.clip(starts[:, None] + j, 0, max(nnz - 1, 0))
-        cols = np.where(mask, indices[pos], 0).astype(np.int32)
-        vals = np.where(mask, data[pos], 0).astype(np.float32)
-        return cols, vals, mask
-
-    buckets = []
-    for m in bucket_meta(indptr, caps):
-        cols, vals, mask = extract(m["starts"], m["lens"], m["cap"])
-        b = {"row_ids": m["row_ids"], "cols": cols, "vals": vals,
-             "mask": mask}
-        if "seg_start" in m:
-            b.update(seg_start=m["seg_start"], seg_end=m["seg_end"],
-                     deg=m["deg"])
-        buckets.append(b)
-    return BucketedRows(buckets=buckets, n_rows=n_rows)
-
-
 def _heavy_groups(seg_start, seg_end, chunk: int):
     """Group heavy rows into chunks of ≤ ``chunk`` segments, whole rows only
     (the prefix-difference Gram assembly of a row needs all its segments in
@@ -200,62 +158,9 @@ def _put(x, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
 
 
-def prepare_chunks(bucketed: BucketedRows, n_factors: int,
-                   n_rows_total: int, row_sharding=None,
-                   budget: int | None = None, device=None):
-    """Upload bucket data once per training run as device chunks.
-
-    Regular chunk: ("reg", cols, vals, mask, rows); heavy chunk: ("heavy",
-    cols, vals, mask, rows, seg_start, seg_end, deg), segment ranges
-    relative to the chunk.  A tail chunk keeps its own row count (no
-    padding rows, so every row id is in range).  ``n_rows_total`` is the
-    table's row count, kept for the TPU package's signature.  With
-    ``row_sharding`` only this rank's rows are kept (``_rank_rows``,
-    ``_rank_takes``).
-    """
-    budget = budget or DEFAULT_BUDGET
-    dev = torch.device("cpu" if device is None else device)
-    F1 = n_factors + 1
-    chunks = []
-    n_heavy = 0
-    for b in bucketed.buckets:
-        B, D = b["cols"].shape
-        chunk = _chunk_size(B, D, F1, budget)
-
-        def slab(s, e):
-            return (_put(b["cols"][s:e], torch.int64, dev),
-                    _put(b["vals"][s:e], torch.float32, dev),
-                    _put(b["mask"][s:e], torch.bool, dev))
-
-        if "seg_start" not in b:
-            for s in range(0, B, chunk):
-                lo, hi = _rank_rows(row_sharding, s, min(s + chunk, B))
-                if hi > lo:
-                    chunks.append(("reg", *slab(lo, hi),
-                                   _put(b["row_ids"][lo:hi], torch.int64,
-                                        dev)))
-            continue
-
-        # Heavy bucket: B here counts segments.
-        seg_start, seg_end = b["seg_start"], b["seg_end"]
-        groups, _h, chunk = _heavy_groups(seg_start, seg_end, chunk)
-        for lo, hi in groups:
-            n_heavy += 1
-            if not _rank_takes(row_sharding, n_heavy - 1):
-                continue
-            s0, s1 = int(seg_start[lo]), int(seg_end[hi - 1])
-            chunks.append((
-                "heavy", *slab(s0, s1),
-                _put(b["row_ids"][lo:hi], torch.int64, dev),
-                _put(seg_start[lo:hi] - s0, torch.int64, dev),
-                _put(seg_end[lo:hi] - s0, torch.int64, dev),
-                _put(b["deg"][lo:hi], torch.float32, dev)))
-    return chunks
-
-
-def _extract_rows_device(flat_i, flat_d, starts, lens, cap: int):
-    """Padded-slice extraction on the device: (B, cap) cols/vals/mask from
-    the flat CSR tensors.  ``flat_*`` must be padded by ≥ cap so that no
+def _extract_rows(flat_i, flat_d, starts, lens, cap: int):
+    """Padded-slice extraction: (B, cap) cols/vals/mask from the flat CSR
+    tensors, on their device.  ``flat_*`` must be padded by ≥ cap so that no
     slice runs past their end."""
     j = torch.arange(cap, device=flat_i.device)
     pos = starts[:, None] + j[None, :]
@@ -265,27 +170,38 @@ def _extract_rows_device(flat_i, flat_d, starts, lens, cap: int):
     return cols, vals, mask
 
 
-def prepare_chunks_device(indices_dev, data_dev, indptr_host, n_factors: int,
-                          n_rows_total: int, nnz: int, caps=BUCKET_CAPS,
-                          budget: int | None = None, row_sharding=None):
-    """The chunks of :func:`prepare_chunks`, with (cols, vals) extracted on
-    the device from the uploaded flat CSR tensors: only the (starts, lens)
-    vectors cross from the host, not the padded bucket expansion."""
+def prepare_chunks(indices, data, indptr, n_factors: int, nnz: int, *,
+                   caps=BUCKET_CAPS, budget: int | None = None,
+                   row_sharding=None):
+    """The chunks of one side of a CSR for its half sweeps, built once a
+    training run on the device of the flat ``indices`` and ``data``
+    tensors (their first ``nnz`` entries): each padded (cols, vals, mask)
+    slice is extracted there, and only the (starts, lens) vectors that
+    :func:`bucket_meta` reads from the host ``indptr`` cross to it.
+
+    Regular chunk: ("reg", cols, vals, mask, rows); heavy chunk: ("heavy",
+    cols, vals, mask, rows, seg_start, seg_end, deg), segment ranges
+    relative to the chunk.  A chunk holds about ``budget`` elements of its
+    (chunk, width, F + 1) design tensor; a tail chunk keeps its own row
+    count (no padding rows, so every row id is in range).  With
+    ``row_sharding`` only this rank's rows are kept (``_rank_rows``,
+    ``_rank_takes``).
+    """
     budget = budget or DEFAULT_BUDGET
-    dev = indices_dev.device
+    dev = indices.device
     F1 = n_factors + 1
     cap_max = caps[-1]
-    flat_i = nnf.pad(indices_dev[:nnz].to(torch.int64), (0, cap_max))
-    flat_d = nnf.pad(data_dev[:nnz].to(torch.float32), (0, cap_max))
+    flat_i = nnf.pad(indices[:nnz].to(torch.int64), (0, cap_max))
+    flat_d = nnf.pad(data[:nnz].to(torch.float32), (0, cap_max))
 
     def extract(m, s, e):
-        return _extract_rows_device(
+        return _extract_rows(
             flat_i, flat_d, _put(m["starts"][s:e], torch.int64, dev),
             _put(m["lens"][s:e], torch.int64, dev), int(m["cap"]))
 
     chunks = []
     n_heavy = 0
-    for m in bucket_meta(indptr_host, caps):
+    for m in bucket_meta(indptr, caps):
         B = len(m["starts"])
         chunk = _chunk_size(B, int(m["cap"]), F1, budget)
         if "seg_start" not in m:
@@ -332,16 +248,14 @@ def reg_vector(factor_reg: float, bias_reg: float, n_factors: int,
                         dtype=torch.float32, device=device)
 
 
-def als_half_sweep(T_self, T_other, bucketed, mu,
+def als_half_sweep(T_self, T_other, chunks, mu,
                    factor_reg: float, bias_reg: float, n_factors: int,
-                   weight_by_degree: bool = True, row_sharding=None,
-                   solver: str = "auto"):
+                   weight_by_degree: bool = True, row_sharding=None):
     """Every row of the packed table ``T_self`` solved given the frozen
     ``T_other``; returns a new table.
 
-    ``bucketed`` is a chunk list from :func:`prepare_chunks` or
-    :func:`prepare_chunks_device` (upload once, sweep many), or a host-side
-    :class:`BucketedRows` uploaded here.  With ``weight_by_degree`` the
+    ``chunks`` is a chunk list from :func:`prepare_chunks` (built once,
+    swept many times).  With ``weight_by_degree`` the
     ridge term is scaled by each row's degree (λ·|S|, Zhou et al.).  Rows
     with no ratings are in no chunk and come out unchanged.  With
     ``row_sharding`` each rank solves the rows of its chunks (from
@@ -352,10 +266,7 @@ def als_half_sweep(T_self, T_other, bucketed, mu,
     dev = T_self.device
     with span("als.half_sweep"):
         reg = reg_vector(factor_reg, bias_reg, F, dev)
-        if isinstance(bucketed, BucketedRows):
-            bucketed = prepare_chunks(bucketed, F, T_self.shape[0],
-                                      row_sharding, device=dev)
-        regs, heavies = split_chunks(bucketed)
+        regs, heavies = split_chunks(chunks)
         count("als.chunks", len(regs) + len(heavies))
         mu32 = torch.tensor(float(mu), dtype=torch.float32, device=dev)
         T_x = design_table(T_other, F)
@@ -363,11 +274,11 @@ def als_half_sweep(T_self, T_other, bucketed, mu,
         for ch in regs:
             with span("als.chunk"):
                 _als_apply_reg(T_new, T_x, ch, mu32, reg, F,
-                               weight_by_degree, solver)
+                               weight_by_degree)
         for ch in heavies:
             with span("als.chunk"):
                 _als_apply_heavy(T_new, T_x, ch, mu32, reg, F,
-                                 weight_by_degree, solver)
+                                 weight_by_degree)
         if solved is not None:
             for ch in regs + heavies:
                 solved[ch[3]] = 1
@@ -392,26 +303,24 @@ def _scatter_theta(T_new, theta, rows, F: int) -> None:
         T_new.dtype)
 
 
-def _als_apply_reg(T_new, T_other, ch, mu, reg, F, weight_by_degree,
-                   solver) -> None:
+def _als_apply_reg(T_new, T_other, ch, mu, reg, F,
+                   weight_by_degree) -> None:
     cols, vals, mask, rows = ch
     if weight_by_degree:
         deg = mask.sum(dim=1).to(torch.float32)[:, None]
     else:
         deg = torch.ones((cols.shape[0], 1), dtype=torch.float32,
                          device=cols.device)
-    theta = _solve_bucket_weighted(T_other, cols, vals, mask, mu, reg, deg,
-                                   solver=solver)
+    theta = _solve_bucket_weighted(T_other, cols, vals, mask, mu, reg, deg)
     _scatter_theta(T_new, theta, rows, F)
 
 
-def _als_apply_heavy(T_new, T_other, ch, mu, reg, F, weight_by_degree,
-                     solver) -> None:
+def _als_apply_heavy(T_new, T_other, ch, mu, reg, F,
+                     weight_by_degree) -> None:
     cols, vals, mask, rows, s0, s1, degv = ch
     if not weight_by_degree:
         degv = torch.ones_like(degv)
-    theta = _solve_heavy(T_other, cols, vals, mask, mu, reg, s0, s1, degv,
-                         solver=solver)
+    theta = _solve_heavy(T_other, cols, vals, mask, mu, reg, s0, s1, degv)
     _scatter_theta(T_new, theta, rows, F)
 
 
@@ -449,16 +358,14 @@ def bucket_system(T_other, cols, vals, mask, mu, reg_vec, deg):
                        reg_vec=reg_vec, deg=deg)
 
 
-def _solve_bucket_weighted(T_other, cols, vals, mask, mu, reg_vec, deg,
-                           solver: str = "auto"):
+def _solve_bucket_weighted(T_other, cols, vals, mask, mu, reg_vec, deg):
     return _ridge_finish(*bucket_system(T_other, cols, vals, mask, mu,
-                                        reg_vec, deg), solver)
+                                        reg_vec, deg))
 
 
-def _ridge_finish(G, rhs, solver: str):
-    """θ = G⁻¹ rhs for ``G`` (B, N, N) SPD and ``rhs`` (B, N)."""
-    if solver not in SOLVERS:
-        raise ValueError(f"unknown solver {solver!r} (one of {SOLVERS})")
+def _ridge_finish(G, rhs):
+    """θ = G⁻¹ rhs for ``G`` (B, N, N) SPD and ``rhs`` (B, N): K1 on CUDA
+    tensors, its plain version on CPU tensors."""
     return ridge_solve_batched_cuda(G.contiguous(), rhs.contiguous())
 
 
@@ -487,9 +394,8 @@ def heavy_system(T_other, cols, vals, mask, mu, reg_vec, seg_start, seg_end,
 
 
 def _solve_heavy(T_other, cols, vals, mask, mu, reg_vec, seg_start, seg_end,
-                 deg, solver: str = "auto"):
+                 deg):
     """Exact ridge solve for rows of degree > caps[-1]: no truncation of
     hot rows."""
     return _ridge_finish(*heavy_system(T_other, cols, vals, mask, mu,
-                                       reg_vec, seg_start, seg_end, deg),
-                         solver)
+                                       reg_vec, seg_start, seg_end, deg))

@@ -50,9 +50,9 @@ def ials_rows_system(q, G_global, vals, mask, alpha: float, reg: float):
 
 
 def _solve_ials_bucket(T_other, G_global, cols, vals, mask, alpha: float,
-                       reg: float, solver: str = "auto"):
+                       reg: float):
     return _ridge_finish(*ials_bucket_system(T_other, G_global, cols, vals,
-                                             mask, alpha, reg), solver)
+                                             mask, alpha, reg))
 
 
 def ials_heavy_system(T_other, G_global, cols, vals, mask, seg_start,
@@ -66,16 +66,14 @@ def ials_heavy_system(T_other, G_global, cols, vals, mask, seg_start,
 
 
 def _solve_ials_heavy(T_other, G_global, cols, vals, mask, seg_start,
-                      seg_end, alpha: float, reg: float,
-                      solver: str = "auto"):
+                      seg_end, alpha: float, reg: float):
     """Exact iALS solve for rows of degree > the largest bucket."""
     return _ridge_finish(*ials_heavy_system(T_other, G_global, cols, vals,
                                             mask, seg_start, seg_end, alpha,
-                                            reg), solver)
+                                            reg))
 
 
-def ials_fold_in(Y, cols, vals, mask, alpha: float, reg: float,
-                 solver: str = "auto"):
+def ials_fold_in(Y, cols, vals, mask, alpha: float, reg: float):
     """Exact one-shot fold-in for a batch of new implicit users against the
     frozen item factors ``Y`` (I, F):
 
@@ -98,33 +96,32 @@ def ials_fold_in(Y, cols, vals, mask, alpha: float, reg: float,
                          f"got {int(live.min())}..{int(live.max())}")
     cols = torch.where(mask, cols, 0)
     return _solve_ials_bucket(Y, gramian(Y), cols, vals, mask,
-                              float(alpha), float(reg), solver=solver)
+                              float(alpha), float(reg))
 
 
 def ials_half_sweep(T_self, T_other, chunks, alpha: float, reg: float,
-                    solver: str = "auto", row_sharding=None):
+                    row_sharding=None):
     """Every row of ``T_self`` (plain (N, F) factors) solved given the
-    frozen ``T_other``, from the chunks of ``ops/als.prepare_chunks`` or
-    ``prepare_chunks_device``; returns a new table.  Rows with no ratings
-    come out unchanged.  ``row_sharding``: as in ``als_half_sweep``, each
-    rank solves its chunks' rows and every rank returns the whole table."""
+    frozen ``T_other``, from the chunks of ``ops/als.prepare_chunks``;
+    returns a new table.  Rows with no ratings come out unchanged.
+    ``row_sharding``: as in ``als_half_sweep``, each rank solves its
+    chunks' rows and every rank returns the whole table."""
     regs, heavies = split_chunks(chunks)
     return _ials_sweep_body(T_self, T_other, regs, heavies, float(alpha),
-                            float(reg), solver, row_sharding)
+                            float(reg), row_sharding)
 
 
 def _ials_sweep_body(T_self, T_other, regs, heavies, a: float, r: float,
-                     solver: str, row_sharding=None):
+                     row_sharding=None):
     G = gramian(T_other)
     T_other = gram_rows(T_other)     # float32 once a half sweep
     T_new, solved = _solve_into(T_self, row_sharding)
     for cols, vals, mask, rows in regs:
-        theta = _solve_ials_bucket(T_other, G, cols, vals, mask, a, r,
-                                   solver=solver)
+        theta = _solve_ials_bucket(T_other, G, cols, vals, mask, a, r)
         T_new[rows] = theta.to(T_new.dtype)
     for cols, vals, mask, rows, s0, s1, _deg in heavies:
         theta = _solve_ials_heavy(T_other, G, cols, vals, mask, s0, s1, a,
-                                  r, solver=solver)
+                                  r)
         T_new[rows] = theta.to(T_new.dtype)
     if solved is not None:
         for ch in regs + heavies:

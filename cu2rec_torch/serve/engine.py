@@ -585,7 +585,7 @@ class ShardedServingEngine:
         q = self._rows(self._to_dev(items, torch.int64), self.F)
         return _ridge_finish(*ials_rows_system(
             q, G, self._to_dev(vals), self._to_dev(m, torch.bool),
-            float(np.float32(alpha)), float(np.float32(reg))), "auto")
+            float(np.float32(alpha)), float(np.float32(reg))))
 
     def fold_in_implicit_and_recommend_padded(self, rated_items, strengths,
                                               mask, alpha: float = 40.0,

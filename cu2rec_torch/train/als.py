@@ -19,9 +19,7 @@ from cu2rec_torch.data.csr import CSRRatings, to_device, transpose_csr
 from cu2rec_torch.models.state import (
     MFModel, init_model, table_dtype, with_dtype,
 )
-from cu2rec_torch.ops.als import (
-    als_half_sweep, bucket_csr, prepare_chunks, prepare_chunks_device,
-)
+from cu2rec_torch.ops.als import als_half_sweep, prepare_chunks
 from cu2rec_torch.ops.loss import evaluate_packed
 from cu2rec_torch.ops.packed import PackedModel, pack, unpack
 from cu2rec_torch.train.trainer import _subsample_dev
@@ -32,44 +30,30 @@ from cu2rec_torch.utils.timing import (
     count, elapsed_ms, fetch_barrier, mark, span,
 )
 
-# Above this many ratings the bucket slices are extracted on the device.
-DEVICE_BUCKETS_ABOVE = 5_000_000
-
 
 def sweep_chunks(csr: CSRRatings, n_factors: int, device,
-                 device_buckets: bool | None = None, row_sharding=None):
+                 row_sharding=None):
     """(user chunks, item chunks) of a training CSR for the half sweeps:
-    extracted on the device from the uploaded flat CSR above
-    ``DEVICE_BUCKETS_ABOVE`` ratings (or with ``device_buckets``), else
-    bucketed on the host and uploaded; with ``row_sharding`` this rank's
-    share of them."""
+    each side's flat arrays uploaded to ``device`` and its chunks extracted
+    there; with ``row_sharding`` this rank's share of them."""
     with span("als.prepare_chunks"):
-        if device_buckets is None:
-            device_buckets = csr.nnz > DEVICE_BUCKETS_ABOVE
         it_indptr, it_rows, it_vals = transpose_csr(csr)
-        sides = ((csr.indptr, csr.indices, csr.data, csr.n_users),
-                 (it_indptr, it_rows, it_vals, csr.n_items))
-        if device_buckets:
-            def up(x, dtype):
-                return torch.from_numpy(x).to(device, dtype)
 
-            return tuple(prepare_chunks_device(
-                up(ind, torch.int32), up(dat, torch.float32), ip, n_factors,
-                n, csr.nnz, row_sharding=row_sharding)
-                for ip, ind, dat, n in sides)
-        return tuple(prepare_chunks(bucket_csr(ip, ind, dat), n_factors, n,
-                                    row_sharding, device=device)
-                     for ip, ind, dat, n in sides)
+        def up(x, dtype):
+            return torch.from_numpy(x).to(device, dtype)
+
+        return tuple(prepare_chunks(up(ind, torch.int32),
+                                    up(dat, torch.float32), ip, n_factors,
+                                    csr.nnz, row_sharding=row_sharding)
+                     for ip, ind, dat in ((csr.indptr, csr.indices, csr.data),
+                                          (it_indptr, it_rows, it_vals)))
 
 
 def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
               global_bias: float,
               model: MFModel | None = None,
               logger: MetricsLogger | None = None,
-              weight_by_degree: bool = True,
               mesh=None,
-              device_buckets: bool | None = None,
-              solver: str = "auto",
               device=None):
     """Train by ALS for ``cfg.total_iterations`` sweeps, on the CUDA device
     unless ``device="cpu"``.  Returns ``(model, losses)``, losses mapping
@@ -100,8 +84,7 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
                                        cfg.seed + 1, dev)
     else:
         test_eval_dev = to_device(test_csr, dev)
-    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
-                                            device_buckets, mesh)
+    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev, mesh)
 
     losses: dict[int, float] = {}
     n_sweeps = cfg.total_iterations
@@ -111,14 +94,10 @@ def train_als(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         with span("als.sweep"):
             t0 = mark(dev)
             T_u = als_half_sweep(pm.T_u, pm.T_i, user_chunks, mu, cfg.P_reg,
-                                 cfg.user_bias_reg, F,
-                                 weight_by_degree=weight_by_degree,
-                                 row_sharding=mesh, solver=solver)
+                                 cfg.user_bias_reg, F, row_sharding=mesh)
             t1 = mark(dev)
             T_i = als_half_sweep(pm.T_i, T_u, item_chunks, mu, cfg.Q_reg,
-                                 cfg.item_bias_reg, F,
-                                 weight_by_degree=weight_by_degree,
-                                 row_sharding=mesh, solver=solver)
+                                 cfg.item_bias_reg, F, row_sharding=mesh)
             t2 = mark(dev)
         pm = PackedModel(T_u=T_u, T_i=T_i, global_bias=pm.global_bias,
                          n_factors=F)

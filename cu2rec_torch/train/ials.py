@@ -32,9 +32,7 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
                logger: MetricsLogger | None = None,
                recall_k: int = 10,
                recall_users: int = 2048,
-               device_buckets: bool | None = None,
                mesh=None,
-               solver: str = "auto",
                device=None):
     """Train implicit weighted MF for ``cfg.total_iterations`` sweeps, on
     the CUDA device unless ``device="cpu"``.
@@ -56,8 +54,7 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
                            seed=cfg.seed, dtype=cfg.dtype, device=dev)
     X = model.P.to(dev, torch.float32)
     Y = model.Q.to(dev, torch.float32)
-    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev,
-                                            device_buckets, mesh)
+    user_chunks, item_chunks = sweep_chunks(train_csr, F, dev, mesh)
 
     def as_model(X, Y) -> MFModel:
         zeros = torch.zeros
@@ -72,10 +69,10 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
                        cfg.total_iterations + 1):
         t0 = mark(dev)
         X = ials_half_sweep(X, Y, user_chunks, alpha, cfg.P_reg,
-                            solver=solver, row_sharding=mesh)
+                            row_sharding=mesh)
         t1 = mark(dev)
         Y = ials_half_sweep(Y, X, item_chunks, alpha, cfg.Q_reg,
-                            solver=solver, row_sharding=mesh)
+                            row_sharding=mesh)
         t2 = mark(dev)
         mdl = as_model(X, Y)
         m = ranking_eval(mdl, train_csr, test_csr, k=recall_k,

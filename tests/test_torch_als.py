@@ -82,16 +82,22 @@ def test_bucketing_is_identical(caps, side):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    tb = t_als.bucket_csr(ip, ind, dat, caps)
+    # With a budget of one chunk a bucket, each chunk holds its bucket's
+    # slices as the TPU package's host expansion pads them.
+    tc = t_als.prepare_chunks(torch.from_numpy(ind), torch.from_numpy(dat),
+                              ip, 4, len(ind), caps=caps, budget=1 << 40)
     jb = j_als.bucket_csr(ip, ind, dat, caps)
-    assert tb.n_rows == jb.n_rows and len(tb.buckets) == len(jb.buckets)
-    for a, b in zip(tb.buckets, jb.buckets):
-        assert a.keys() == b.keys()
-        for k in a:
-            assert a[k].dtype == b[k].dtype, k
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert len(tc) == len(jb.buckets)
+    for ch, b in zip(tc, jb.buckets):
+        keys = ["cols", "vals", "mask", "row_ids"]
+        if ch[0] == "heavy":
+            keys += ["seg_start", "seg_end", "deg"]
+        assert ch[0] == ("heavy" if "seg_start" in b else "reg")
+        assert len(ch) - 1 == len(b) == len(keys)
+        for k, a in zip(keys, ch[1:]):
+            np.testing.assert_array_equal(a.numpy(), b[k], err_msg=k)
     if caps == SMALL_CAPS and side == "items":
-        assert "seg_start" in tb.buckets[-1]      # heavy rows exist
+        assert tc[-1][0] == "heavy"      # heavy rows exist
 
 
 def test_heavy_groups_are_identical():
@@ -106,40 +112,77 @@ def _to_numpy(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _chunks(ip, ind, dat, F, caps=SMALL_CAPS, **kw):
+    """The port's chunks of one CSR side, built from CPU tensors."""
+    return t_als.prepare_chunks(torch.from_numpy(ind), torch.from_numpy(dat),
+                                ip, F, len(ind), caps=caps, **kw)
+
+
+CHUNK_DTYPES = {"reg": (torch.int64, torch.float32, torch.bool, torch.int64),
+                "heavy": (torch.int64, torch.float32, torch.bool, torch.int64,
+                          torch.int64, torch.int64, torch.float32)}
+
+
 @pytest.mark.parametrize("budget", [10_000, 64 << 20])
-def test_chunks_host_device_and_tpu_package_agree(budget):
-    """Host and device chunk preparation give the same chunks; each equals
-    the TPU package's chunk without its padding rows."""
+def test_chunks_match_both_tpu_package_builders(budget):
+    """The one chunk builder against both of the TPU package's, its host
+    ``prepare_chunks(bucket_csr(...))`` and its ``prepare_chunks_device``:
+    each chunk equals theirs without their padding rows, in the dtypes the
+    half sweeps read."""
     t, _ = _both_csrs()
     ip, ind, dat = transpose_csr(t)
     F, n = 4, t.n_items
-    host = t_als.prepare_chunks(t_als.bucket_csr(ip, ind, dat, SMALL_CAPS),
+    port = _chunks(ip, ind, dat, F, budget=budget)
+    host = j_als.prepare_chunks(j_als.bucket_csr(ip, ind, dat, SMALL_CAPS),
                                 F, n, budget=budget)
-    dev = t_als.prepare_chunks_device(
-        torch.from_numpy(ind), torch.from_numpy(dat), ip, F, n, t.nnz,
+    dev = j_als.prepare_chunks_device(
+        jnp.asarray(ind), jnp.asarray(dat), ip, F, n, t.nnz,
         caps=SMALL_CAPS, budget=budget)
-    tpu = j_als.prepare_chunks(j_als.bucket_csr(ip, ind, dat, SMALL_CAPS),
-                               F, n, budget=budget)
-    assert [c[0] for c in host] == [c[0] for c in dev] == \
-        [c[0] for c in tpu]
-    assert "heavy" in [c[0] for c in host]
-    for h, d, j in zip(host, dev, tpu):
-        for a, b in zip(h[1:], d[1:]):
-            assert a.dtype == b.dtype
-            assert torch.equal(a, b)
-        if h[0] == "reg":
-            nrows = h[1].shape[0]
-            for a, b in zip(h[1:], j[1:]):
-                np.testing.assert_array_equal(_to_numpy(a),
-                                              _to_numpy(b)[:nrows])
-        else:
-            nseg, nrows = h[1].shape[0], h[4].shape[0]
-            for a, b in zip(h[1:4], j[1:4]):
-                np.testing.assert_array_equal(_to_numpy(a),
-                                              _to_numpy(b)[:nseg])
-            for a, b in zip(h[4:], j[4:]):
-                np.testing.assert_array_equal(_to_numpy(a),
-                                              _to_numpy(b)[:nrows])
+    tags = [c[0] for c in port]
+    assert tags == [c[0] for c in host] == [c[0] for c in dev]
+    assert "heavy" in tags
+    for p, h, d in zip(port, host, dev):
+        assert tuple(a.dtype for a in p[1:]) == CHUNK_DTYPES[p[0]]
+        nseg, nrows = p[1].shape[0], p[4].shape[0]
+        for j in (h, d):
+            for k, (a, b) in enumerate(zip(p[1:], j[1:])):
+                n_kept = nseg if k < 3 else nrows
+                np.testing.assert_array_equal(a.numpy(),
+                                              _to_numpy(b)[:n_kept])
+
+
+@pytest.mark.parametrize("n_ranks", [2, 3, 4])
+def test_row_sharded_chunks_deal_every_row_once(n_ranks):
+    """With a row sharding of n ranks, rank r keeps rows [s + rB/n,
+    s + (r+1)B/n) of each regular chunk [s, s + B) and the heavy chunks
+    k ≡ r (mod n), each the unsharded chunk's own slice: every rated row
+    is dealt to exactly one rank."""
+    from types import SimpleNamespace
+
+    t, _ = _both_csrs()
+    ip, ind, dat = t.indptr, t.indices, t.data
+    whole = _chunks(ip, ind, dat, 4, budget=300)
+    regs = [c for c in whole if c[0] == "reg"]
+    heavies = [c for c in whole if c[0] == "heavy"]
+    assert len(regs) > n_ranks and len(heavies) > n_ranks
+    dealt = []
+    for r in range(n_ranks):
+        mine = _chunks(ip, ind, dat, 4, budget=300,
+                       row_sharding=SimpleNamespace(size=n_ranks, rank=r))
+        want = []
+        for c in regs:
+            B = c[1].shape[0]
+            lo, hi = r * B // n_ranks, (r + 1) * B // n_ranks
+            if hi > lo:
+                want.append(("reg", *(x[lo:hi] for x in c[1:])))
+        want += heavies[r::n_ranks]
+        assert [c[0] for c in mine] == [c[0] for c in want]
+        for a, b in zip(mine, want):
+            assert all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+        dealt += [c[4] for c in mine]
+    rows = torch.cat(dealt).sort().values
+    assert torch.equal(rows, torch.cat([c[4] for c in whole]).sort().values)
+    assert torch.equal(rows.unique(), rows)
 
 
 def _chunk_inputs():
@@ -150,8 +193,7 @@ def _chunk_inputs():
     d = _tables(t.n_users, t.n_items, 8, seed=1)
     t_pm = t_pack(model_from_numpy(d, "cpu"))
     j_pm = j_pack(_j_model(d))
-    bt = t_als.bucket_csr(ip, ind, dat, SMALL_CAPS)
-    tc = t_als.prepare_chunks(bt, 8, t.n_items, budget=2000)
+    tc = _chunks(ip, ind, dat, 8, budget=2000)
     jc = j_als.prepare_chunks(j_als.bucket_csr(ip, ind, dat, SMALL_CAPS), 8,
                               t.n_items, budget=2000)
     return t_pm, j_pm, tc, jc
@@ -175,7 +217,7 @@ def test_chunk_solves_match(solver):
             cols, vals, mask, _rows = th[1:]
             deg = mask.sum(1).to(torch.float32)[:, None]
             got = t_als._solve_bucket_weighted(
-                t_pm.T_u, cols, vals, mask, mu_t, reg_t, deg, solver=solver)
+                t_pm.T_u, cols, vals, mask, mu_t, reg_t, deg)
             jcols, jvals, jmask, _ = jh[1:]
             want = j_als._solve_bucket_weighted(
                 j_pm.T_u, jcols, jvals, jmask, jnp.float32(3.1), reg_j,
@@ -183,7 +225,7 @@ def test_chunk_solves_match(solver):
         else:
             cols, vals, mask, _rows, s0, s1, deg = th[1:]
             got = t_als._solve_heavy(t_pm.T_u, cols, vals, mask, mu_t, reg_t,
-                                     s0, s1, deg, solver=solver)
+                                     s0, s1, deg)
             want = j_als._solve_heavy(j_pm.T_u, *jh[1:4], jnp.float32(3.1),
                                       reg_j, *jh[5:8], solver=solver)
         want = np.asarray(want)[:got.shape[0]]
@@ -207,7 +249,7 @@ def test_system_assembly_is_what_the_solve_solves():
         G - torch.diag_embed(reg[None] * deg.clamp(min=1)), X.mT @ X,
         rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(
-        t_als._ridge_finish(G, rhs, "auto"),
+        t_als._ridge_finish(G, rhs),
         t_als._solve_bucket_weighted(t_pm.T_u, cols, vals, mask, mu, reg,
                                      deg))
     heavy = next(c for c in tc if c[0] == "heavy")
@@ -220,8 +262,6 @@ def test_system_assembly_is_what_the_solve_solves():
     Xr = X[s0:s1].reshape(-1, 9)
     want = Xr.T @ Xr + torch.diag(reg * heavy[7][0].clamp(min=1))
     torch.testing.assert_close(G[0], want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError, match="unknown solver"):
-        t_als._ridge_finish(G, rhs, "cusolver")
 
 
 @pytest.mark.parametrize("weight_by_degree", [True, False])
@@ -237,8 +277,7 @@ def test_half_sweep_matches(weight_by_degree, side):
         ip, ind, dat = transpose_csr(t)
         selves = (t_pm.T_i, t_pm.T_u), (j_pm.T_i, j_pm.T_u)
     n = selves[0][0].shape[0]
-    tc = t_als.prepare_chunks(t_als.bucket_csr(ip, ind, dat, SMALL_CAPS), 8,
-                              n, budget=3000)
+    tc = _chunks(ip, ind, dat, 8, budget=3000)
     jc = j_als.prepare_chunks(j_als.bucket_csr(ip, ind, dat, SMALL_CAPS), 8,
                               n, budget=3000)
     kw = dict(factor_reg=0.05, bias_reg=0.02, n_factors=8,
@@ -251,11 +290,6 @@ def test_half_sweep_matches(weight_by_degree, side):
     assert torch.equal(got[torch.from_numpy(empty)],
                        selves[0][0][torch.from_numpy(empty)])
     assert not torch.equal(got, selves[0][0])
-    # The same sweep from host-side buckets uploaded on the fly (in other
-    # chunk sizes, so the Grams are summed in another order).
-    again = t_als.als_half_sweep(
-        *selves[0], t_als.bucket_csr(ip, ind, dat, SMALL_CAPS), 3.2, **kw)
-    torch.testing.assert_close(again, got, rtol=RTOL, atol=ATOL)
 
 
 def test_half_sweep_refuses_what_is_not_ported():
@@ -267,12 +301,9 @@ def test_half_sweep_refuses_what_is_not_ported():
     t, _ = _both_csrs()
     d = _tables(t.n_users, t.n_items, 4, seed=0)
     pm = t_pack(model_from_numpy(d, "cpu"))
-    chunks = t_als.prepare_chunks(
-        t_als.bucket_csr(t.indptr, t.indices, t.data), 4, t.n_users)
+    chunks = _chunks(t.indptr, t.indices, t.data, 4, caps=t_als.BUCKET_CAPS)
     mesh = make_mesh(1, 1, "cpu")
-    sharded = t_als.prepare_chunks(
-        t_als.bucket_csr(t.indptr, t.indices, t.data, SMALL_CAPS), 4,
-        t.n_users, row_sharding=mesh)
+    sharded = _chunks(t.indptr, t.indices, t.data, 4, row_sharding=mesh)
     got = t_als.als_half_sweep(pm.T_u, pm.T_i, sharded, 3.0, 0.1, 0.1, 4,
                                row_sharding=mesh)
     want = t_als.als_half_sweep(pm.T_u, pm.T_i, chunks, 3.0, 0.1, 0.1, 4)
@@ -299,7 +330,7 @@ def _train_both(sweeps, device_buckets, cur=0, model=None):
         if name == "port":
             m = model_from_numpy(init, "cpu") if model is None else model
             out = t_train(t_tr, t_te, cfg, gb, model=m, logger=logger,
-                          device_buckets=device_buckets, device="cpu")
+                          device="cpu")
         else:
             out = j_train(j_tr, j_te, cfg, gb, model=j_init_model(
                 U, I, 8, gb, seed=5), logger=logger,
@@ -311,6 +342,8 @@ def _train_both(sweeps, device_buckets, cur=0, model=None):
 
 @pytest.mark.parametrize("device_buckets", [False, True])
 def test_train_als_matches_per_sweep(device_buckets):
+    """Three sweeps against the TPU package's, with either of its chunk
+    builders (``device_buckets``); the port has one."""
     runs = _train_both(3, device_buckets)
     (t_model, t_losses), t_hist, t_cfg = runs["port"]
     (_j_model_out, j_losses), j_hist, _ = runs["jax"]
@@ -354,7 +387,8 @@ def test_train_als_resume_equals_straight_run():
 def test_als_sweep_in_bf16_matches(device_buckets):
     """One sweep on bf16 tables from the TPU package's bf16 draw: the
     solved rows are written rounded to bf16 in both packages, and every
-    entry lands within 4 bf16 ulps of the TPU package's."""
+    entry lands within 4 bf16 ulps of the TPU package's, with either of
+    its chunk builders (``device_buckets``)."""
     from test_torch_bf16 import to_torch, ulp_distance
 
     u, i, r, U, I = _ratings(U=80, I=40, n=1500, seed=6)
@@ -374,9 +408,7 @@ def test_als_sweep_in_bf16_matches(device_buckets):
         logger = MetricsLogger(verbose=False)
         if name == "port":
             runs[name] = t_train(t_tr, t_tr, cfg, gb, model=tm,
-                                 logger=logger,
-                                 device_buckets=device_buckets,
-                                 device="cpu")[0]
+                                 logger=logger, device="cpu")[0]
         else:
             runs[name] = j_train(j_tr, j_tr, cfg, gb, model=jm,
                                  logger=logger,

@@ -327,6 +327,26 @@ def test_mf_families_in_bf16_match_the_tpu_package(tmp_path, data_dir,
                     ["--dtype", "bfloat16"], metric_tol=1e-2, comp_tol=1e-2)
 
 
+@pytest.mark.parametrize("solver", tmf.SOLVER_NAMES)
+def test_mf_takes_every_solver_name_of_the_tpu_package(tmp_path, data_dir,
+                                                      capsys, solver):
+    """``mf --solver`` takes each of the TPU package's solver names, so that
+    its command lines run unchanged; every name runs K1, so the components
+    equal those of a run without ``--solver``, bit for bit."""
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text(FAMILY_CONFIG)
+    train = str(data_dir / "test_ratings.csv")
+    runs = {}
+    for name, extra in (("named", ["--solver", solver]), ("plain", [])):
+        _run(tmf.main, ["-c", str(cfg), train, train, "--algo", "als",
+                        "--device", "cpu", "--outdir", str(tmp_path / name),
+                        *extra], capsys)
+        runs[name] = _components(tmp_path / name)
+    for c in COMPONENTS:
+        np.testing.assert_array_equal(runs["named"][c], runs["plain"][c],
+                                      err_msg=c)
+
+
 @pytest.mark.parametrize("cli,args,what", [
     ("mf", ["--devices", "2", "--device", "cuda"],
      "no CUDA device|trains on 2 CUDA devices"),

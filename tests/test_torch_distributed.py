@@ -79,8 +79,7 @@ def _story_job(phase: str, ckpt: str, csr_args, gb: float, model_d):
         out["ip2", policy] = (losses, _digest(model))
     _m, out["als"] = train_als(csr, csr, _als_cfg(), gb,
                                model=model_from_numpy(model_d, "cpu"),
-                               logger=quiet, mesh=make_mesh(2, 1, "cpu"),
-                               device_buckets=False)
+                               logger=quiet, mesh=make_mesh(2, 1, "cpu"))
     return out
 
 

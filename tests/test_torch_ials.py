@@ -42,7 +42,7 @@ def test_ials_fold_in_matches(solver, F):
     want = np.asarray(j_fold_in(jnp.asarray(Y), cols, vals, mask,
                                 alpha=40.0, reg=0.1, solver=solver))
     got = t_fold_in(torch.from_numpy(Y), cols, vals, mask, alpha=40.0,
-                    reg=0.1, solver=solver)
+                    reg=0.1)
     assert got.shape == (5, F) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
@@ -95,14 +95,14 @@ def test_ials_heavy_solve_matches(solver):
     ip, ind, dat = _sides(t, "items")
     X = np.random.default_rng(3).normal(0, 0.3, (t.n_users, 8)).astype(
         np.float32)
-    tc = t_als.prepare_chunks(t_als.bucket_csr(ip, ind, dat, (4, 8)), 8,
-                              t.n_items, budget=2000)
+    tc = t_als.prepare_chunks(torch.from_numpy(ind), torch.from_numpy(dat),
+                              ip, 8, len(ind), caps=(4, 8), budget=2000)
     jc = j_als.prepare_chunks(j_als.bucket_csr(ip, ind, dat, (4, 8)), 8,
                               t.n_items, budget=2000)
     th, jh = next((a, b) for a, b in zip(tc, jc) if a[0] == "heavy")
     Xt, Xj = torch.from_numpy(X), jnp.asarray(X)
     got = t_ials._solve_ials_heavy(Xt, t_gramian(Xt), *th[1:4], th[5], th[6],
-                                   40.0, 0.1, solver=solver)
+                                   40.0, 0.1)
     want = j_ials._solve_ials_heavy(Xj, j_gramian(Xj), *jh[1:4], jh[5],
                                     jh[6], jnp.float32(40.0),
                                     jnp.float32(0.1), solver=solver)
@@ -124,8 +124,8 @@ def test_ials_half_sweep_matches(side):
     n_other = t.n_items if side == "users" else t.n_users
     S = rng.normal(0, 0.3, (n_self, 8)).astype(np.float32)
     O = rng.normal(0, 0.3, (n_other, 8)).astype(np.float32)
-    tc = t_als.prepare_chunks(t_als.bucket_csr(ip, ind, dat, (4, 8)), 8,
-                              n_self, budget=2500)
+    tc = t_als.prepare_chunks(torch.from_numpy(ind), torch.from_numpy(dat),
+                              ip, 8, len(ind), caps=(4, 8), budget=2500)
     jc = j_als.prepare_chunks(j_als.bucket_csr(ip, ind, dat, (4, 8)), 8,
                               n_self, budget=2500)
     got = t_sweep(torch.from_numpy(S), torch.from_numpy(O), tc, 40.0, 0.1)

@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from cu2rec_torch.ops import cuda_linalg
-from cu2rec_torch.ops.als import SOLVERS, _ridge_finish
 from cu2rec_torch.ops.cuda_linalg import (BUCKET_ROWS, SHARED_MAX_N,
                                           kernel_for,
                                           ridge_solve_batched_cuda,
@@ -58,18 +57,6 @@ def test_plain_matches_blocked_above_pallas_ceiling(N):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("solver", SOLVERS)
-def test_ridge_finish_every_solver_name_is_k1(solver):
-    """On CPU tensors every solver name runs K1's plain version (the same
-    numbers, exactly), and launches nothing."""
-    G, rhs = _system(4, 12, seed=1)
-    n0 = cuda_linalg.LAUNCHES
-    got = _ridge_finish(torch.from_numpy(G), torch.from_numpy(rhs), solver)
-    want = ridge_solve_reference(torch.from_numpy(G), torch.from_numpy(rhs))
-    assert torch.equal(got, want)
-    assert cuda_linalg.LAUNCHES == n0
-
-
 def test_wrapper_rejects_bad_inputs():
     G, rhs = _system(2, 4, seed=0)
     G, rhs = torch.from_numpy(G), torch.from_numpy(rhs)
@@ -79,8 +66,6 @@ def test_wrapper_rejects_bad_inputs():
         ridge_solve_batched_cuda(G[:, :3], rhs)
     with pytest.raises(ValueError):
         ridge_solve_batched_cuda(G, rhs[:, :3])
-    with pytest.raises(ValueError):
-        _ridge_finish(G, rhs, "cholesky")
 
 
 def test_plain_solves_exactly_on_cpu():

@@ -40,6 +40,10 @@ FAMILY_GRID = {2: (2, 1), 4: (2, 2)}
 STEPS = 10
 GB = 3.5556
 SMALL_CAPS = (2, 4, 8)
+# Chunk budgets of the row-sharded half sweeps: one chunk a bucket (the
+# default), and chunks of a few rows, so that every bucket and the heavy
+# rows fall into several chunks dealt over the ranks.
+SWEEP_BUDGETS = {"one_chunk": None, "many_chunks": 100}
 RANK_TIMEOUT = 60.0
 
 
@@ -114,11 +118,10 @@ def _engine_cases(mesh, csr, small, model_d):
 
 
 def _family_cases(mesh, train, test, model_d):
-    """ALS and iALS (trainers and half sweeps with heavy rows, host and
-    device chunks) and BPR (its ids and its training) on one grid."""
-    from cu2rec_torch.ops.als import (
-        als_half_sweep, bucket_csr, prepare_chunks, prepare_chunks_device,
-    )
+    """ALS and iALS (trainers and half sweeps with heavy rows, in one
+    chunk a bucket and in many) and BPR (its ids and its training) on one
+    grid."""
+    from cu2rec_torch.ops.als import als_half_sweep, prepare_chunks
     from cu2rec_torch.ops.ials import ials_half_sweep
     from cu2rec_torch.ops.packed import pack
     from cu2rec_torch.parallel.bpr import ShardedBPR
@@ -129,23 +132,18 @@ def _family_cases(mesh, train, test, model_d):
     quiet = MetricsLogger(verbose=False)
     out = {"rank": mesh.rank}
     model = model_from_numpy(model_d, "cpu")
-    for buckets in (False, True):
-        m, losses = train_als(train, test, _family_cfg(total_iterations=2),
-                              3.0, model=model, logger=quiet, mesh=mesh,
-                              device_buckets=buckets)
-        out["als", buckets] = (model_to_numpy(m), losses)
+    m, losses = train_als(train, test, _family_cfg(total_iterations=2), 3.0,
+                          model=model, logger=quiet, mesh=mesh)
+    out["als"] = (model_to_numpy(m), losses)
     m, losses = train_ials(train, test, _family_cfg(total_iterations=2),
-                           alpha=5.0, model=model, logger=quiet, mesh=mesh,
-                           device_buckets=False)
+                           alpha=5.0, model=model, logger=quiet, mesh=mesh)
     out["ials"] = (model_to_numpy(m), losses)
     pm = pack(model)
-    host = bucket_csr(train.indptr, train.indices, train.data, SMALL_CAPS)
     dev = to_device(train, "cpu")
-    for name, chunks in (
-            ("host", prepare_chunks(host, 4, train.n_users, mesh)),
-            ("device", prepare_chunks_device(
-                dev.indices, dev.data, train.indptr, 4, train.n_users,
-                train.nnz, caps=SMALL_CAPS, row_sharding=mesh))):
+    for name, budget in SWEEP_BUDGETS.items():
+        chunks = prepare_chunks(dev.indices, dev.data, train.indptr, 4,
+                                train.nnz, caps=SMALL_CAPS, budget=budget,
+                                row_sharding=mesh)
         out["sweep", name] = (
             als_half_sweep(pm.T_u, pm.T_i, chunks, 3.0, 0.05, 0.02, 4,
                            row_sharding=mesh).numpy(),
@@ -416,9 +414,7 @@ def test_twin_after_construction_raises():
 
 @functools.lru_cache(maxsize=None)
 def _families_one_device():
-    from cu2rec_torch.ops.als import (
-        als_half_sweep, bucket_csr, prepare_chunks,
-    )
+    from cu2rec_torch.ops.als import als_half_sweep, prepare_chunks
     from cu2rec_torch.ops.ials import ials_half_sweep
     from cu2rec_torch.ops.packed import pack
     from cu2rec_torch.train.als import train_als
@@ -430,17 +426,16 @@ def _families_one_device():
     model = model_from_numpy(fam_model_d, "cpu")
     out = {}
     m, losses = train_als(train, test, _family_cfg(total_iterations=2), 3.0,
-                          model=model, logger=quiet, device="cpu",
-                          device_buckets=False)
+                          model=model, logger=quiet, device="cpu")
     out["als"] = (model_to_numpy(m), losses)
     m, losses = train_ials(train, test, _family_cfg(total_iterations=2),
                            alpha=5.0, model=model, logger=quiet,
-                           device="cpu", device_buckets=False)
+                           device="cpu")
     out["ials"] = (model_to_numpy(m), losses)
     pm = pack(model)
-    chunks = prepare_chunks(bucket_csr(train.indptr, train.indices,
-                                       train.data, SMALL_CAPS), 4,
-                            train.n_users)
+    dev = to_device(train, "cpu")
+    chunks = prepare_chunks(dev.indices, dev.data, train.indptr, 4,
+                            train.nnz, caps=SMALL_CAPS)
     out["sweep"] = (
         als_half_sweep(pm.T_u, pm.T_i, chunks, 3.0, 0.05, 0.02, 4).numpy(),
         ials_half_sweep(model.P, model.Q, chunks, 5.0, 0.1).numpy())
@@ -487,32 +482,30 @@ def test_row_sharded_sweeps_match_one_device_and_the_tpu_package(world,
                                                                   family):
     """Two sweeps with the ridge solves dealt over the grid (dp × ip
     flattened) against the one-device port and the TPU package's
-    ``train_als``/``train_ials(mesh=...)``; ALS from host chunks and from
-    chunks built on the device."""
+    ``train_als``/``train_ials(mesh=...)``."""
     ranks = _world(world)
-    keys = [("als", False), ("als", True)] if family == "als" else ["ials"]
     one = _families_one_device()[family]
     jax_run = _jax_families(FAMILY_GRID[world])[family]
-    for key in keys:
-        _ranks_agree(ranks, key)
-        got, losses = ranks[0]["families"][key]
-        for want, want_losses in (one, jax_run):
-            assert sorted(losses) == sorted(want_losses)
-            np.testing.assert_allclose([losses[k] for k in sorted(losses)],
-                                       [want_losses[k] for k in
-                                        sorted(want_losses)],
-                                       rtol=FAM_RTOL)
-            for c in ("p", "q", "user_bias", "item_bias"):
-                np.testing.assert_allclose(got[c], want[c], rtol=FAM_RTOL,
-                                           atol=FAM_ATOL, err_msg=c)
+    _ranks_agree(ranks, family)
+    got, losses = ranks[0]["families"][family]
+    for want, want_losses in (one, jax_run):
+        assert sorted(losses) == sorted(want_losses)
+        np.testing.assert_allclose([losses[k] for k in sorted(losses)],
+                                   [want_losses[k] for k in
+                                    sorted(want_losses)],
+                                   rtol=FAM_RTOL)
+        for c in ("p", "q", "user_bias", "item_bias"):
+            np.testing.assert_allclose(got[c], want[c], rtol=FAM_RTOL,
+                                       atol=FAM_ATOL, err_msg=c)
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("chunks", ["host", "device"])
+@pytest.mark.parametrize("chunks", list(SWEEP_BUDGETS))
 def test_row_sharded_half_sweeps_with_heavy_rows(world, chunks):
     """Half sweeps whose rows run past the largest bucket (heavy chunks,
-    dealt whole to one rank each) from host and device chunks: every rank
-    holds the one-device table, every rank solved some of it."""
+    dealt whole to one rank each), from one chunk a bucket and from many
+    chunks a bucket (several heavy chunks, dealt over the ranks): every
+    rank holds the one-device table, every rank solved some of it."""
     ranks = _world(world)
     als_want, ials_want = _families_one_device()["sweep"]
     for r in ranks:
