@@ -177,28 +177,64 @@ def bpr_run_steps(pm: PackedModel, dev, hp: Hyper, key, start_iter: int,
     return pm
 
 
-def auc_eval(model, train_csr, test_csr, n_pairs: int = 100_000,
-             seed: int = 0) -> float:
-    """Sampled pairwise AUC: P(score(u, i⁺) > score(u, j)) over held-out
-    positives i⁺ and uniform catalog negatives j, the same NumPy draws as
-    the TPU package; scored on the model's device."""
+class AUCPlan(NamedTuple):
+    """The sampled AUC's pairs on the model's device: (n,) int64 user,
+    held-out positive and uniform negative ids, drawn for ``n_pairs`` and
+    ``seed``."""
+    n_pairs: int
+    seed: int
+    users: torch.Tensor
+    pos: torch.Tensor
+    neg: torch.Tensor
+
+
+def _auc_pairs(train_csr, test_csr, n_pairs, seed, device) -> AUCPlan:
+    """The same NumPy draws as the TPU package (``n_pairs`` held-out
+    ratings, then as many catalog negatives, from ``default_rng(seed)``),
+    uploaded to ``device``."""
     if test_csr.nnz == 0:
-        return 0.5
-    rng = np.random.default_rng(seed)
-    sel = rng.integers(0, test_csr.nnz, size=min(n_pairs, test_csr.nnz))
-    users = test_csr.row_ids[sel]
-    pos = test_csr.indices[sel]
-    neg = rng.integers(0, train_csr.n_items, size=len(sel)).astype(np.int32)
-    dev = model.device
+        users = pos = neg = np.empty(0, np.int64)
+    else:
+        rng = np.random.default_rng(seed)
+        sel = rng.integers(0, test_csr.nnz, size=min(n_pairs, test_csr.nnz))
+        users = test_csr.row_ids[sel]
+        pos = test_csr.indices[sel]
+        neg = rng.integers(0, train_csr.n_items, size=len(sel))
 
     def ids(x):
-        return torch.from_numpy(np.asarray(x, np.int64)).to(dev)
+        return torch.from_numpy(np.asarray(x, np.int64)).to(device)
 
+    return AUCPlan(n_pairs=n_pairs, seed=seed, users=ids(users),
+                   pos=ids(pos), neg=ids(neg))
+
+
+def prepare_auc(train_csr, test_csr, n_pairs: int = 100_000, seed: int = 0,
+                device=None) -> AUCPlan:
+    """The pairs ``auc_eval`` scores, drawn once and held on ``device``."""
+    count("eval.plans")
+    with span("eval.plan"):
+        return _auc_pairs(train_csr, test_csr, n_pairs, seed, device)
+
+
+def auc_eval(model, train_csr, test_csr, n_pairs: int = 100_000,
+             seed: int = 0, plan: AUCPlan | None = None) -> float:
+    """Sampled pairwise AUC: P(score(u, i⁺) > score(u, j)) over held-out
+    positives i⁺ and uniform catalog negatives j, the same NumPy draws as
+    the TPU package; scored on the model's device, read back once.
+    ``plan`` (``prepare_auc`` of the same CSRs, ``n_pairs`` and ``seed``)
+    holds the pairs on that device; without one they are drawn here."""
+    if plan is None:
+        plan = _auc_pairs(train_csr, test_csr, n_pairs, seed, model.device)
+    elif (plan.n_pairs, plan.seed) != (n_pairs, seed):
+        raise ValueError(
+            f"plan of n_pairs={plan.n_pairs}, seed={plan.seed} given to an "
+            f"eval of n_pairs={n_pairs}, seed={seed}")
+    if len(plan.users) == 0:
+        return 0.5
     P = model.P.to(torch.float32)
     Q = model.Q.to(torch.float32)
     ib = model.item_bias.to(torch.float32)
-    pu = P[ids(users)]
-    pos, neg = ids(pos), ids(neg)
-    s_pos = torch.sum(pu * Q[pos], dim=-1) + ib[pos]
-    s_neg = torch.sum(pu * Q[neg], dim=-1) + ib[neg]
+    pu = P[plan.users]
+    s_pos = torch.sum(pu * Q[plan.pos], dim=-1) + ib[plan.pos]
+    s_neg = torch.sum(pu * Q[plan.neg], dim=-1) + ib[plan.neg]
     return float(torch.mean((s_pos > s_neg).to(torch.float32)))

@@ -4,11 +4,14 @@ ranking eval (recall@k, NDCG@k).
 Replaces the reference's CPU scoring + ``std::sort`` serving path
 (predict.cu:17-29, 49-70): scoring a block of users against the whole
 catalog is one ``P_u @ Q.T``, and rated items are masked by a scatter-min
-before ``torch.topk``.  ``ranking_eval`` is the implicit trainers' metric;
+before ``torch.topk``.  ``ranking_eval`` is the implicit trainers' metric,
+its users and their lists built once a run (``prepare_ranking``);
 ``foldin_ranking_eval`` scores the serving engine's fold-in the same way.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -16,6 +19,7 @@ import torch
 from cu2rec_torch.models.state import MFModel
 from cu2rec_torch.ops.model import score_catalog
 from cu2rec_torch.ops.topk import mask_rated, ndcg_at_k, recall_at_k
+from cu2rec_torch.utils.timing import count, span
 
 
 def predict_all_items(p_row, user_bias, Q, item_bias, global_bias):
@@ -73,34 +77,106 @@ def padded_user_lists(csr, user_ids, pad_to: int | None = None):
     return items, mask
 
 
+class RankingBatch(NamedTuple):
+    """One batch of ``ranking_eval``'s users on the model's device."""
+    users: torch.Tensor          # (B,) int64 user ids
+    rated: torch.Tensor          # (B, R) int32 padded train items, masked
+    rated_mask: torch.Tensor     # (B, R) bool
+    relevant: torch.Tensor       # (B, R') int64 padded held-out items
+    relevant_mask: torch.Tensor  # (B, R') bool
+
+
+class RankingPlan(NamedTuple):
+    """``ranking_eval``'s users and their lists, built once
+    (``prepare_ranking``) for the ``batch_size`` and ``max_users`` kept."""
+    batch_size: int
+    max_users: int | None
+    n_users: int
+    batches: tuple[RankingBatch, ...]
+
+
+def _ranked_users(test_csr, max_users):
+    """The first ``max_users`` users with held-out items."""
+    users = np.nonzero(np.diff(test_csr.indptr) > 0)[0]
+    return users[:max_users] if max_users else users
+
+
+def _ranking_batches(train_csr, test_csr, users, batch_size, device):
+    """Each ``batch_size`` of ``users`` with its train lists (to mask) and
+    held-out lists, padded to the batch's longest and uploaded to
+    ``device`` as the batch is reached."""
+    def put(x):
+        return torch.from_numpy(x).to(device)
+
+    for b0 in range(0, len(users), batch_size):
+        batch = users[b0:b0 + batch_size]
+        rated, rmask = padded_user_lists(train_csr, batch)
+        rel, relmask = padded_user_lists(test_csr, batch)
+        yield RankingBatch(users=put(batch.astype(np.int64)), rated=put(rated),
+                           rated_mask=put(rmask),
+                           relevant=put(rel.astype(np.int64)),
+                           relevant_mask=put(relmask))
+
+
+def prepare_ranking(train_csr, test_csr, batch_size: int = 1024,
+                    max_users: int | None = None, device=None) -> RankingPlan:
+    """Every batch that ``ranking_eval`` reads of the CSRs, uploaded once
+    to ``device`` and held there."""
+    count("eval.plans")
+    with span("eval.plan"):
+        users = _ranked_users(test_csr, max_users)
+        return RankingPlan(
+            batch_size=batch_size, max_users=max_users, n_users=len(users),
+            batches=tuple(_ranking_batches(train_csr, test_csr, users,
+                                           batch_size, device)))
+
+
 def ranking_eval(model: MFModel, train_csr, test_csr, k: int = 10,
                  batch_size: int = 1024, max_users: int | None = None,
-                 metrics: tuple = ("recall", "ndcg")) -> dict:
+                 metrics: tuple = ("recall", "ndcg"),
+                 plan: RankingPlan | None = None) -> dict:
     """Mean top-k ranking metrics over test users (the first ``max_users``
     with held-out items): recommend k items unrated in train, score them
     against the held-out test items.  Returns ``{metric: mean}`` for
-    ``recall`` (hit fraction) and/or ``ndcg`` (binary relevance)."""
+    ``recall`` (hit fraction) and/or ``ndcg`` (binary relevance).
+
+    ``plan`` (``prepare_ranking`` of the same CSRs, ``batch_size`` and
+    ``max_users``) holds the batches on the model's device; without one
+    each batch is built and uploaded as it is reached, so one batch's
+    lists are on the device at a time.  Each batch's sums stay on the
+    device until one read at the end, and are added on the host in batch
+    order."""
     fns = {"recall": recall_at_k, "ndcg": ndcg_at_k}
     unknown = set(metrics) - fns.keys()
     if unknown:
         raise ValueError(f"unknown ranking metric(s): {sorted(unknown)}")
-    users = np.nonzero(np.diff(test_csr.indptr) > 0)[0]
-    if max_users:
-        users = users[:max_users]
-    if len(users) == 0:
+    if plan is None:
+        users = _ranked_users(test_csr, max_users)
+        n_users = len(users)
+        batches = _ranking_batches(train_csr, test_csr, users, batch_size,
+                                   model.device)
+    elif (plan.batch_size, plan.max_users) != (batch_size, max_users):
+        raise ValueError(
+            f"plan of batch_size={plan.batch_size}, max_users="
+            f"{plan.max_users} given to an eval of batch_size={batch_size}, "
+            f"max_users={max_users}")
+    else:
+        n_users, batches = plan.n_users, plan.batches
+    if n_users == 0 or not metrics:
         return {m: 0.0 for m in metrics}
-    dev = model.device
+    sums = []
+    for b in batches:
+        _, rec = _topk_users(model.P[b.users], model.user_bias[b.users],
+                             model.Q, model.item_bias, model.global_bias,
+                             b.rated, b.rated_mask, k)
+        sums.append(torch.stack([
+            torch.sum(fns[m](rec, b.relevant, b.relevant_mask))
+            for m in metrics]))
     totals = {m: 0.0 for m in metrics}
-    for b0 in range(0, len(users), batch_size):
-        batch = users[b0:b0 + batch_size]
-        rated, rmask = padded_user_lists(train_csr, batch)
-        _, rec = recommend_users(model, batch, rated, rmask, k)
-        rel, relmask = padded_user_lists(test_csr, batch)
-        rel = torch.from_numpy(rel).to(dev, torch.int64)
-        relmask = torch.from_numpy(relmask).to(dev)
-        for m in metrics:
-            totals[m] += float(torch.sum(fns[m](rec, rel, relmask)))
-    return {m: totals[m] / len(users) for m in metrics}
+    for row in torch.stack(sums).tolist():
+        for m, v in zip(metrics, row):
+            totals[m] += v
+    return {m: totals[m] / n_users for m in metrics}
 
 
 def recall_at_k_eval(model: MFModel, train_csr, test_csr, k: int = 10,

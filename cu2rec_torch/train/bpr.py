@@ -2,7 +2,8 @@
 
 Iteration-based like the SGD trainer: an eval at iteration 1, every
 ``check_error`` iterations and at the last, each a sampled AUC, recall@k
-and NDCG@k over held-out positives (``log_eval_implicit``); the losses dict
+and NDCG@k over held-out positives (``log_eval_implicit``), their inputs
+built on the device once before the loop; the losses dict
 carries the minimized objective 1 − recall@k.  The returned MFModel has
 zero user and global bias and a trained item bias: score(u, y) = p_u · q_y
 + b_y.
@@ -19,10 +20,10 @@ from cu2rec_torch.models.state import (
     MFModel, init_model, table_dtype, with_dtype,
 )
 from cu2rec_torch.ops import cuda_bpr
-from cu2rec_torch.ops.bpr import auc_eval, bpr_run_steps
+from cu2rec_torch.ops.bpr import auc_eval, bpr_run_steps, prepare_auc
 from cu2rec_torch.ops.packed import pack, unpack
 from cu2rec_torch.ops.sgd import Hyper, prng_key
-from cu2rec_torch.serve.recommend import ranking_eval
+from cu2rec_torch.serve.recommend import prepare_ranking, ranking_eval
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
 from cu2rec_torch.utils.metrics import MetricsLogger
@@ -78,6 +79,11 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         train_dev = to_device(train_csr, dev, item_major=True)
         pm = pack(with_dtype(model.to(dev), dtype))
 
+    # The evals' pairs, users and lists, on the device once a run.
+    auc_plan = prepare_auc(train_csr, test_csr, seed=cfg.seed, device=dev)
+    rank_plan = prepare_ranking(train_csr, test_csr, max_users=recall_users,
+                                device=dev)
+
     check = max(1, cfg.check_error)
     start_at = min(cfg.cur_iterations, cfg.total_iterations)
     points = sorted({p for p in
@@ -101,10 +107,11 @@ def train_bpr(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         count("bpr.evals")
         with span("bpr.eval"):
             with span("bpr.eval.auc"):
-                auc = auc_eval(m, train_csr, test_csr, seed=cfg.seed)
+                auc = auc_eval(m, train_csr, test_csr, seed=cfg.seed,
+                               plan=auc_plan)
             with span("bpr.eval.ranking"):
                 rk = ranking_eval(m, train_csr, test_csr, k=recall_k,
-                                  max_users=recall_users)
+                                  max_users=recall_users, plan=rank_plan)
         rec = rk["recall"]
         ups = train_csr.n_users * seg / dt_seg if dt_seg > 0 else None
         objective = 1.0 - rec

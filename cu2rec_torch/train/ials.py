@@ -16,9 +16,9 @@ import torch
 
 from cu2rec_torch.data.csr import CSRRatings
 from cu2rec_torch.models.state import MFModel, init_model
-from cu2rec_torch.ops.bpr import auc_eval
+from cu2rec_torch.ops.bpr import auc_eval, prepare_auc
 from cu2rec_torch.ops.ials import ials_half_sweep
-from cu2rec_torch.serve.recommend import ranking_eval
+from cu2rec_torch.serve.recommend import prepare_ranking, ranking_eval
 from cu2rec_torch.train.als import sweep_chunks
 from cu2rec_torch.utils.config import Config
 from cu2rec_torch.utils.device import resolve_device
@@ -55,6 +55,9 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
     X = model.P.to(dev, torch.float32)
     Y = model.Q.to(dev, torch.float32)
     user_chunks, item_chunks = sweep_chunks(train_csr, F, dev, mesh)
+    auc_plan = prepare_auc(train_csr, test_csr, seed=cfg.seed, device=dev)
+    rank_plan = prepare_ranking(train_csr, test_csr, max_users=recall_users,
+                                device=dev)
 
     def as_model(X, Y) -> MFModel:
         zeros = torch.zeros
@@ -76,9 +79,10 @@ def train_ials(train_csr: CSRRatings, test_csr: CSRRatings, cfg: Config,
         t2 = mark(dev)
         mdl = as_model(X, Y)
         m = ranking_eval(mdl, train_csr, test_csr, k=recall_k,
-                         max_users=recall_users)
+                         max_users=recall_users, plan=rank_plan)
         rec = m["recall"]
-        auc = auc_eval(mdl, train_csr, test_csr, seed=cfg.seed)
+        auc = auc_eval(mdl, train_csr, test_csr, seed=cfg.seed,
+                       plan=auc_plan)
         objective = 1.0 - rec
         logger.log_eval_implicit(sweep, algo="ials", auc=auc,
                                  recall_at_k=rec, ndcg_at_k=m["ndcg"],

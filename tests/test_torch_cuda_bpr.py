@@ -166,3 +166,55 @@ def test_card_training_refuses_wide_factors_before_building(monkeypatch,
                  learning_rate=0.1, seed=5, algo="bpr")
     with pytest.raises(ValueError, match="K6"):
         train_bpr(_csr(), _csr(), cfg, logger=MetricsLogger(verbose=False))
+
+
+def _evals_without_plans(monkeypatch, mod):
+    """Make ``mod``'s trainer's evals build their own inputs, as they do
+    when they are given no plan."""
+    for name in ("auc_eval", "ranking_eval"):
+        plain = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=plain, plan=None, **k:
+                            _f(*a, **k))
+
+
+def _traced_run(train, **kw):
+    timing.trace_start()
+    try:
+        logger = MetricsLogger(verbose=False)
+        _, losses = train(logger=logger, **kw)
+    finally:
+        counters = timing.trace_stop()["counters"]
+    evals = [tuple(r[k] for k in ("auc", "recall_at_k", "ndcg_at_k"))
+             for r in logger.history if r["event"] == "eval"]
+    return counters, losses, evals
+
+
+@pytest.mark.parametrize("algo", ["bpr", "ials"])
+def test_training_builds_the_eval_plans_once(monkeypatch, algo):
+    """``train_bpr`` and ``train_ials`` build the AUC's pairs and the
+    ranked users' lists once a run (``eval.plans`` 2 over 4 eval points),
+    and their evals read the same as evals that build their own."""
+    from cu2rec_torch.train import bpr as bpr_mod
+    from cu2rec_torch.train import ials as ials_mod
+
+    mod = {"bpr": bpr_mod, "ials": ials_mod}[algo]
+    train, test = _csr(seed=3), _csr(seed=4)
+    n_points = 4
+
+    def run():
+        cfg = Config(total_iterations={"bpr": 7, "ials": 4}[algo],
+                     check_error=3, n_factors=6, learning_rate=0.1, seed=5,
+                     P_reg=0.5, Q_reg=0.5, algo=algo)
+        trainer = {"bpr": bpr_mod.train_bpr, "ials": ials_mod.train_ials}
+        return _traced_run(trainer[algo], train_csr=train, test_csr=test,
+                           cfg=cfg, device="cpu")
+
+    counters, losses, evals = run()
+    assert counters["eval.plans"] == 2
+    assert len(losses) == len(evals) == n_points
+    if algo == "bpr":
+        assert counters["bpr.evals"] == n_points
+    _evals_without_plans(monkeypatch, mod)
+    counters_p, losses_p, evals_p = run()
+    assert counters_p["eval.plans"] == 2     # evals without plans build none
+    assert losses_p == losses and evals_p == evals

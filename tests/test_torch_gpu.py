@@ -1967,3 +1967,62 @@ def test_forged_tables_raise_on_the_card(cuda_device, monkeypatch):
         counters = timing.trace_stop()["counters"]
     assert counters == {}
     assert cuda_draw.LAUNCHES[torch.float32] == n0 + 1
+
+
+@pytest.mark.gpu
+def test_evals_with_a_plan_copy_nothing_to_the_card(cuda_device):
+    """With plans built once, the sampled AUC and the ranking eval on the
+    card enqueue no host-to-device copy and read back once each (torch
+    profiler), and read bit for bit what they read without a plan and
+    what a batch loop over ``recommend_users`` reads, one float a batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cu2rec_torch.models.state import model_from_numpy
+    from cu2rec_torch.ops.bpr import auc_eval, prepare_auc
+    from cu2rec_torch.ops.topk import ndcg_at_k, recall_at_k
+    from cu2rec_torch.serve.recommend import (
+        padded_user_lists, prepare_ranking, ranking_eval, recommend_users,
+    )
+
+    U, I, F = 5000, 2000, 50
+    train, test = _family_ratings(U, I, seed=11), _family_ratings(U, I, 12)
+    rng = np.random.default_rng(6)
+    model = model_from_numpy(
+        {"p": rng.normal(0, 0.3, (U, F)), "q": rng.normal(0, 0.3, (I, F)),
+         "user_bias": np.zeros(U), "item_bias": rng.normal(0, 0.1, I),
+         "global_bias": [0.0]}, cuda_device)
+    aplan = prepare_auc(train, test, seed=9, device=cuda_device)
+    rplan = prepare_ranking(train, test, max_users=2048, device=cuda_device)
+    assert len(rplan.batches) == 2
+
+    def evals():
+        return (auc_eval(model, train, test, seed=9, plan=aplan),
+                ranking_eval(model, train, test, max_users=2048, plan=rplan))
+
+    want = evals()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = evals()
+        names = [e.name for e in prof.events()]
+        if any("topk" in n.lower() for n in names):
+            break
+    else:
+        pytest.fail("3 profiler sessions recorded no device time")
+    assert not [n for n in names if "HtoD" in n]
+    assert sum("DtoH" in n for n in names) == 2
+    assert got == want
+    assert want == (auc_eval(model, train, test, seed=9),
+                    ranking_eval(model, train, test, max_users=2048))
+    users = np.nonzero(np.diff(test.indptr) > 0)[0][:2048]
+    totals = [0.0, 0.0]
+    for b0 in range(0, len(users), 1024):
+        batch = users[b0:b0 + 1024]
+        _, rec = recommend_users(model, batch,
+                                 *padded_user_lists(train, batch), k=10)
+        rel, relmask = (torch.from_numpy(x).to(cuda_device)
+                        for x in padded_user_lists(test, batch))
+        for j, fn in enumerate((recall_at_k, ndcg_at_k)):
+            totals[j] += float(torch.sum(fn(rec, rel.long(), relmask)))
+    assert want[1] == {"recall": totals[0] / len(users),
+                       "ndcg": totals[1] / len(users)}

@@ -230,9 +230,10 @@ def test_draw_tables_open_once_and_draws_count_by_dispatch(recorder,
 
 def test_bpr_run_records_its_layers(recorder):
     """``train_bpr``: a span around each ``bpr_run_steps`` call with a
-    ``bpr.draws`` child a step, and ``bpr.eval`` around each eval point's
-    AUC and ranking eval; the counters count the iterations and the
-    evals; the model, the losses and the draws are the same with the
+    ``bpr.draws`` child a step, ``eval.plan`` around each of the two eval
+    plans built before the loop, and ``bpr.eval`` around each eval point's
+    AUC and ranking eval; the counters count the iterations, the evals and
+    the plans; the model, the losses and the draws are the same with the
     recorder on or off, and off it keeps nothing."""
     from cu2rec_torch.data.csr import to_device
     from cu2rec_torch.ops.bpr import bpr_draws
@@ -267,13 +268,16 @@ def test_bpr_run_records_its_layers(recorder):
         "bpr.eval": {None},
         "bpr.eval.auc": {"bpr.eval"},
         "bpr.eval.ranking": {"bpr.eval"},
+        "eval.plan": {None},
     }
     evals = 4                       # iterations 1, 10, 20, 23
     spans = _by_name(got["spans"])
     assert len(spans["bpr.run_steps"]) == evals
     assert len(spans["bpr.draws"]) == 23     # one a step
     assert len(spans["bpr.eval"]) == len(spans["bpr.eval.auc"]) == evals
-    assert got["counters"] == {"bpr.steps": 23, "bpr.evals": evals}
+    assert len(spans["eval.plan"]) == 2      # the AUC's and the ranking's
+    assert got["counters"] == {"bpr.steps": 23, "bpr.evals": evals,
+                               "eval.plans": 2}
     by_id = {s[1]: s for s in got["spans"]}
     for _name, _id, parent, a, b in got["spans"]:
         assert a <= b
