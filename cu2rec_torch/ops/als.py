@@ -170,6 +170,15 @@ def _extract_rows(flat_i, flat_d, starts, lens, cap: int):
     return cols, vals, mask
 
 
+class Chunks(list):
+    """The chunks of one side (:func:`prepare_chunks`), with what K4 sums
+    over them in a half sweep, counted on the host as they were built:
+    ``slots``, each chunk's padded B × D (a heavy chunk's segments × cap),
+    and ``live``, those of them that hold a rating."""
+
+    slots = live = 0
+
+
 def prepare_chunks(indices, data, indptr, n_factors: int, nnz: int, *,
                    caps=BUCKET_CAPS, budget: int | None = None,
                    row_sharding=None):
@@ -185,7 +194,7 @@ def prepare_chunks(indices, data, indptr, n_factors: int, nnz: int, *,
     (chunk, width, F + 1) design tensor; a tail chunk keeps its own row
     count (no padding rows, so every row id is in range).  With
     ``row_sharding`` only this rank's rows are kept (``_rank_rows``,
-    ``_rank_takes``).
+    ``_rank_takes``).  Returns a :class:`Chunks`.
     """
     budget = budget or DEFAULT_BUDGET
     dev = indices.device
@@ -194,12 +203,15 @@ def prepare_chunks(indices, data, indptr, n_factors: int, nnz: int, *,
     flat_i = nnf.pad(indices[:nnz].to(torch.int64), (0, cap_max))
     flat_d = nnf.pad(data[:nnz].to(torch.float32), (0, cap_max))
 
+    chunks = Chunks()
+
     def extract(m, s, e):
+        chunks.slots += (e - s) * int(m["cap"])
+        chunks.live += int(m["lens"][s:e].sum())
         return _extract_rows(
             flat_i, flat_d, _put(m["starts"][s:e], torch.int64, dev),
             _put(m["lens"][s:e], torch.int64, dev), int(m["cap"]))
 
-    chunks = []
     n_heavy = 0
     for m in bucket_meta(indptr, caps):
         B = len(m["starts"])
@@ -260,7 +272,9 @@ def als_half_sweep(T_self, T_other, chunks, mu,
     with no ratings are in no chunk and come out unchanged.  With
     ``row_sharding`` each rank solves the rows of its chunks (from
     ``prepare_chunks(..., row_sharding)``) and every rank returns the
-    whole table (``assemble_solved``).
+    whole table (``assemble_solved``).  Counters: ``als.chunks``, and where
+    ``chunks`` is a :class:`Chunks`, ``als.gram_slots`` and
+    ``als.gram_live_slots`` (its ``slots`` and ``live``).
     """
     F = n_factors
     dev = T_self.device
@@ -268,6 +282,9 @@ def als_half_sweep(T_self, T_other, chunks, mu,
         reg = reg_vector(factor_reg, bias_reg, F, dev)
         regs, heavies = split_chunks(chunks)
         count("als.chunks", len(regs) + len(heavies))
+        if isinstance(chunks, Chunks):
+            count("als.gram_slots", chunks.slots)
+            count("als.gram_live_slots", chunks.live)
         mu32 = torch.tensor(float(mu), dtype=torch.float32, device=dev)
         T_x = design_table(T_other, F)
         T_new, solved = _solve_into(T_self, row_sharding)

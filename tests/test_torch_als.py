@@ -429,3 +429,29 @@ def test_train_als_in_bf16_draws_and_keeps_bf16_tables():
     assert model.P.dtype == model.Q.dtype == torch.bfloat16
     assert sorted(losses) == [1, 2]
     assert all(np.isfinite(v) for v in losses.values())
+
+
+@pytest.mark.parametrize("trace", [True, False])
+def test_half_sweeps_count_their_gram_slots(trace):
+    """With the trace on, one sweep counts ``als.gram_slots``, each chunk's
+    padded B × D (a heavy chunk's segments × cap), and
+    ``als.gram_live_slots``, its ratings: 2 × nnz a sweep.  With it off,
+    nothing is recorded."""
+    from cu2rec_torch.train.als import sweep_chunks
+    from cu2rec_torch.utils import timing
+
+    csr, _ = _both_csrs()
+    chunks = sweep_chunks(csr, 4, "cpu")
+    padded = sum(c[1].numel() for side in chunks for c in side)
+    assert sum(c.slots for c in chunks) == padded > 2 * csr.nnz
+    timing.trace_stop()
+    if trace:
+        timing.trace_start()
+    t_train(csr, csr, Config(total_iterations=1, n_factors=4), 3.5,
+            device="cpu", logger=MetricsLogger(verbose=False))
+    counters = timing.trace_stop()["counters"]
+    if trace:
+        assert counters["als.gram_slots"] == padded
+        assert counters["als.gram_live_slots"] == 2 * csr.nnz
+    else:
+        assert counters == {}

@@ -92,6 +92,23 @@ def test_kernel_matches_plain_at_every_kernel_edge(cuda_device, B, N):
 
 
 @pytest.mark.gpu
+def test_shared_kernel_at_n301_on_a_sweeps_worth_of_systems(cuda_device):
+    """N = 301, ALS at F = 300: ``kernel_for`` picks the one-block-a-system
+    kernel with its triangle in shared memory, and it solves 4,096 systems
+    (many waves of blocks) as the plain version does."""
+    from cu2rec_torch.ops import cuda_linalg
+
+    assert cuda_linalg.kernel_for(301) == "shared"
+    G, rhs = _system_on_card(4096, 301, seed=301, device=cuda_device)
+    n0 = cuda_linalg.LAUNCHES
+    got = cuda_linalg.ridge_solve_batched_cuda(G, rhs)
+    torch.cuda.synchronize()
+    assert cuda_linalg.LAUNCHES == n0 + 1
+    want = cuda_linalg.ridge_solve_reference(G, rhs)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("N", [20, 50, 100, 200])
 def test_kernel_matches_plain_with_a_small_ridge(cuda_device, N):
     """A Gram matrix of 2N random rows plus λ = 1e-3 on the diagonal."""
@@ -1729,7 +1746,7 @@ def _gram_plain(args, kw):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["als", "ials", "rows"])
-@pytest.mark.parametrize("F", [8, 64, 100])
+@pytest.mark.parametrize("F", [8, 64, 100, 300])
 @pytest.mark.parametrize("B,D", [(1, 8), (7, 8), (2001, 8), (7, 24),
                                  (2001, 24), (1, 8192), (5, 8192), (9, 3)])
 def test_gather_gram_matches_plain(cuda_device, mode, F, B, D):
@@ -1757,10 +1774,12 @@ def test_gather_gram_matches_plain(cuda_device, mode, F, B, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("F", [100, 300])
 @pytest.mark.parametrize("family", ["als", "ials"])
-def test_gather_gram_heavy_chunk_matches_plain(cuda_device, family):
+def test_gather_gram_heavy_chunk_matches_plain(cuda_device, family, F):
     """A heavy chunk (rows of degree above 8,192, segments of 8,192 slots)
-    at F = 100: K4's raw segment sums within the Gram tolerance of the
+    at F = 100 and 300 (the tiles over several blocks, and the
+    workspace): K4's raw segment sums within the Gram tolerance of the
     plain version's, and the heavy rows' systems, summed over their
     segments, within the tolerance of the segments' summed scale."""
     from cu2rec_torch.data.csr import csr_from_arrays, transpose_csr
@@ -1768,7 +1787,7 @@ def test_gather_gram_heavy_chunk_matches_plain(cuda_device, family):
     from cu2rec_torch.ops.ials import gramian, ials_heavy_system
 
     rng = np.random.default_rng(6)
-    U, I, F = 30_000, 40, 100
+    U, I = 30_000, 40
     u = np.concatenate([rng.permutation(U)[:n] for n in (9000, 17000,
                                                         20000)])
     i = np.repeat(np.arange(3), (9000, 17000, 20000))
@@ -1810,6 +1829,73 @@ def test_gather_gram_heavy_chunk_matches_plain(cuda_device, family):
         Sg = Sg + gramian(T[:, :F]).abs()
     _gram_within(G, wG, Sg)
     _gram_within(rhs, wr, Srs)
+
+
+@pytest.mark.gpu
+def test_train_als_sweep_at_f300_matches_the_blocked_reference(cuda_device):
+    """One ``train_als`` sweep at F = 300 (n = 301: K4's tiles over several
+    blocks and its workspace, its heavy segments, K1's shared-memory
+    kernel) on a planted subset of the ALS-WR configuration (20,000 users,
+    1,777 items, 2 M ratings, one item past 8,192 ratings) against the
+    blocked float64 reference from the same start: the same start, and
+    the norm of each leaf's change within 1e-5 of the reference's (float32
+    Grams of up to ~10⁴ terms and a float32 Cholesky; the TF32 control
+    reads ~3e-5 at the benchmark's tiny size)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from benchmark.gen.planted import planted_split
+    from benchmark.lib import compare
+    from benchmark.reference import mf_als_blocked, mf_sgd
+    from cu2rec_torch.data.csr import CSRRatings
+    from cu2rec_torch.ops import cuda_gram, cuda_linalg
+    from cu2rec_torch.train.als import train_als
+    from cu2rec_torch.utils.config import Config
+    from cu2rec_torch.utils.metrics import MetricsLogger
+
+    with open(root / "benchmark" / "configs" / "netflix-alswr-f300.json") as f:
+        conf = json.load(f)
+    conf["sizes"] = {"n_users": 20_000, "n_items": 1_777,
+                     "n_ratings": 2_000_000, "test_share": 0.1}
+    train, test = planted_split(conf, 7, cuda_device)
+    assert np.bincount(train.indices).max() > 8192
+    U, I, F = train.n_users, train.n_items, 300
+    regs = {k: conf["train"][k] for k in ("P_reg", "Q_reg", "user_bias_reg",
+                                          "item_bias_reg")}
+    mu = float(train.data.astype(np.float64).mean())
+    cfg = Config(seed=7, n_factors=F, total_iterations=1, algo="als",
+                 dtype="float32", **regs)
+
+    def csr(x):
+        return CSRRatings(indptr=x.indptr, indices=x.indices, data=x.data,
+                          n_users=x.n_users, n_items=x.n_items)
+
+    n4, n1 = cuda_gram.LAUNCHES, cuda_linalg.LAUNCHES
+    model, _ = train_als(csr(train), csr(test), cfg, mu,
+                         logger=MetricsLogger(verbose=False),
+                         device=cuda_device)
+    torch.cuda.synchronize()
+    assert cuda_gram.LAUNCHES > n4 and cuda_linalg.LAUNCHES > n1
+    assert cuda_linalg.kernel_for(F + 1) == "shared"
+
+    dev = cuda_device
+    start = [t.to(dev, torch.float64)
+             for t in mf_sgd.init_tables(U, I, F, 7)]
+    u_csr = mf_sgd.to_csr(train, dev)
+    i_csr = mf_als_blocked.transpose(*u_csr, I)
+    ref = mf_als_blocked.sweep(start, float(np.float32(mu)), u_csr, i_csr,
+                               {k: float(np.float32(v))
+                                for k, v in regs.items()})
+    got = (model.P, model.Q, model.user_bias, model.item_bias)
+    d_prog = {k: g.to(dev, torch.float64) - s0
+              for k, g, s0 in zip("PQub", got, start)}
+    d_ref = {k: r - s0 for k, r, s0 in zip("PQub", ref, start)}
+    assert compare.norm_gap(d_prog, d_ref) <= 1e-5
+    assert compare.max_gap(d_prog, d_ref) <= 1e-3
 
 
 @pytest.mark.gpu

@@ -190,7 +190,10 @@ def test_als_run_records_its_layers(recorder):
     assert len(spans["als.sweep"]) == 3
     assert len(spans["als.half_sweep"]) == 6
     assert len(spans["als.chunk"]) == 3 * per_sweep
+    slots = user_chunks.slots + item_chunks.slots
     assert got["counters"] == {"als.sweeps": 3, "als.chunks": 3 * per_sweep,
+                               "als.gram_slots": 3 * slots,
+                               "als.gram_live_slots": 3 * 2 * tr.nnz,
                                "eval.calls": 6}
 
 
