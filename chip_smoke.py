@@ -19,7 +19,9 @@ fatal on failure:
    kernels (``cuda_linalg.kernel_for``), with its time, the plain
    version's, the library call's, the one-block-a-system kernel's and the
    bound at the implicit fold-in wave (B=256, N=100) and at an ALS half
-   sweep of ML-20M's items (B=27,000, N=101);
+   sweep of ML-20M's items (B=27,000, N=101); and the shared-memory kernel
+   at ALS-WR's N = 301 (a sweep's worth of systems and an item chunk's 54)
+   and at N = 129, in µs a system an SM;
 4. training kernels: K0a (the SGD step) for first_wins, twin (mirror and
    lean) and frozen items, three steps each at a small shape and at the
    headline shape (138,000 users, 27,000 items, F=100, 20,000,000 ratings
@@ -220,6 +222,10 @@ SHAPES = [(7, 9), (64, 31), (64, 32), (1000, 51), (64, 63), (64, 64),
           (33, 301), (8, 338), (8, 339), (8, 400)]
 MAIN_SHAPE = (256, 100)          # the implicit fold-in batch at F=100
 ALS_SHAPE = (27_000, 101)        # an ALS item half sweep of ML-20M at F=100
+# K1's shared-memory kernel timed alone: ALS-WR at F = 300 (N = 301) on a
+# sweep's worth of systems and on an item chunk's 54 (under one wave of
+# the card's SMs), and N = 129 (ALS at F = 128).
+SHARED_SHAPES = ((4096, 301), (54, 301), (4096, 129))
 U, I, F = 138_000, 27_000, 100   # bench.py's ML-20M-scale headline model
 N_RATINGS = 1_000_000            # the serve phase's train ratings
 N_HEADLINE = 20_000_000          # bench.py's rating count: K0a and K0b
@@ -447,8 +453,42 @@ def phase_kernels(torch, dev):
     B, N = ALS_SHAPE
     entry["als"] = _time_ridge(torch, cl, [_spd(torch, B, N, seed=2000,
                                                 dev=dev)], reps=10)
+    entry["shared"] = [_time_shared(torch, cl, B, N, dev)
+                       for B, N in SHARED_SHAPES]
     torch.cuda.empty_cache()
     return [entry]
+
+
+def _time_shared(torch, cl, B, N, dev):
+    """K1's shared-memory kernel (one block a system) at B systems of N,
+    checked against its plain version, timed with the stream held: the
+    kernel time, and µs a system an SM, the time × SMs / B over full waves
+    and the time itself for a launch under one wave; and the plain
+    version's time."""
+    from cu2rec_torch.experiments.common import time_ms
+
+    require(cl.kernel_for(N) == "shared", f"N={N} is not the shared kernel's")
+    G, rhs = _spd(torch, B, N, seed=3000 + N, dev=dev)
+    got = cl.ridge_solve_batched_cuda(G, rhs)
+    want = cl.ridge_solve_reference(G, rhs)
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+            f"the shared kernel disagrees with its plain version at B={B} "
+            f"N={N}: {err}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ms = time_ms(cl.ridge_solve_batched_cuda, [(G, rhs)], reps=20, hold=True)
+    plain_ms = time_ms(cl.ridge_solve_reference, [(G, rhs)], reps=1, warm=1)
+    us = ms * 1e3 * (sms / B if B >= sms else 1)
+    n_bytes = 4 * (B * N * (N + 1) // 2 + 2 * B * N)
+    n_ops = B * (N ** 3 / 3 + 2 * N ** 2)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    log(f"[kernel] ridge_cholesky shared B={B} N={N}: {ms:.4f} ms kernel, "
+        f"{us:.2f} us a system an SM ({sms} SMs), {plain_ms:.3f} ms plain, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3e}")
+    del G, rhs, got, want
+    return {"B": B, "N": N, "ms": ms, "us_a_system_an_sm": us,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err}
 
 
 # -- phase 4: the training path's kernels (K0a, K0b) and the probes' (K2, K3)

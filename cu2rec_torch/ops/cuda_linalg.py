@@ -7,14 +7,16 @@ column loop written with batched torch ops.
 
 ``kernel_for(n)`` picks the kernel from N alone: the register-resident
 bucket kernel whose augmented triangle of 32, 64, 104 or 128 rows holds
-N + 1 rows, else the one-block-a-system kernel with its triangle in shared
-memory (N ≤ 338, a block's 227 KB on an H100), else the same kernel on
-global scratch.
+N + 1 rows, else the blocked one-block-a-system kernel with its augmented
+triangle in shared memory (N ≤ 338, a block's 227 KB on an H100), else a
+one-block-a-system kernel on global scratch.
 
 ``ridge_solve_batched_cuda`` is the one entry point.  On CPU tensors it runs
 the plain version; on CUDA tensors it launches the kernel or raises — it
 never falls back to the plain version or to a library solver.  ``LAUNCHES``
-counts kernel launches, so a run can show that it went through the kernel.
+counts kernel launches, so a run can show that it went through the kernel,
+and each launch also counts as ``k1.<kernel>`` (``utils/timing.py::count``,
+recorded only while a trace is on).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from cu2rec_torch.utils.timing import count
 
 KERNEL = "ridge_cholesky"
 # Kernel launches in this process (incremented where the kernel launches).
@@ -31,8 +35,8 @@ _lib = None
 
 # Augmented rows (N + 1) each bucket kernel takes, smallest first.
 BUCKET_ROWS = (32, 64, 104, 128)
-# The largest N whose packed triangle, pivot column and solution fit a
-# block's shared memory on an H100 (232,448 bytes).
+# The largest N whose augmented triangle (rhs as its last row) and one
+# vector of N floats fit a block's shared memory on an H100 (232,448 bytes).
 SHARED_MAX_N = 338
 
 
@@ -105,8 +109,8 @@ def ridge_solve_batched_cuda(G: torch.Tensor,
     """θ = G⁻¹ rhs per system: ``G`` (B, N, N) SPD, ``rhs`` (B, N), float32.
 
     CUDA tensors launch the kernel ``kernel_for(N)`` names on the current
-    stream without synchronizing; CPU tensors run
-    ``ridge_solve_reference``."""
+    stream without synchronizing, and count it (``LAUNCHES`` and the
+    counter ``k1.<kernel>``); CPU tensors run ``ridge_solve_reference``."""
     global LAUNCHES
     _check(G, rhs)
     if G.device.type == "cpu":
@@ -118,8 +122,10 @@ def ridge_solve_batched_cuda(G: torch.Tensor,
     B, n = rhs.shape
     if B == 0 or n == 0:
         return torch.empty_like(rhs)
-    out = _launch(G, rhs, kernel_for(n))
+    kernel = kernel_for(n)
+    out = _launch(G, rhs, kernel)
     LAUNCHES += 1
+    count(f"k1.{kernel}")
     return out
 
 

@@ -108,6 +108,47 @@ def test_shared_kernel_at_n301_on_a_sweeps_worth_of_systems(cuda_device):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
+# The shared-memory kernel's largest error against a float64 solve, by the
+# kind of system (``_system_on_card``'s default and ridge 1e-3): twice what
+# the one-block-a-system kernel before the blocked design read at N = 301,
+# B = 4,096 (8.0e-6 and 2.43e-5, NVIDIA H100 80GB HBM3, 700 W).
+SHARED_F64_BOUND = {"spd": 1.6e-5, "small_ridge": 4.9e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["spd", "small_ridge"])
+@pytest.mark.parametrize("B", [1, 54, 133, 4096])
+@pytest.mark.parametrize("N", [128, 129, 200, 256, 300, 301, 337, 338])
+def test_shared_kernel_matches_plain_and_float64(cuda_device, N, B, kind):
+    """The shared-memory kernel (the blocked Cholesky, 128 ≤ N ≤ 338) at one
+    system, an item-side chunk (54), one past a wave of 132 SMs and a
+    sweep's worth, on well-conditioned and small-ridge systems: within
+    the file's tolerance of its plain version, within
+    ``SHARED_F64_BOUND`` of a float64 solve (``torch.linalg``, a yardstick
+    here only), and counted once as ``k1.shared`` under a trace.  At
+    N = 301, B = 4,096 the kernel before the blocked design read 8.0e-6
+    (well-conditioned) and 2.43e-5 (ridge 1e-3) against float64."""
+    from cu2rec_torch.ops import cuda_linalg
+    from cu2rec_torch.utils import timing
+
+    assert cuda_linalg.kernel_for(N) == "shared"
+    G, rhs = _system_on_card(B, N, seed=N * 10_000 + B, device=cuda_device,
+                             ridge=None if kind == "spd" else 1e-3)
+    n0 = cuda_linalg.LAUNCHES
+    timing.trace_start()
+    try:
+        got = cuda_linalg.ridge_solve_batched_cuda(G, rhs)
+    finally:
+        counters = timing.trace_stop()["counters"]
+    torch.cuda.synchronize()
+    assert cuda_linalg.LAUNCHES == n0 + 1
+    assert counters == {"k1.shared": 1}
+    want = cuda_linalg.ridge_solve_reference(G, rhs)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    exact = torch.linalg.solve(G.double(), rhs.double()[..., None])[..., 0]
+    assert float((got.double() - exact).abs().max()) <= SHARED_F64_BOUND[kind]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("N", [20, 50, 100, 200])
 def test_kernel_matches_plain_with_a_small_ridge(cuda_device, N):
